@@ -5,7 +5,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.decoder_fusion import multipart_conv3x3, pack_weight
+from ..ops.decoder_fusion import conv3x3_parts, multipart_conv3x3, pack_weight
 from ..ops.fused_bn import FusedBatchNormReLU
 from ..ops.layers import TorchConv
 
@@ -15,9 +15,12 @@ class MultipartConv3x3(nn.Module):
 
     `weight` [co, cin, 3, 3] and `bias` [co] are float32 under torch's names, so
     a reference checkpoint's `<node>.conv1.{weight,bias}` load into it. The
-    forward runs `ops.decoder_fusion.multipart_conv3x3` on the parts tuple; its
-    HWIO copy of the weights in the compute dtype is made once and made again
-    only when the weights change (a load, a move to another device).
+    forward runs the decoder-fusion kernel on the parts tuple. When gradients
+    are taken it goes through `ops.decoder_fusion.conv3x3_parts`, which packs
+    the weight on every call so the gradient reaches `weight`; without them
+    (serving, eval) the HWIO copy of the weights in the compute dtype is made
+    once and made again only when the weights change (a step, a load, a move
+    to another device).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -41,6 +44,9 @@ class MultipartConv3x3(nn.Module):
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         dt = self.dtype or parts[0].dtype
         parts = tuple(p.to(dt) for p in parts)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (self.weight, self.bias, *parts)):
+            return conv3x3_parts(parts, self.weight, self.bias)
         return multipart_conv3x3(parts, self.packed_weight(dt), self.bias)
 
 

@@ -1,5 +1,5 @@
 """conv3x3 over a virtual concat of NHWC parts: the decoder-fusion op
-(counterpart of ops/decoder_fusion.py::fused_upcat_conv3x3).
+(counterpart of ops/decoder_fusion.py::fused_upcat_conv3x3 and its custom VJP).
 
 Every nested decoder node of NestedUNet computes
 ``conv3x3(concat(skips..., upsample2x(low))) + bias``. On a CUDA tensor
@@ -10,8 +10,16 @@ is no shape guard and no fall-back. On CPU tensors it runs the plain version,
 `reference_multipart_conv3x3`, which the tests hold against the JAX package.
 
 Weights are HWIO `[3, 3, cin, co]` (co contiguous), the JAX kernel's layout and
-the one the CUDA kernel reads; `pack_weight` makes it from torch's OIHW once.
-This slice is forward-only: inputs that require grad are refused.
+the one the CUDA kernel reads; `pack_weight` makes it from torch's OIHW.
+
+Gradients: `conv3x3_parts` takes torch's OIHW float32 weight and is a
+`torch.autograd.Function` whose forward is `multipart_conv3x3` and whose
+backward is the plain conv VJP (cuDNN), as JAX's `_mp_bwd` is plain XLA: one
+`convolution_backward` per part against its own cin rows of the weight gives
+that part's gradient and its rows of the weight gradient, so the backward
+never builds the concat (nor splits a concatenated gradient); dbias is the
+float32 sum of the gradient over (B, H, W). `multipart_conv3x3` routes
+through it when an input requires grad.
 """
 
 import ctypes
@@ -32,7 +40,8 @@ _LIB = None
 
 
 def pack_weight(weight_oihw: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """torch OIHW [co, cin, 3, 3] -> contiguous HWIO [3, 3, cin, co] in `dtype`."""
+    """torch OIHW [co, cin, 3, 3] -> contiguous HWIO [3, 3, cin, co] in `dtype`
+    (detached: the gradient goes through `conv3x3_parts`)."""
     return weight_oihw.detach().to(dtype).permute(2, 3, 1, 0).contiguous()
 
 
@@ -98,14 +107,18 @@ def multipart_conv3x3(parts: Sequence[torch.Tensor], kernel: torch.Tensor,
     """conv3x3(concat(parts, -1), kernel) + bias; NHWC parts, HWIO kernel.
 
     CUDA tensors: the kernel, bias in float32 added before the one rounding to
-    the parts' dtype. CPU tensors: `reference_multipart_conv3x3`.
+    the parts' dtype. CPU tensors: `reference_multipart_conv3x3`. Inputs that
+    require grad go through `conv3x3_parts` (the kernel's OIHW view).
     """
-    global LAUNCHES
     parts = tuple(parts)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (*parts, kernel, bias)):
-        raise NotImplementedError("multipart_conv3x3 is forward-only; its backward "
-                                  "comes with the training slice (ROADMAP.md)")
+        return conv3x3_parts(parts, kernel.permute(3, 2, 0, 1), bias)
+    return _forward(parts, kernel, bias)
+
+
+def _forward(parts, kernel, bias):
+    global LAUNCHES
     if all(t is None or t.device.type == "cpu" for t in (*parts, kernel, bias)):
         return reference_multipart_conv3x3(parts, kernel, bias)
     if parts[0].device.type != "cuda":
@@ -127,3 +140,46 @@ def multipart_conv3x3(parts: Sequence[torch.Tensor], kernel: torch.Tensor,
         raise RuntimeError(f"decoder_fusion_fwd launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+class _MultipartConv3x3(torch.autograd.Function):
+    """Forward: the kernel (or its plain version) on the packed weight.
+    Backward: the plain conv VJP of reference_multipart_conv3x3."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, *parts):
+        ctx.save_for_backward(weight, *parts)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _forward(parts, pack_weight(weight, parts[0].dtype), bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, *parts = ctx.saved_tensors
+        dt = parts[0].dtype
+        g_nchw = g.to(dt).permute(0, 3, 1, 2)  # channels_last view of the NHWC gradient
+        w = weight.to(dt)
+        need_w = ctx.needs_input_grad[0]
+        dparts, dweights, off = [], [], 0
+        for i, p in enumerate(parts):
+            cp = int(p.shape[-1])
+            # one conv VJP per part against its own cin rows of the weight:
+            # its input gradient and its slice of the weight gradient
+            dp, dw, _ = torch.ops.aten.convolution_backward(
+                g_nchw, p.permute(0, 3, 1, 2), w[:, off:off + cp], None, (1, 1), (1, 1),
+                (1, 1), False, (0, 0), 1, (ctx.needs_input_grad[2 + i], need_w, False))
+            dparts.append(None if dp is None else dp.permute(0, 2, 3, 1).contiguous())
+            dweights.append(dw)
+            off += cp
+        dweight = torch.cat(dweights, dim=1).to(weight.dtype) if need_w else None
+        dbias = None
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[1]:
+            dbias = g.to(torch.float32).sum((0, 1, 2)).to(ctx.bias_dtype)
+        return (dweight, dbias, *dparts)
+
+
+def conv3x3_parts(parts: Sequence[torch.Tensor], weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable conv3x3(concat(parts, -1)) + bias with torch's OIHW
+    weight [co, cin, 3, 3] (float32), packed to HWIO in the parts' dtype inside.
+    Gradients reach the parts, the OIHW weight and the bias."""
+    return _MultipartConv3x3.apply(weight, bias, *parts)

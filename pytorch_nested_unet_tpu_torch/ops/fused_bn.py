@@ -1,22 +1,256 @@
-"""BatchNorm2d + ReLU over NHWC tensors, eval mode (counterpart of
-ops/fused_bn.py::FusedBatchNormReLU, running-stat branch :341-344).
+"""BatchNorm2d + ReLU over NHWC tensors (counterpart of ops/fused_bn.py).
 
-The JAX module's three Pallas kernels (statistics, backward reduction,
-backward dx) run only in training; they are queued for the training slice
-(ROADMAP K1-K3), so train mode raises here.
+Eval mode normalizes with the running statistics (the JAX module's
+running-stat branch, :341-344). Train mode normalizes with the batch
+statistics through `BNReLUTrain`, the counterpart of the JAX custom VJP
+`fused_bn_relu_train` (:203-299), on three kernels over the (N*H*W, C) view:
+
+- K1 `bn_stats`: per-channel sum x and sum x^2, then mean, biased variance,
+  rsqrt(var + eps) and the running-stat update (JAX: `bn_stats`, :145-173);
+- K2 `bn_bwd_reduce`: [sum dz, sum dz*xhat] = [dbeta, dgamma], with xhat and
+  the ReLU mask recomputed from x (JAX: `_bwd_reduce_kernel`, :114-124);
+- K3 `bn_bwd_dx`: dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n) (JAX:
+  `_bwd_dx_kernel`, :127-134).
+
+On CUDA tensors each wrapper launches its kernel in `csrc/fused_bn.cu` (any C
+and row count; no shape guard, no fall-back). On CPU tensors it runs the
+plain version beside it (`reference_bn_*`), which the tests hold against the
+JAX package. The normalize+ReLU pass between K1 and K2 is plain elementwise
+torch, as it is plain XLA in JAX (:223-225).
 """
 
+import ctypes
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
+from . import _build
+
+# Launches of each kernel; chip_smoke.py zeroes them before driving the
+# training path and reads them after.
+LAUNCHES = {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+
+MOMENTUM = 0.9  # running-stat decay (torch momentum 0.1)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TARGET_BLOCKS = 1056  # csrc/fused_bn.cu kTargetBlocks: most row chunks per layout
+_LIB = None
+
+
+# ---------------------------------------------------------------- plain versions
+
+def reference_bn_stats(x2d: torch.Tensor, eps: float = 1e-5,
+                       running_mean: Optional[torch.Tensor] = None,
+                       running_var: Optional[torch.Tensor] = None,
+                       momentum: float = MOMENTUM):
+    """Plain K1: (sum, sumsq, mean, biased var, inv) of the (n, C) view, f32.
+
+    With running stats given, updates them in place: run = momentum*run +
+    (1 - momentum)*stat, the variance taken unbiased (times n/(n-1)).
+    """
+    n = x2d.shape[0]
+    xf = x2d.to(torch.float32)
+    s, ss = xf.sum(0), (xf * xf).sum(0)
+    mean = s / n
+    var = torch.clamp(ss / n - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    if running_mean is not None:
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var
+                          + (1 - momentum) * (var * (n / max(n - 1, 1))))
+    return s, ss, mean, var, inv
+
+
+def _xhat_dz(x2d, dy2d, mean, inv, gamma, beta):
+    """xhat and the ReLU-masked gradient dz, as `_dz_common` computes them."""
+    xhat = (x2d.to(torch.float32) - mean) * inv
+    dz = torch.where(gamma * xhat + beta > 0.0, dy2d.to(torch.float32), 0.0)
+    return xhat, dz
+
+
+def reference_bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta):
+    """Plain K2: (dbeta, dgamma) = per-channel (sum dz, sum dz*xhat), f32."""
+    xhat, dz = _xhat_dz(x2d, dy2d, mean, inv, gamma, beta)
+    return dz.sum(0), (dz * xhat).sum(0)
+
+
+def reference_bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma):
+    """Plain K3: dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n) in x's dtype."""
+    n = float(x2d.shape[0])
+    xhat, dz = _xhat_dz(x2d, dy2d, mean, inv, gamma, beta)
+    dx = (gamma * inv) * (dz - dbeta / n - xhat * dgamma / n)
+    return dx.to(x2d.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("fused_bn")
+        p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+        lib.bn_stats.argtypes = [i, p, ll, i, d, d, p, ll, p, p, p, p]
+        lib.bn_bwd_reduce.argtypes = [i, p, p, ll, i, p, p, p, p, p, ll, p, p]
+        lib.bn_bwd_dx.argtypes = [i, p, p, ll, i, p, p, p, p, p, p, p, p]
+        for fn in (lib.bn_stats, lib.bn_bwd_reduce, lib.bn_bwd_dx):
+            fn.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _is_cpu(*tensors) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
+def _check(name, x2d, rows_like=(), vectors=()):
+    """Validate the CUDA call: 2-D contiguous (rows, C) activations of one
+    dtype, contiguous float32 [C] vectors, all on x2d's device."""
+    if x2d.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x2d.device}")
+    if x2d.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x2d.dtype} not supported (float32, bfloat16)")
+    if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.shape[0] < 1 or x2d.shape[1] < 1:
+        raise ValueError(f"{name}: x must be a contiguous non-empty (rows, C) view, "
+                         f"got {tuple(x2d.shape)}")
+    for t in rows_like:
+        if t.device != x2d.device or t.dtype != x2d.dtype or t.shape != x2d.shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: dy must be contiguous {tuple(x2d.shape)} "
+                             f"{x2d.dtype} on {x2d.device}")
+    c = x2d.shape[1]
+    for t in vectors:
+        if t is None:
+            continue
+        if t.device != x2d.device or t.dtype != torch.float32 or tuple(t.shape) != (c,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: per-channel vectors must be contiguous float32 "
+                             f"({c},) on {x2d.device}")
+    return x2d.shape[0], c
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def bn_stats(x2d: torch.Tensor, eps: float = 1e-5,
+             running_mean: Optional[torch.Tensor] = None,
+             running_var: Optional[torch.Tensor] = None, momentum: float = MOMENTUM):
+    """K1: (sum, sumsq, mean, biased var, inv), float32 [C] each, of the
+    (rows, C) view; updates the running stats in place when given.
+
+    CUDA tensors: the kernel (two-stage reduction, no float atomics). CPU
+    tensors: `reference_bn_stats`.
+    """
+    if _is_cpu(x2d, running_mean, running_var):
+        return reference_bn_stats(x2d, eps, running_mean, running_var, momentum)
+    rows, c = _check("bn_stats", x2d, vectors=(running_mean, running_var))
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("bn_stats: give both running stats or neither")
+    dev = x2d.device
+    work_floats = 2 * min(rows, _TARGET_BLOCKS) * c
+    work = torch.empty(work_floats, dtype=torch.float32, device=dev)
+    out = torch.empty((5, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().bn_stats(
+            _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), rows, c, eps, momentum,
+            work.data_ptr(), work_floats, out.data_ptr(),
+            None if running_mean is None else running_mean.data_ptr(),
+            None if running_var is None else running_var.data_ptr(), _stream(dev))
+    _raise_on(err, "bn_stats")
+    LAUNCHES["bn_stats"] += 1
+    return tuple(out.unbind(0))
+
+
+def bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta):
+    """K2: (dbeta, dgamma) in float32, xhat and the ReLU mask recomputed from
+    x. CUDA tensors: the kernel; CPU tensors: `reference_bn_bwd_reduce`."""
+    if _is_cpu(x2d, dy2d, mean, inv, gamma, beta):
+        return reference_bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta)
+    rows, c = _check("bn_bwd_reduce", x2d, (dy2d,), (mean, inv, gamma, beta))
+    dev = x2d.device
+    work_floats = 2 * min(rows, _TARGET_BLOCKS) * c
+    work = torch.empty(work_floats, dtype=torch.float32, device=dev)
+    out = torch.empty((2, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().bn_bwd_reduce(
+            _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy2d.data_ptr(), rows, c,
+            mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            work.data_ptr(), work_floats, out.data_ptr(), _stream(dev))
+    _raise_on(err, "bn_bwd_reduce")
+    LAUNCHES["bn_bwd_reduce"] += 1
+    return out[0], out[1]
+
+
+def bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma):
+    """K3: dx in x's dtype. CUDA tensors: the kernel; CPU tensors:
+    `reference_bn_bwd_dx`."""
+    if _is_cpu(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma):
+        return reference_bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma)
+    rows, c = _check("bn_bwd_dx", x2d, (dy2d,), (mean, inv, gamma, beta, dbeta, dgamma))
+    dev = x2d.device
+    dx = torch.empty_like(x2d)
+    with torch.cuda.device(dev):
+        err = _lib().bn_bwd_dx(
+            _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy2d.data_ptr(), rows, c,
+            mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            dbeta.data_ptr(), dgamma.data_ptr(), dx.data_ptr(), _stream(dev))
+    _raise_on(err, "bn_bwd_dx")
+    LAUNCHES["bn_bwd_dx"] += 1
+    return dx
+
+
+# ---------------------------------------------------------------- autograd
+
+class BNReLUTrain(torch.autograd.Function):
+    """Training-mode BN + ReLU on NHWC x -> (y, batch mean, biased batch var).
+
+    Forward: K1, then y = relu((x - mean) * (inv*gamma) + beta) in f32, cast
+    to x's dtype; the running stats (when given) are updated by K1. Saves
+    (x, mean, inv, gamma, beta), not the pre-activation. Backward: K2 then K3;
+    the mean and var outputs take no gradient (JAX: :237).
+    """
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, running_mean, running_var, momentum):
+        c = x.shape[-1]
+        x = x.contiguous()
+        _, _, mean, var, inv = bn_stats(x.view(-1, c), eps, running_mean, running_var,
+                                        momentum)
+        y = torch.relu((x.to(torch.float32) - mean) * (inv * gamma) + beta).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, gamma, beta)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, gamma, beta = ctx.saved_tensors
+        c = x.shape[-1]
+        x2d = x.view(-1, c)
+        dy2d = dy.to(x.dtype).contiguous().view(-1, c)
+        dbeta, dgamma = bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta)
+        dx = bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma)
+        return dx.view(x.shape), dgamma, dbeta, None, None, None, None
+
+
+def fused_bn_relu_train(x, gamma, beta, eps: float = 1e-5, running_mean=None,
+                        running_var=None, momentum: float = MOMENTUM):
+    """Training-mode BN + ReLU: (y, mean, var), as JAX's fused_bn_relu_train."""
+    return BNReLUTrain.apply(x, gamma, beta, eps, running_mean, running_var, momentum)
+
 
 class FusedBatchNormReLU(nn.Module):
-    """relu((x - running_mean) * rsqrt(running_var + eps) * weight + bias).
+    """BatchNorm2d + ReLU with torch semantics: momentum 0.1 (decay 0.9), eps
+    1e-5, float32 weight/bias/statistics, unbiased running variance.
 
-    The math runs in float32 whatever the compute dtype, and the result is cast
-    back to `dtype` (or to the input's dtype when `dtype` is None).
+    Train mode: batch statistics through `BNReLUTrain` (K1-K3), and the running
+    stats updated in place. Eval mode: relu((x - running_mean) *
+    rsqrt(running_var + eps) * weight + bias). The math runs in float32 and the
+    result is cast to `dtype` (or to the input's dtype when `dtype` is None).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -30,12 +264,11 @@ class FusedBatchNormReLU(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "FusedBatchNormReLU train mode (batch statistics, the backward "
-                "kernels) is not ported yet: see ROADMAP.md queue 2, K1-K3; "
-                "call model.eval() to use the running statistics")
         out_dtype = self.dtype or x.dtype
+        if self.training:
+            y, _, _ = fused_bn_relu_train(x, self.weight, self.bias, self.eps,
+                                          self.running_mean, self.running_var)
+            return y.to(out_dtype)
         scale = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.to(torch.float32) - self.running_mean) * scale + self.bias
         return torch.relu(y).to(out_dtype)

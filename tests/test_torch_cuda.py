@@ -1,5 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, and the
-model on the card against the same weights on the CPU.
+"""The port on a CUDA card: each kernel against its plain version, K4's
+gradients against autograd through its plain version, and the model (serving
+and one train step) on the card against the same weights on the CPU.
 
 Every test carries the `cuda` marker and skips on a host without CUDA (the
 `cuda` fixture decides, at run time). This file imports no JAX, so on a
@@ -13,7 +14,11 @@ import pytest
 import torch
 
 from pytorch_nested_unet_tpu_torch.infer import Predictor
+from pytorch_nested_unet_tpu_torch.models import create_model
 from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
+from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
+from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
+from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +85,117 @@ def test_predictor_cuda_matches_cpu(cuda):
     sd = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
     ref = Predictor(device="cpu", weights=sd, **kw).predict_u8(images)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# K1-K3, against the plain version in f32 on the same (rounded) inputs. The
+# per-channel sums differ by summation order only; dbeta and dgamma add terms
+# of either sign, so their error is held against the sum of the summands'
+# magnitudes (1e-6 of it). mean, var, inv and the running stats atol = rtol =
+# 1e-5 (f32) / 1e-4 (bf16); dx 1e-4 (f32) / 1e-2 (bf16, rounded once).
+BN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
+
+
+def _assert_sums_close(got, want, magnitude):
+    assert ((got - want).abs() <= 1e-6 * magnitude).all(), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,rows", [
+    (32, 1000), (64, 37), (1, 1), (1, 1000), (3, 37), (48, 1000), (70, 37), (70, 1),
+    (512, 576), (256, 2304),
+])
+def test_bn_kernels(cuda, dtype, c, rows):
+    g = torch.Generator().manual_seed(1000 * c + rows)
+    x = (torch.randn(rows, c, generator=g) * 1.5 + 0.3).to(cuda, dtype)
+    dy = torch.randn(rows, c, generator=g).to(cuda, dtype)
+    gamma = (torch.rand(c, generator=g) + 0.5).to(cuda)
+    beta = (torch.rand(c, generator=g) * 0.6 - 0.3).to(cuda)
+    rm, rv = torch.zeros(c, device=cuda), torch.ones(c, device=cuda)
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    vec_tol, dx_tol = BN_TOL[dtype]
+    before = dict(bn.LAUNCHES)
+
+    xf, dyf = x.float(), dy.float()
+    got = bn.bn_stats(x, 1e-5, rm, rv)
+    want = bn.reference_bn_stats(xf, 1e-5, rm_ref, rv_ref)
+    _assert_sums_close(got[0], want[0], xf.abs().sum(0))
+    _assert_sums_close(got[1], want[1], (xf * xf).sum(0))
+    for a, b in zip((*got[2:], rm, rv), (*want[2:], rm_ref, rv_ref)):
+        torch.testing.assert_close(a, b, atol=vec_tol, rtol=vec_tol)
+
+    _, _, mean, _, inv = want
+    dbeta, dgamma = bn.bn_bwd_reduce(x, dy, mean, inv, gamma, beta)
+    ref_db, ref_dg = bn.reference_bn_bwd_reduce(xf, dyf, mean, inv, gamma, beta)
+    xhat = (xf - mean) * inv
+    dz = torch.where(gamma * xhat + beta > 0, dyf, 0.0)
+    _assert_sums_close(dbeta, ref_db, dz.abs().sum(0))
+    _assert_sums_close(dgamma, ref_dg, (dz * xhat).abs().sum(0))
+    dx = bn.bn_bwd_dx(x, dy, mean, inv, gamma, beta, ref_db, ref_dg)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.shape == x.shape
+    ref_dx = bn.reference_bn_bwd_dx(xf, dyf, mean, inv, gamma, beta, ref_db, ref_dg)
+    torch.testing.assert_close(dx.float(), ref_dx, atol=dx_tol, rtol=dx_tol)
+    assert {k: bn.LAUNCHES[k] - before[k] for k in before} == {
+        "bn_stats": 1, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
+    # no float atomics: the same inputs give the same bits
+    assert torch.equal(bn.bn_stats(x)[0], got[0])
+
+
+def test_bn_kernels_reject_bad_inputs(cuda):
+    x = torch.randn(8, 4, device=cuda)
+    with pytest.raises(ValueError):
+        bn.bn_stats(x.t())  # not contiguous (rows, C)
+    with pytest.raises(TypeError):
+        bn.bn_stats(x.half())
+    with pytest.raises(ValueError):
+        bn.bn_bwd_reduce(x, x.bfloat16(), *[torch.ones(4, device=cuda)] * 4)
+
+
+@pytest.mark.parametrize("cps,co,hw", [((32, 64), 32, (24, 24)), ((5, 3, 8), 6, (13, 10))])
+def test_multipart_conv3x3_gradients(cuda, cps, co, hw):
+    parts, kernel, bias = _inputs(2, cps, co, hw, cuda, torch.float32)
+    weight = kernel.permute(3, 2, 0, 1).contiguous().requires_grad_(True)
+    bias.requires_grad_(True)
+    ps = [p.clone().requires_grad_(True) for p in parts]
+    ct = torch.randn(2, *hw, co, device=cuda)
+    before = df.LAUNCHES
+    (df.conv3x3_parts(ps, weight, bias) * ct).sum().backward()
+    assert df.LAUNCHES == before + 1
+    ref_ps = [p.clone().requires_grad_(True) for p in parts]
+    ref_w = weight.detach().clone().requires_grad_(True)
+    ref_b = bias.detach().clone().requires_grad_(True)
+    (df.reference_multipart_conv3x3(ref_ps, ref_w.permute(2, 3, 1, 0), ref_b) * ct).sum().backward()
+    for got, want in [(p.grad, r.grad) for p, r in zip(ps, ref_ps)] + [
+            (weight.grad, ref_w.grad), (bias.grad, ref_b.grad)]:
+        assert (got - want).norm() <= 1e-4 * want.norm()
+
+
+def test_train_step_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(1)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))
+    masks = torch.from_numpy((rng.random((2, 32, 32, 1)) > 0.6).astype(np.uint8) * 255)
+    models, metrics = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW).to(dev)
+        step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-2), "BCEDiceLoss",
+                               True, augment="none")
+        before = (dict(bn.LAUNCHES), df.LAUNCHES)
+        metrics[dev] = step(imgs.to(dev), masks.to(dev), torch.Generator(device=dev))
+        if dev == "cuda":
+            assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
+                "bn_stats": 30, "bn_bwd_reduce": 30, "bn_bwd_dx": 30}
+            assert df.LAUNCHES - before[1] == 10
+        models[dev] = m
+    assert abs(float(metrics["cuda"]["loss"]) - float(metrics["cpu"]["loss"])) <= 1e-5
+    # relative to the larger of the parameter's own gradient norm and its
+    # module's weight gradient norm: a conv bias that feeds a BN has a true
+    # gradient of zero (the BN's mean subtraction cancels it), so both devices
+    # compute rounding noise for it
+    grads = {n: p.grad for n, p in models["cpu"].named_parameters()}
+    for name, p in models["cuda"].named_parameters():
+        want = grads[name]
+        scale = max(want.norm(), grads[name.rsplit(".", 1)[0] + ".weight"].norm())
+        assert (p.grad.cpu() - want).norm() <= 1e-4 * scale, name
+    cpu_bufs = dict(models["cpu"].named_buffers())
+    for name, b in models["cuda"].named_buffers():
+        torch.testing.assert_close(b.cpu(), cpu_bufs[name], atol=1e-5, rtol=1e-5)

@@ -3,8 +3,10 @@
 On CPU the port's `multipart_conv3x3` runs its plain version,
 `reference_multipart_conv3x3` (torch.cat + F.conv2d); the JAX side runs
 `fused_upcat_conv3x3` with the Pallas kernel in interpret mode. Same numpy
-inputs, f32, atol = rtol = 1e-5 (summation order only). The CUDA kernel itself
-is held against the plain version on the card by tests/test_torch_cuda.py and
+inputs, f32, atol = rtol = 1e-5 (summation order only), for the forward and for
+the gradients of the differentiable op (`conv3x3_parts`) against `jax.grad`
+through the Pallas forward and its XLA conv VJP. The CUDA kernel itself is
+held against the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
@@ -12,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,12 +90,82 @@ def test_pack_weight_is_hwio():
 
 
 def test_forward_only():
+    """Without grad the op is the plain forward; with grad it is differentiable
+    and the kernel's HWIO weight gets its gradient through the OIHW view."""
     parts, kernel, bias = _inputs(2, (3,), 2, (4, 4))
     k = _t(kernel).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        tdf.multipart_conv3x3([_t(p) for p in parts], k, _t(bias))
     with torch.no_grad():
-        tdf.multipart_conv3x3([_t(p) for p in parts], k, _t(bias))
+        out0 = tdf.multipart_conv3x3([_t(p) for p in parts], k, _t(bias))
+    assert not out0.requires_grad
+    out = tdf.multipart_conv3x3([_t(p) for p in parts], k, _t(bias))
+    assert out.requires_grad
+    np.testing.assert_array_equal(out.detach().numpy(), out0.numpy())
+    out.sum().backward()
+    assert k.grad is not None and k.grad.shape == k.shape
+    np.testing.assert_allclose(k.grad.numpy(), np.asarray(jax.grad(
+        lambda kk: jnp.sum(jdf.reference_multipart_conv3x3(
+            [jnp.asarray(p) for p in parts], kk, jnp.asarray(bias))))(jnp.asarray(kernel))),
+        atol=1e-5, rtol=1e-5)
+
+
+def _jax_grads(parts, kernel, bias, ct):
+    """jax.grad of sum(fused_upcat_conv3x3(...) * ct) through the Pallas path."""
+    def f(ps, kk, bb):
+        return jnp.sum(jdf.fused_upcat_conv3x3(ps, kk, bb) * ct)
+
+    assert jdf._supported([jnp.asarray(p) for p in parts], jnp.asarray(kernel))
+    return jax.grad(f, argnums=(0, 1, 2))(
+        tuple(jnp.asarray(p) for p in parts), jnp.asarray(kernel), jnp.asarray(bias))
+
+
+@pytest.mark.parametrize("cps,co,hw", [
+    ((5, 3, 8), 6, (16, 16)), ((32, 64), 32, (12, 16)), ((7,), 4, (8, 8)),
+    ((4, 4, 4, 4, 8), 8, (8, 16)),
+])
+def test_conv3x3_parts_grads_match_jax(cps, co, hw):
+    parts, kernel, bias = _inputs(3, cps, co, hw)
+    ct = np.random.default_rng(4).standard_normal((2, *hw, co)).astype(np.float32)
+    dparts_ref, dkernel_ref, dbias_ref = _jax_grads(parts, kernel, bias, jnp.asarray(ct))
+
+    tparts = [_t(p).requires_grad_(True) for p in parts]
+    weight = torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    tbias = _t(bias).requires_grad_(True)
+    out = tdf.conv3x3_parts(tparts, weight, tbias)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jdf.fused_upcat_conv3x3(
+                                   tuple(jnp.asarray(p) for p in parts), jnp.asarray(kernel),
+                                   jnp.asarray(bias))), atol=1e-5, rtol=1e-5)
+    (out * torch.from_numpy(ct)).sum().backward()
+    for p, ref in zip(tparts, dparts_ref):
+        assert p.grad.shape == p.shape and p.grad.is_contiguous()
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert weight.grad.shape == (co, sum(cps), 3, 3) and weight.grad.dtype == torch.float32
+    np.testing.assert_allclose(weight.grad.numpy(),
+                               np.asarray(dkernel_ref).transpose(3, 2, 0, 1),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(tbias.grad.numpy(), np.asarray(dbias_ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_module_weight_gets_its_gradient():
+    """MultipartConv3x3.weight receives the conv's weight gradient in OIHW (a
+    detached packed copy would leave it None)."""
+    from pytorch_nested_unet_tpu_torch.models.blocks import MultipartConv3x3
+
+    parts, kernel, bias = _inputs(5, (4, 6), 5, (8, 8))
+    ct = np.random.default_rng(6).standard_normal((2, 8, 8, 5)).astype(np.float32)
+    _, dkernel_ref, dbias_ref = _jax_grads(parts, kernel, bias, jnp.asarray(ct))
+    m = MultipartConv3x3(10, 5)
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()))
+        m.bias.copy_(_t(bias))
+    (m(tuple(_t(p) for p in parts)) * torch.from_numpy(ct)).sum().backward()
+    assert m.weight.grad is not None and m.bias.grad is not None
+    np.testing.assert_allclose(m.weight.grad.numpy(),
+                               np.asarray(dkernel_ref).transpose(3, 2, 0, 1),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(m.bias.grad.numpy(), np.asarray(dbias_ref), atol=1e-5,
+                               rtol=1e-5)
 
 
 def test_imports_without_nvcc():

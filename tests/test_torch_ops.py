@@ -87,8 +87,18 @@ def test_fused_bn_relu_eval(dtype):
 
 
 def test_fused_bn_relu_train_mode_raises():
-    with pytest.raises(NotImplementedError, match="K1-K3"):
-        tbn.FusedBatchNormReLU(4).train()(torch.zeros(1, 2, 2, 4))
+    """Train mode normalizes with the batch statistics (K1-K3; their plain
+    versions on the CPU) and updates the running stats; it raises on an input
+    whose channel count is not the module's."""
+    m = tbn.FusedBatchNormReLU(4).train()
+    x = torch.arange(16.0).reshape(1, 2, 2, 4)
+    y = m(x)
+    mean, var = x.reshape(-1, 4).mean(0), x.reshape(-1, 4).var(0, unbiased=False)
+    torch.testing.assert_close(y, torch.relu((x - mean) / torch.sqrt(var + 1e-5)))
+    torch.testing.assert_close(m.running_mean, 0.1 * mean)
+    torch.testing.assert_close(m.running_var, 0.9 + 0.1 * var * 4 / 3)
+    with pytest.raises(RuntimeError):
+        m(torch.zeros(1, 2, 2, 3))
 
 
 @pytest.mark.parametrize("k,pad", [(3, 1), (1, 0)])
