@@ -4,11 +4,15 @@
     python3 chip_smoke.py
 
 1. header: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
-2. build every CUDA kernel of the port from the sources in this checkout;
+2. build every CUDA kernel of the port from the sources in this checkout,
+   print ptxas' registers and spills, and count the tensor-core (HMMA)
+   instructions of each decoder-fusion kernel in its SASS (the bf16 kernels
+   must have some);
 3. K4 kernel phase: the decoder-fusion kernel against its plain PyTorch
    version at the shapes the serving path gives it (NestedUNet full width,
-   batch 16, 96x96) and at ragged shapes, in float32 and bfloat16, with its
-   time, the plain version's, one library call's as a yardstick, and the
+   batch 16, 96x96) and at shapes on the edges of its tiling, in float32 and
+   bfloat16, with its time (and TFLOP/s, share of the bound, bf16 launch
+   plan), the plain version's, one library call's as a yardstick, and the
    card's bound for the same work;
 4. serving path phase: full-width NestedUNet with deep supervision served
    through `Predictor` (8 requests of 16 uint8 96x96 images, fp32 then bf16),
@@ -66,7 +70,18 @@ NODES = [
     ("x2_1", 24, (128, 256), 128), ("x2_2", 24, (128, 128, 256), 128),
     ("x3_1", 12, (256, 512), 256),
 ]
-RAGGED = [("single_part", (2, 13, 10), (7,), 5), ("three_part", (2, 13, 10), (5, 3, 8), 6)]
+# Edges of the kernels' tiling: (name, (B, H, W), part channels, co). A part
+# whose channel count is not a multiple of 8 is staged by scalar loads, a co
+# that is not one by scalar weight loads and stores; H and W off the pixel
+# tiles (12x12, 8x16, 4x12) and co off the 32/64-wide slices leave ragged tiles;
+# eight_parts and split_k split K over clusters of 2 blocks.
+RAGGED = [("single_part", (2, 13, 10), (7,), 5), ("three_part", (2, 13, 10), (5, 3, 8), 6),
+          ("eight_parts", (2, 13, 10), (8, 16, 8, 24, 8, 8, 32, 40), 48),
+          ("odd_part_between", (2, 12, 12), (32, 5, 64), 64),
+          ("co_70_batch1", (1, 24, 24), (64, 128), 70),
+          ("co_136_batch1", (1, 13, 10), (96, 40), 136),
+          ("split_k", (1, 12, 12), (256, 200), 136),
+          ("one_ch_parts", (2, 5, 33), (1,) * 8, 3)]
 # The training step's BN work: (level, C, rows = 16*S*S, BN instances per step)
 BN_LEVELS = [(lvl, NB[lvl], BATCH * (SIZE >> lvl) ** 2, n)
              for lvl, n in zip(range(5), (10, 8, 6, 4, 2))]
@@ -140,8 +155,15 @@ def conv_bound_ms(b, h, w, cps, co, dtype):
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
+# K4's nodes take 0.04-0.8 ms; single runs of the bf16 kernel spread by up to
+# 30% between calls, so each time is the mean of 30 flushed runs.
+K4_REPS = 30
+
+
 def kernel_phase(df, dev):
-    """K4 against its plain version; returns {dtype: summary} over the nodes."""
+    """K4 against its plain version; returns {dtype: summary} over the nodes.
+    Prints each case's TFLOP/s and share of the bound and, in bf16, the
+    launch the kernel makes (pixel tile, co per block, K split, blocks)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     F = torch.nn.functional
@@ -169,18 +191,25 @@ def kernel_phase(df, dev):
                 raise AssertionError(f"K4 {name} {DTYPE_NAME[dtype]}: max abs err {err} "
                                      f"outside atol=rtol={tol}")
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            ms = time_ms(lambda: df.multipart_conv3x3(parts, kernel, bias), flush)
+            ms = time_ms(lambda: df.multipart_conv3x3(parts, kernel, bias), flush, K4_REPS)
             plain_ms = time_ms(lambda: df.reference_multipart_conv3x3(parts, kernel, bias),
-                               flush)
+                               flush, K4_REPS)
             w_oihw = kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             lib_bias = bias.to(dtype)
             lib_ms = time_ms(lambda: F.conv2d(torch.cat(parts, -1).permute(0, 3, 1, 2),
-                                              w_oihw, lib_bias, padding=1), flush)
+                                              w_oihw, lib_bias, padding=1), flush, K4_REPS)
             bound, by = conv_bound_ms(b, h, w, cps, co, dtype)
+            tflops = 2.0 * b * h * w * 9 * cin * co / (ms * 1e-3) / 1e12
+            grid = ""
+            if dtype == torch.bfloat16:
+                plan = df.bf16_launch_plan(b, h, w, cps, co)
+                grid = (f" | tile {plan['tile_h']}x{plan['tile_w']}x{plan['co_per_block']}, "
+                        f"split {plan['split']}, {plan['blocks']} blocks of {plan['threads']}")
             print(f"K4 {DTYPE_NAME[dtype]} {name:11s} B={b} {h}x{w} parts={cps} co={co}: "
-                  f"max_abs_err {err:.3g} (tol {tol}) | kernel {ms:.4f} ms | plain "
+                  f"max_abs_err {err:.3g} (tol {tol}) | kernel {ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s, {100 * bound / ms:.1f}% of bound) | plain "
                   f"{plain_ms:.4f} ms | library {lib_ms:.4f} ms | bound {bound:.4g} ms "
-                  f"({by})", flush=True)
+                  f"({by}){grid}", flush=True)
             if name in node_names:  # the serving path's work: one forward
                 agg["ms"] += ms
                 agg["plain_ms"] += plain_ms
@@ -188,8 +217,28 @@ def kernel_phase(df, dev):
                 agg["bound_ms"] += bound
                 agg[by] += bound
         agg["bound_by"] = "bytes" if agg.pop("bytes") > agg.pop("operations") else "operations"
+        print(f"K4 {DTYPE_NAME[dtype]} over the 10 nodes of one forward: kernel {agg['ms']:.4f} "
+              f"ms | plain {agg['plain_ms']:.4f} ms | library {agg['library_ms']:.4f} ms | "
+              f"bound {agg['bound_ms']:.4f} ms ({agg['bound_by']})", flush=True)
         out[dtype] = agg
     return out
+
+
+def hmma_counts(build, name):
+    """Tensor-core (HMMA) instructions per kernel in the SASS of csrc/<name>.cu
+    as built (cuobjdump beside nvcc)."""
+    tool = os.path.join(os.path.dirname(os.path.realpath(build.nvcc_path())), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build._lib_path(name)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def profile_batches(pred, request, precision):
@@ -681,6 +730,12 @@ def main():
         for line in log.splitlines():
             if re.search(r"registers|spill", line):
                 print(f"  ptxas {name}: {line.strip()}")
+    hmma = hmma_counts(_build, "decoder_fusion")
+    for fn, count in hmma.items():
+        print(f"  SASS decoder_fusion: {count} HMMA in {fn}")
+    bf16_fns = [fn for fn in hmma if "bf16_mma" in fn]
+    if not bf16_fns or not all(hmma[fn] for fn in bf16_fns):
+        raise AssertionError(f"K4 bf16: tensor-core kernels without HMMA in their SASS: {hmma}")
 
     k4 = kernel_phase(df, dev)
     serve_launches = path_phase(df, card)

@@ -44,13 +44,21 @@ def _inputs(seed, cps, co, hw, dev, dtype, batch=2):
 
 # f32: summation order over K = 9*cin; bf16: one rounding of the output, and the
 # plain version adds the bias after that rounding where the kernel adds it before.
+# The shapes hit the edges of the bf16 kernel's tiling: 8 parts (MAX_PARTS), a
+# part whose channel count is not a multiple of 8 between parts whose are (scalar
+# staging), co not a multiple of 8 (scalar weights and stores) and co > 128,
+# H and W off the 12x12 / 8x16 / 4x12 pixel tiles, batch 1, and K split over a
+# cluster of 2 blocks (the last three shapes).
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("cps,co,hw", [
-    ((5, 3, 8), 6, (13, 10)), ((7,), 4, (1, 1)), ((32, 32, 64), 32, (24, 24)),
-    ((64, 128), 70, (9, 17)), ((1,) * 8, 3, (5, 33)),
+@pytest.mark.parametrize("cps,co,hw,batch", [
+    ((5, 3, 8), 6, (13, 10), 2), ((7,), 4, (1, 1), 2), ((32, 32, 64), 32, (24, 24), 2),
+    ((64, 128), 70, (9, 17), 2), ((1,) * 8, 3, (5, 33), 2),
+    ((32, 5, 64), 64, (12, 12), 2), ((96, 40), 136, (13, 10), 1),
+    ((64, 128), 70, (24, 24), 1), ((8, 16, 8, 24, 8, 8, 32, 40), 48, (13, 10), 2),
+    ((256, 200), 136, (12, 12), 1), ((256, 512), 256, (12, 12), 2),
 ])
-def test_multipart_conv3x3_kernel(cuda, dtype, tol, cps, co, hw):
-    parts, kernel, bias = _inputs(0, cps, co, hw, cuda, dtype)
+def test_multipart_conv3x3_kernel(cuda, dtype, tol, cps, co, hw, batch):
+    parts, kernel, bias = _inputs(0, cps, co, hw, cuda, dtype, batch=batch)
     before = df.LAUNCHES
     out = df.multipart_conv3x3(parts, kernel, bias)
     torch.cuda.synchronize()
@@ -61,6 +69,35 @@ def test_multipart_conv3x3_kernel(cuda, dtype, tol, cps, co, hw):
     nobias = df.multipart_conv3x3(parts, kernel)
     ref0 = df.reference_multipart_conv3x3([p.float() for p in parts], kernel.float())
     torch.testing.assert_close(nobias.float(), ref0, atol=tol, rtol=tol)
+
+
+# NestedUNet's decoder nodes at batch 16: (H = W, part channels, co)
+NODES = [(96, (32, 64), 32), (96, (32, 32, 64), 32), (96, (32, 32, 32, 64), 32),
+         (96, (32, 32, 32, 32, 64), 32), (48, (64, 128), 64), (48, (64, 64, 128), 64),
+         (48, (64, 64, 64, 128), 64), (24, (128, 256), 128), (24, (128, 128, 256), 128),
+         (12, (256, 512), 256)]
+
+
+@pytest.mark.parametrize("size,cps,co", NODES)
+def test_bf16_launch_fills_the_card(cuda, size, cps, co):
+    """Every decoder node at batch 16 launches a block per SM, or its tiles
+    are too few for that and it splits K to fill more of them (the 12x12
+    node: 64 tiles, 128 blocks)."""
+    plan = df.bf16_launch_plan(16, size, size, cps, co)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan["blocks"] >= sms or plan["split"] == 2, plan
+
+
+@pytest.mark.parametrize("cps,co,hw,batch", [
+    ((256, 200), 136, (12, 12), 1), ((8, 16, 8, 24, 8, 8, 32, 40), 48, (13, 10), 2)])
+def test_bf16_split_k_is_deterministic(cuda, cps, co, hw, batch):
+    """The split-K route sums its partials in a fixed order: the same bits
+    on every run."""
+    assert df.bf16_launch_plan(batch, *hw, cps, co)["split"] == 2
+    parts, kernel, bias = _inputs(3, cps, co, hw, cuda, torch.bfloat16, batch=batch)
+    first = df.multipart_conv3x3(parts, kernel, bias)
+    for _ in range(3):
+        assert torch.equal(df.multipart_conv3x3(parts, kernel, bias), first)
 
 
 def test_multipart_conv3x3_rejects_bad_inputs(cuda):

@@ -62,6 +62,11 @@ def _t(a):
     ((7,), 4, (8, 8), True),               # single part (no concat)
     ((4,), 3, (12, 16), False),            # no bias
     ((4, 4, 4, 4, 8), 8, (8, 16), True),   # 5 parts, as at node x0_4
+    # edges of the CUDA kernel's tiling that the Pallas kernel also takes:
+    ((8, 16, 8, 24, 8, 8, 32, 40), 48, (13, 8), True),  # 8 parts (MAX_PARTS)
+    ((32, 5, 64), 64, (12, 16), True),     # a part with C % 8 != 0 between others
+    ((16, 24), 70, (12, 24), True),        # co % 8 != 0; H, W off the pixel tiles
+    ((40, 24), 120, (12, 8), False),       # co near 128, no bias
 ])
 def test_plain_matches_pallas(cps, co, hw, with_bias):
     parts, kernel, bias = _inputs(0, cps, co, hw, with_bias=with_bias)
@@ -73,6 +78,31 @@ def test_plain_matches_pallas(cps, co, hw, with_bias):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
     plain = tdf.reference_multipart_conv3x3([_t(p) for p in parts], _t(kernel), _t(bias))
     np.testing.assert_array_equal(out.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("cps,co,hw,batch", [
+    ((5, 3, 8), 6, (12, 16), 1),           # batch 1 (Pallas)
+    ((7,), 5, (13, 10), 2),                # W % 8 != 0: beyond the Pallas kernel
+    ((32, 5, 64), 64, (12, 12), 2),        # 12x12, a part with C % 8 != 0
+    ((96, 40), 136, (13, 10), 1),          # co > 128, batch 1
+    ((256, 200), 136, (12, 12), 1),        # the shape of the kernel's split-K route
+])
+def test_plain_matches_jax_at_edges(cps, co, hw, batch):
+    """The plain version at the other edges of the CUDA kernel's tiling,
+    against the Pallas kernel where it takes the shape and JAX's reference
+    conv where it does not (co > 128, W % 8 != 0). The weights are scaled to
+    unit-variance outputs, so f32 summation order over K = 9*cin stays within
+    the 1e-5 of the other cases."""
+    parts, kernel, bias = _inputs(7, cps, co, hw, batch=batch)
+    kernel = (kernel * (10 / np.sqrt(9 * sum(cps)))).astype(np.float32)
+    if jdf._supported([jnp.asarray(p) for p in parts], jnp.asarray(kernel)):
+        ref = _jax(parts, kernel, bias)
+    else:
+        ref = np.asarray(jdf.reference_multipart_conv3x3(
+            [jnp.asarray(p) for p in parts], jnp.asarray(kernel), jnp.asarray(bias)))
+    out = tdf.multipart_conv3x3([_t(p) for p in parts], _t(kernel), _t(bias))
+    assert out.shape == ref.shape == (batch, *hw, co)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
 def test_cpu_call_builds_nothing():
