@@ -13,7 +13,8 @@
    batch 16, 96x96) and at shapes on the edges of its tiling, in float32 and
    bfloat16, with its time (and TFLOP/s, share of the bound, bf16 launch
    plan), the plain version's, one library call's as a yardstick, and the
-   card's bound for the same work;
+   card's bound for the same work; then the host time of one K4 call from
+   Python and of the bf16 launch plan alone;
 4. serving path phase: full-width NestedUNet with deep supervision served
    through `Predictor` (8 requests of 16 uint8 96x96 images, fp32 then bf16),
    with the launch counts of every kernel read around each run, a
@@ -72,9 +73,10 @@ NODES = [
 ]
 # Edges of the kernels' tiling: (name, (B, H, W), part channels, co). A part
 # whose channel count is not a multiple of 8 is staged by scalar loads, a co
-# that is not one by scalar weight loads and stores; H and W off the pixel
-# tiles (12x12, 8x16, 4x12) and co off the 32/64-wide slices leave ragged tiles;
-# eight_parts and split_k split K over clusters of 2 blocks.
+# that is not one by scalar weight loads and stores; H and W off the 12x12
+# pixel tile and co off the 32/64-wide slices leave ragged tiles; eight_parts,
+# co_70_batch1, split_k and one_ch_parts (6 or more 32-channel chunks over few
+# blocks) split K over clusters of 2 blocks.
 RAGGED = [("single_part", (2, 13, 10), (7,), 5), ("three_part", (2, 13, 10), (5, 3, 8), 6),
           ("eight_parts", (2, 13, 10), (8, 16, 8, 24, 8, 8, 32, 40), 48),
           ("odd_part_between", (2, 12, 12), (32, 5, 64), 64),
@@ -221,6 +223,40 @@ def kernel_phase(df, dev):
               f"ms | plain {agg['plain_ms']:.4f} ms | library {agg['library_ms']:.4f} ms | "
               f"bound {agg['bound_ms']:.4f} ms ({agg['bound_by']})", flush=True)
         out[dtype] = agg
+    return out
+
+
+def k4_host_us(df, dev, calls=200, rounds=5):
+    """Host time in us of one K4 call from Python (enqueue only, at a small
+    shape) in each dtype, and of the bf16 launch plan alone through its C
+    query: the best of `rounds` rounds of `calls` calls each."""
+    import ctypes
+
+    def best_us(fn):
+        best = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return best
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        parts = [torch.randn(2, 12, 12, 32, device=dev).to(dtype) for _ in range(2)]
+        kernel = torch.randn(3, 3, 64, 32, device=dev).to(dtype)
+        bias = torch.randn(32, device=dev)
+        for _ in range(20):
+            df.multipart_conv3x3(parts, kernel, bias)
+        out[DTYPE_NAME[dtype]] = best_us(lambda: df.multipart_conv3x3(parts, kernel, bias))
+    chans, plan = (ctypes.c_int * 2)(32, 32), (ctypes.c_int * 7)()
+    query = df._lib().decoder_fusion_bf16_plan
+    out["bf16 plan"] = best_us(lambda: query(2, 12, 12, 32, chans, 2, plan))
+    print("K4 host us per call from Python (best of "
+          f"{rounds} x {calls}): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()),
+          flush=True)
     return out
 
 
@@ -738,6 +774,7 @@ def main():
         raise AssertionError(f"K4 bf16: tensor-core kernels without HMMA in their SASS: {hmma}")
 
     k4 = kernel_phase(df, dev)
+    k4_host_us(df, dev)
     serve_launches = path_phase(df, card)
     bnk = bn_kernel_phase(bn, dev)
     k4_backward_phase(df, dev)

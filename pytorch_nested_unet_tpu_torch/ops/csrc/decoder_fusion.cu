@@ -19,16 +19,17 @@
 // ((TH+2)x(TW+2) pixels x 64 bytes) and its [9][32][N] weight slab are staged
 // in shared memory by 16-byte cp.async copies (zero-filled outside the image
 // and past a part's or co's end; scalar loads where a channel count is not a
-// multiple of 8) through a ring of 2-3 stages, so the next chunk's copies
+// multiple of 8) through a ring of 2 stages, so the next chunk's copies
 // overlap this chunk's products. All 9 taps contract against the one staged
 // halo: a tap is a constant added to each lane's ldmatrix row address, so the
 // shift moves no data and costs no instruction. Halo pixels are padded to 80
 // bytes and weight rows XOR-swizzled in 16-byte units, so the 8 rows of an
 // ldmatrix fall in different banks. Warps run mma.m16n8k16 bf16 -> f32 with
 // the accumulators in registers; the epilogue adds the f32 bias, rounds once
-// and goes through shared memory to 16-byte NHWC stores. The pixel tile (12x12,
-// 8x16 or 4x12) is the one that pads H x W least: 12x12 at every decoder node,
-// where 144 pixels share each staged weight slab. Where the grid would leave
+// and goes through shared memory to 16-byte NHWC stores. The pixel tile is
+// 12x12: it covers every level of a 96x96 input exactly and shares each
+// staged weight slab over 144 pixels; other sizes leave ragged tiles, which
+// are masked. Where the grid would leave
 // SMs idle (the 24x24 and 12x12 nodes), K is split over a thread-block
 // cluster of 2 blocks whose f32 partials are summed in rank order through
 // distributed shared memory: no workspace (the C interface allocates
@@ -51,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace cg = cooperative_groups;
 
@@ -248,11 +251,17 @@ __device__ __forceinline__ uint4 load8_masked(const __nv_bfloat16* g, int n) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// A block computes a kTileH x kTileW pixel tile x kBN output channels with
+constexpr int kTileH = 12;  // pixel tile rows
+constexpr int kTileW = 12;  // pixel tile columns
+constexpr int kWarpsM = 3;  // warps over the tile's pixels
+constexpr int kStages = 2;  // depth of the cp.async ring
+
+// A block computes the pixel tile x kBN output channels (kBN = 32 or 64) with
 // kWarpsM x kWarpsN warps; warp (wm, wn) owns kMT m16 row tiles and kNT n8
 // column tiles of it.
-template <int kTileH, int kTileW, int kBN, int kWarpsM, int kWarpsN, int kStages>
+template <int kBN>
 struct MmaCfg {
+  static constexpr int kWarpsN = kBN / 32;
   static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
   static constexpr int kM = kTileH * kTileW;
   static constexpr int kHaloW = kTileW + 2;
@@ -268,19 +277,18 @@ struct MmaCfg {
   static_assert(kMT * 16 * kWarpsM == kM, "m16 tiles split evenly over warps");
   static_assert(kNT % 2 == 0 && kNT * 8 * kWarpsN == kBN, "n8 tiles in pairs per warp");
   static_assert(kM * kPS * 4 <= kSmem, "the output tile (bf16) or partials (f32) fit the ring");
-  static_assert(kStages >= 2, "a ring of at least two stages");
 };
 
 // One block: one (image, pixel tile, co slice) and, when ksplit > 1, one of
 // the ksplit shares of the K chunks; the ksplit blocks of a tile form a
 // thread-block cluster and sum their partials through distributed shared
 // memory in rank order (no atomics: a rerun gives the same bits).
-template <int kTileH, int kTileW, int kBN, int kWarpsM, int kWarpsN, int kStages>
-__global__ void __launch_bounds__(32 * kWarpsM * kWarpsN)
+template <int kBN>
+__global__ void __launch_bounds__(MmaCfg<kBN>::kThreads)
 conv3x3_bf16_mma_kernel(Parts parts, const __nv_bfloat16* __restrict__ weight,
                         const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                         int H, int W, int cin, int co, int tiles_w, int ksplit, int vec_co) {
-  using C = MmaCfg<kTileH, kTileW, kBN, kWarpsM, kWarpsN, kStages>;
+  using C = MmaCfg<kBN>;
   constexpr int kAChunks = kKC / 8;   // 16-byte chunks per halo pixel
   constexpr int kWChunks = kBN / 8;   // 16-byte chunks per weight row
   constexpr int kWRow = kBN * 2;      // bytes per weight row
@@ -512,15 +520,13 @@ using Bf16Kernel = void (*)(Parts, const __nv_bfloat16*, const float*, __nv_bflo
                             int, int, int, int, int, int, int);
 
 struct Bf16Variant {
-  int tile_h, tile_w, bn, threads, smem;
+  int bn, threads, smem;
   Bf16Kernel kernel;
 };
 
-template <int kTileH, int kTileW, int kBN, int kWarpsM, int kWarpsN, int kStages>
+template <int kBN>
 Bf16Variant bf16_variant() {
-  using C = MmaCfg<kTileH, kTileW, kBN, kWarpsM, kWarpsN, kStages>;
-  return {kTileH, kTileW, kBN, C::kThreads, C::kSmem,
-          conv3x3_bf16_mma_kernel<kTileH, kTileW, kBN, kWarpsM, kWarpsN, kStages>};
+  return {kBN, MmaCfg<kBN>::kThreads, MmaCfg<kBN>::kSmem, conv3x3_bf16_mma_kernel<kBN>};
 }
 
 struct Bf16Launch {
@@ -529,51 +535,42 @@ struct Bf16Launch {
   dim3 grid;
 };
 
-// The launch for a shape. Co slice: 32 when co <= 32, else 64. Pixel tile:
-// the one of 12x12, 8x16, 4x12 that pads H x W least, ties to the earlier
-// (12x12 covers every NestedUNet level of a 96x96 input). The 12x12 tile and
-// the 64-wide slices stage more per chunk, so they keep two stages, not
-// three. K is split over a cluster of 2 blocks when twice the grid still fits
-// in one round of the blocks the card holds at once (so the split only fills
-// SMs that would idle) and each half keeps at least 3 chunks. On the H100
-// that splits the 24x24 and 12x12 nodes; splits of 3, 4 and 8, a split at
-// 48x48 and three stages at 12x12 measured slower (k4_tune.py). Also sets
-// the kernel's shared-memory limit.
+constexpr int kMaxDevices = 64;
+
+// The launch for a shape. Co slice: 32 when co <= 32, else 64. K is split
+// over a cluster of 2 blocks when twice the grid still fits in one round of
+// the blocks the card holds at once (so the split only fills SMs that would
+// idle) and each half keeps at least 3 chunks. On the H100 that splits the
+// 24x24 and 12x12 nodes of NestedUNet at batch 16; splits of 3, 4 and 8, and
+// a split at 48x48, measured slower (PERF.md). A variant's first plan on a
+// device sets its shared-memory limit there and caches how many of its
+// blocks the device holds at once; later plans only do the arithmetic.
 cudaError_t plan_bf16(int B, int H, int W, int co, const int* part_ch, int nparts,
                       Bf16Launch* plan) {
-  constexpr int kTiles = 3;
-  static const Bf16Variant table[2][kTiles] = {
-      {bf16_variant<12, 12, 32, 3, 1, 2>(), bf16_variant<8, 16, 32, 4, 1, 3>(),
-       bf16_variant<4, 12, 32, 3, 1, 3>()},
-      {bf16_variant<12, 12, 64, 3, 2, 2>(), bf16_variant<8, 16, 64, 4, 2, 2>(),
-       bf16_variant<4, 12, 64, 3, 2, 2>()}};
-  const Bf16Variant* row = table[co > 32 ? 1 : 0];
-  int best = 0;
-  long long best_pix = -1;
-  for (int t = 0; t < kTiles; ++t) {
-    const long long th = row[t].tile_h, tw = row[t].tile_w;
-    const long long pix = (H + th - 1) / th * th * ((W + tw - 1) / tw * tw);
-    if (best_pix < 0 || pix < best_pix) {
-      best = t;
-      best_pix = pix;
-    }
-  }
-  const Bf16Variant& v = row[best];
-  cudaError_t err = cudaFuncSetAttribute(v.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         v.smem);
-  static int per_sm_of[2][kTiles];  // resident blocks per SM by variant; 0: not asked yet
-  int& per_sm = per_sm_of[co > 32 ? 1 : 0][best];
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && per_sm == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v.kernel, v.threads, v.smem);
+  static const Bf16Variant table[2] = {bf16_variant<32>(), bf16_variant<64>()};
+  static std::atomic<int> resident_of[kMaxDevices][2];  // 0: not set up yet
+  const int slice = co > 32 ? 1 : 0;
+  const Bf16Variant& v = table[slice];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int resident = resident_of[dev][slice].load(std::memory_order_relaxed);
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(v.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, v.smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v.kernel, v.threads, v.smem);
+    if (err != cudaSuccess) return err;
+    resident = sms * per_sm;
+    resident_of[dev][slice].store(resident, std::memory_order_relaxed);
+  }
   int nk = 0;
   for (int i = 0; i < nparts; ++i) nk += (part_ch[i] + kKC - 1) / kKC;
-  const int tiles = (H + v.tile_h - 1) / v.tile_h * ((W + v.tile_w - 1) / v.tile_w);
+  const int tiles = (H + kTileH - 1) / kTileH * ((W + kTileW - 1) / kTileW);
   const long long blocks = (long long)tiles * ((co + v.bn - 1) / v.bn) * B;
-  const int split = 2 * blocks <= (long long)sms * per_sm && nk >= 6 ? 2 : 1;
+  const int split = 2 * blocks <= resident && nk >= 6 ? 2 : 1;
   *plan = {v, split, dim3(tiles * split, (co + v.bn - 1) / v.bn, B)};
   return cudaSuccess;
 }
@@ -627,8 +624,8 @@ extern "C" int decoder_fusion_fwd(int dtype, const void* const* part_ptrs,
     cfg.numAttrs = plan.split > 1 ? 1 : 0;
     const cudaError_t launch = cudaLaunchKernelEx(
         &cfg, plan.v.kernel, parts, static_cast<const __nv_bfloat16*>(weight), b,
-        static_cast<__nv_bfloat16*>(out), H, W, cin, co,
-        (W + plan.v.tile_w - 1) / plan.v.tile_w, plan.split, vec_co);
+        static_cast<__nv_bfloat16*>(out), H, W, cin, co, (W + kTileW - 1) / kTileW,
+        plan.split, vec_co);
     if (launch != cudaSuccess) return (int)launch;
   } else {
     return (int)cudaErrorInvalidValue;
@@ -644,7 +641,7 @@ extern "C" int decoder_fusion_bf16_plan(int B, int H, int W, int co, const int* 
   Bf16Launch plan;
   const cudaError_t err = plan_bf16(B, H, W, co, part_ch, nparts, &plan);
   if (err != cudaSuccess) return (int)err;
-  const int values[7] = {plan.v.tile_h, plan.v.tile_w, plan.v.bn, plan.split,
+  const int values[7] = {kTileH, kTileW, plan.v.bn, plan.split,
                          (int)(plan.grid.x * plan.grid.y * plan.grid.z), plan.v.threads,
                          plan.v.smem};
   for (int i = 0; i < 7; ++i) out[i] = values[i];

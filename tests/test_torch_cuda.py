@@ -47,8 +47,8 @@ def _inputs(seed, cps, co, hw, dev, dtype, batch=2):
 # The shapes hit the edges of the bf16 kernel's tiling: 8 parts (MAX_PARTS), a
 # part whose channel count is not a multiple of 8 between parts whose are (scalar
 # staging), co not a multiple of 8 (scalar weights and stores) and co > 128,
-# H and W off the 12x12 / 8x16 / 4x12 pixel tiles, batch 1, and K split over a
-# cluster of 2 blocks (the last three shapes).
+# H and W off the 12x12 pixel tile, batch 1, and K split over a cluster of 2
+# blocks (each shape of 6 or more 32-channel chunks over few blocks).
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("cps,co,hw,batch", [
     ((5, 3, 8), 6, (13, 10), 2), ((7,), 4, (1, 1), 2), ((32, 32, 64), 32, (24, 24), 2),
