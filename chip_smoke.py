@@ -7,12 +7,12 @@
 2. build every CUDA kernel of the port from the sources in this checkout,
    print ptxas' registers and spills, and count the tensor-core (HMMA)
    instructions of each decoder-fusion kernel in its SASS (the bf16 kernels
-   must have some);
+   must have some, the fp32 ones none);
 3. K4 kernel phase: the decoder-fusion kernel against its plain PyTorch
    version at the shapes the serving path gives it (NestedUNet full width,
    batch 16, 96x96) and at shapes on the edges of its tiling, in float32 and
-   bfloat16, with its time (and TFLOP/s, share of the bound, bf16 launch
-   plan), the plain version's, one library call's as a yardstick, and the
+   bfloat16, with its time (and TFLOP/s, share of the bound, launch plan),
+   the plain version's, one library call's as a yardstick, and the
    card's bound for the same work; then the host time of one K4 call from
    Python and of the bf16 launch plan alone;
 4. serving path phase: full-width NestedUNet with deep supervision served
@@ -20,9 +20,11 @@
    with the launch counts of every kernel read around each run, a
    torch.profiler breakdown of a few more batches by kernel, and the fp32
    probabilities held against the same weights on the CPU;
-5. K1-K3 kernel phase: the training-mode BN kernels against their plain
-   versions at the (C, rows) shapes of the training step (full width, batch
-   16, 96x96) and at ragged shapes, both dtypes, with bounds and library
+5. K1-K3 kernel phase: one bn_bwd_reduce call must run one CUDA kernel
+   (torch.profiler, level 0, both dtypes); then the training-mode BN kernels
+   against their plain versions at the (C, rows) shapes of the training
+   step (full width, batch 16, 96x96) and at ragged shapes, both dtypes,
+   with bounds and library
    yardsticks, per level and summed over the step's 30 instances; times are
    device time replayed from a CUDA graph (a call from Python also pays the
    host's launch gaps, printed beside it as "call");
@@ -72,18 +74,19 @@ NODES = [
     ("x3_1", 12, (256, 512), 256),
 ]
 # Edges of the kernels' tiling: (name, (B, H, W), part channels, co). A part
-# whose channel count is not a multiple of 8 is staged by scalar loads, a co
-# that is not one by scalar weight loads and stores; H and W off the 12x12
-# pixel tile and co off the 32/64-wide slices leave ragged tiles; eight_parts,
-# co_70_batch1, split_k and one_ch_parts (6 or more 32-channel chunks over few
-# blocks) split K over clusters of 2 blocks.
+# whose channel count is not a multiple of 8 (bf16) or 4 (fp32) is staged by
+# scalar loads, such a co by scalar weight loads and stores; H and W off the
+# 12x12 pixel tile (ragged_25: in both directions) and co off the 32/64-wide
+# slices leave ragged tiles; eight_parts, co_70_batch1, split_k and
+# one_ch_parts (6 or more K chunks over few blocks) split K over clusters of
+# 2 blocks.
 RAGGED = [("single_part", (2, 13, 10), (7,), 5), ("three_part", (2, 13, 10), (5, 3, 8), 6),
           ("eight_parts", (2, 13, 10), (8, 16, 8, 24, 8, 8, 32, 40), 48),
           ("odd_part_between", (2, 12, 12), (32, 5, 64), 64),
           ("co_70_batch1", (1, 24, 24), (64, 128), 70),
           ("co_136_batch1", (1, 13, 10), (96, 40), 136),
           ("split_k", (1, 12, 12), (256, 200), 136),
-          ("one_ch_parts", (2, 5, 33), (1,) * 8, 3)]
+          ("one_ch_parts", (2, 5, 33), (1,) * 8, 3), ("ragged_25", (2, 25, 25), (32, 64), 32)]
 # The training step's BN work: (level, C, rows = 16*S*S, BN instances per step)
 BN_LEVELS = [(lvl, NB[lvl], BATCH * (SIZE >> lvl) ** 2, n)
              for lvl, n in zip(range(5), (10, 8, 6, 4, 2))]
@@ -164,8 +167,8 @@ K4_REPS = 30
 
 def kernel_phase(df, dev):
     """K4 against its plain version; returns {dtype: summary} over the nodes.
-    Prints each case's TFLOP/s and share of the bound and, in bf16, the
-    launch the kernel makes (pixel tile, co per block, K split, blocks)."""
+    Prints each case's TFLOP/s and share of the bound and the launch the
+    kernel makes (pixel tile, co per block, K split, blocks)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     F = torch.nn.functional
@@ -202,11 +205,9 @@ def kernel_phase(df, dev):
                                               w_oihw, lib_bias, padding=1), flush, K4_REPS)
             bound, by = conv_bound_ms(b, h, w, cps, co, dtype)
             tflops = 2.0 * b * h * w * 9 * cin * co / (ms * 1e-3) / 1e12
-            grid = ""
-            if dtype == torch.bfloat16:
-                plan = df.bf16_launch_plan(b, h, w, cps, co)
-                grid = (f" | tile {plan['tile_h']}x{plan['tile_w']}x{plan['co_per_block']}, "
-                        f"split {plan['split']}, {plan['blocks']} blocks of {plan['threads']}")
+            plan = df.launch_plan(dtype, b, h, w, cps, co)
+            grid = (f" | tile {plan['tile_h']}x{plan['tile_w']}x{plan['co_per_block']}, "
+                    f"split {plan['split']}, {plan['blocks']} blocks of {plan['threads']}")
             print(f"K4 {DTYPE_NAME[dtype]} {name:11s} B={b} {h}x{w} parts={cps} co={co}: "
                   f"max_abs_err {err:.3g} (tol {tol}) | kernel {ms:.4f} ms "
                   f"({tflops:.1f} TFLOP/s, {100 * bound / ms:.1f}% of bound) | plain "
@@ -252,8 +253,8 @@ def k4_host_us(df, dev, calls=200, rounds=5):
             df.multipart_conv3x3(parts, kernel, bias)
         out[DTYPE_NAME[dtype]] = best_us(lambda: df.multipart_conv3x3(parts, kernel, bias))
     chans, plan = (ctypes.c_int * 2)(32, 32), (ctypes.c_int * 7)()
-    query = df._lib().decoder_fusion_bf16_plan
-    out["bf16 plan"] = best_us(lambda: query(2, 12, 12, 32, chans, 2, plan))
+    query = df._lib().decoder_fusion_plan
+    out["bf16 plan"] = best_us(lambda: query(1, 2, 12, 12, 32, chans, 2, plan))
     print("K4 host us per call from Python (best of "
           f"{rounds} x {calls}): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()),
           flush=True)
@@ -401,12 +402,42 @@ def _sum_err(got, want, mags, what):
     return err
 
 
+def k2_kernels_per_call(bn, dev):
+    """CUDA kernels one bn_bwd_reduce call runs at level 0 (147,456 x 32), in
+    each dtype, counted by torch.profiler; raises unless each is one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, c, rows, _ = BN_LEVELS[0]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    vecs = [torch.rand(c, generator=gen, device=dev) + 0.5 for _ in range(4)]
+    found = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = (torch.randn(rows, c, generator=gen, device=dev).to(dtype) for _ in range(2))
+        bn.bn_bwd_reduce(x, dy, *vecs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bn.bn_bwd_reduce(x, dy, *vecs)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        found[DTYPE_NAME[dtype]] = names
+        if len(names) != 1:
+            raise AssertionError(f"K2 {DTYPE_NAME[dtype]}: one bn_bwd_reduce call ran "
+                                 f"{len(names)} CUDA kernels, expected 1: {names}")
+    print("K2 CUDA kernels per bn_bwd_reduce call at level 0 (torch.profiler): "
+          + "; ".join(f"{k} {len(v)} ({v[0][:60]})" for k, v in found.items()), flush=True)
+
+
 def bn_kernel_phase(bn, dev):
     """K1-K3 against their plain versions; returns {(kernel, dtype): summary}
     with times summed over the 30 BN instances of one training step."""
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     nbb = torch.ops.aten.native_batch_norm_backward
+    # the method's floor: one 4-byte fill kernel timed the same way
+    tiny = torch.empty(1, device=dev)
+    print(f"BN timing floor: one 4-byte fill replayed from a CUDA graph after the L2 flush "
+          f"takes {graph_ms(tiny.zero_, flush):.4f} ms", flush=True)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         vec_tol, dx_tol = BN_TOL[dtype]
@@ -471,8 +502,9 @@ def bn_kernel_phase(bn, dev):
                 for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                                ("bound_ms", bound), (by, bound), ("call_ms", call_ms)):
                     a[key] += count * v
-                parts.append(f"{k} err {errs[k]:.3g} kernel {ms:.4f} (call {call_ms:.4f}) "
-                             f"plain {plain_ms:.4f} library {lib_ms:.4f} bound {bound:.4f} ({by})")
+                parts.append(f"{k} err {errs[k]:.3g} kernel {ms:.4f} ({100 * bound / ms:.1f}% of "
+                             f"bound; call {call_ms:.4f}) plain {plain_ms:.4f} library "
+                             f"{lib_ms:.4f} bound {bound:.4f} ({by})")
             print(f"BN {DTYPE_NAME[dtype]} {name:7s} C={c:<3d} rows={rows:<6d} x{count:<2d}| "
                   + " | ".join(parts), flush=True)
         for k, a in aggs.items():
@@ -772,10 +804,15 @@ def main():
     bf16_fns = [fn for fn in hmma if "bf16_mma" in fn]
     if not bf16_fns or not all(hmma[fn] for fn in bf16_fns):
         raise AssertionError(f"K4 bf16: tensor-core kernels without HMMA in their SASS: {hmma}")
+    # the fp32 path is held to 1e-4: no TF32 (tensor-core) product may enter it
+    f32_fns = [fn for fn in hmma if "f32_fma" in fn]
+    if not f32_fns or any(hmma[fn] for fn in f32_fns):
+        raise AssertionError(f"K4 fp32: FP32-core kernels missing or with HMMA: {hmma}")
 
     k4 = kernel_phase(df, dev)
     k4_host_us(df, dev)
     serve_launches = path_phase(df, card)
+    k2_kernels_per_call(bn, dev)
     bnk = bn_kernel_phase(bn, dev)
     k4_backward_phase(df, dev)
     train_launches = train_phase(bn, df, card)

@@ -16,7 +16,7 @@
 // (image, pixel tile, slice of co). M = the tile's pixels, N = the co slice
 // (32 or 64), K = 9 taps x the channels of every part. The K loop walks the
 // parts' base pointers in 32-channel chunks; each chunk's input halo
-// ((TH+2)x(TW+2) pixels x 64 bytes) and its [9][32][N] weight slab are staged
+// ((12+2)x(12+2) pixels x 64 bytes) and its [9][32][N] weight slab are staged
 // in shared memory by 16-byte cp.async copies (zero-filled outside the image
 // and past a part's or co's end; scalar loads where a channel count is not a
 // multiple of 8) through a ring of 2 stages, so the next chunk's copies
@@ -35,18 +35,28 @@
 // distributed shared memory: no workspace (the C interface allocates
 // nothing), no atomics, the same bits on every run.
 //
-// float32 (FP32 cores). What bounds it: the float rate, 67 TFLOP/s, and
-// inside that the shared-memory traffic of the inner loop (2*9*cin operations
-// per byte moved is far above the card's ratio). Design: one block per (batch
-// image, 8x16 output tile, 32-channel slice of co). The K loop walks the
-// parts' base pointers one 16-channel chunk at a time, so each part contracts
-// against its own rows of the [3,3,cin,co] weights and the concatenated tensor
-// never exists. A chunk's 10x18 input halo (zero outside the image) and its
-// 9x16x32 weight slab are staged in shared memory as float; each of 128
-// threads then keeps 4 pixels x 8 channels of accumulators in registers,
-// reading 8 weights as two float4 and 4 inputs per (tap, channel) step for 32
-// FMAs. The TPU kernel's tap-packed [cin, 9*co] product and shift-add served
-// its 128-lane matrix unit and is not carried over.
+// float32 (FP32 cores; no TF32, no HMMA: the fp32 path is held to 1e-4).
+// What bounds it: the float rate, 67 TFLOP/s, 1.62 ms for the ~109 GFLOP of
+// the 10 nodes at batch 16; inside that, the shared-memory reads of the inner
+// loop and the instruction rate. Design: an implicit GEMM on the same
+// skeleton, one block per (image, 12x12 pixel tile, 32- or 64-wide co
+// slice), the K loop over the parts in 16-channel chunks staged by 16-byte
+// cp.async copies (4 floats; zero-filled outside the image and past a part's
+// or co's end, scalar loads where a channel count is not a multiple of 4)
+// through the 2-stage ring. The halo is staged as 4 planes of 4 channels,
+// each 14x14 pixels of 16 bytes, planes padded to 202 units (2 mod 8), so the
+// copies (4 planes of a pixel and the next pixel) and the reads (rows of the
+// tile) fall in different bank groups. A thread owns one tile row x 4 output
+// channels (48 accumulators; at a 32-wide co slice, two threads split the
+// planes of each chunk and add up at the end, so that a block still has 6
+// warps). For each kernel row dy and 4-channel plane it holds the 3 taps'
+// 4x4 weights in registers (12 LDS.128, broadcast over the warp's rows) and
+// streams the 14 halo pixels of its row (14 LDS.128), each feeding the up to
+// 3 output pixels it lies under: the taps are offsets into the one staged
+// halo, and 576 FMAs come from 104 shared words (5.5 per word). Split-K over
+// a 2-block cluster follows the bf16 rule and sums in rank order through
+// distributed shared memory. The TPU kernel's tap-packed [cin, 9*co] product
+// and shift-add served its 128-lane matrix unit and are not carried over.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -60,114 +70,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxParts = 8;
-constexpr int TH = 8;           // output tile rows
-constexpr int TW = 16;          // output tile columns
-constexpr int HH = TH + 2;      // halo rows
-constexpr int HW = TW + 2;      // halo columns
-constexpr int KC = 16;          // input channels staged per step
-constexpr int CO_T = 32;        // output channels per block
-constexpr int THREADS = 128;
-constexpr int PIX = 4;          // pixels per thread: rows py, py+2, py+4, py+6
-constexpr int COV = 8;          // output channels per thread
 
 struct Parts {
   const void* ptr[kMaxParts];
   int ch[kMaxParts];
   int n;
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-multipart_conv3x3_kernel(Parts parts, const T* __restrict__ weight,
-                         const float* __restrict__ bias, T* __restrict__ out,
-                         int H, int W, int cin, int co, int tiles_w) {
-  __shared__ float s_in[KC][HH][HW];
-  __shared__ __align__(16) float s_w[9][KC][CO_T];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int co0 = blockIdx.y * CO_T;
-  const int y0 = (blockIdx.x / tiles_w) * TH;
-  const int x0 = (blockIdx.x % tiles_w) * TW;
-  const int tc = tid % 4;         // channels co0 + 8*tc .. +7
-  const int tp = tid / 4;         // 0..31
-  const int px = tp % TW;         // tile column
-  const int py = tp / TW;         // 0..1: tile rows py + 2*i
-
-  float acc[PIX][COV];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i)
-#pragma unroll
-    for (int j = 0; j < COV; ++j) acc[i][j] = 0.f;
-
-  int cbase = 0;                  // first row of this part in the weights' cin
-  for (int p = 0; p < parts.n; ++p) {
-    const T* __restrict__ src = static_cast<const T*>(parts.ptr[p]);
-    const int cp = parts.ch[p];
-    for (int k0 = 0; k0 < cp; k0 += KC) {
-      for (int i = tid; i < HH * HW * KC; i += THREADS) {
-        const int k = i % KC;
-        const int pix = i / KC;
-        const int r = pix / HW;
-        const int c = pix % HW;
-        const int gy = y0 + r - 1;
-        const int gx = x0 + c - 1;
-        float v = 0.f;
-        if (k0 + k < cp && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = to_f(src[((long long)(n * H + gy) * W + gx) * cp + k0 + k]);
-        s_in[k][r][c] = v;
-      }
-      for (int i = tid; i < 9 * KC * CO_T; i += THREADS) {
-        const int j = i % CO_T;
-        const int k = (i / CO_T) % KC;
-        const int t = i / (CO_T * KC);
-        float v = 0.f;
-        if (k0 + k < cp && co0 + j < co)
-          v = to_f(weight[((long long)t * cin + cbase + k0 + k) * co + co0 + j]);
-        s_w[t][k][j] = v;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const int dy = t / 3;
-        const int dx = t % 3;
-#pragma unroll 4
-        for (int k = 0; k < KC; ++k) {
-          const float4 wa = *reinterpret_cast<const float4*>(&s_w[t][k][tc * COV]);
-          const float4 wb = *reinterpret_cast<const float4*>(&s_w[t][k][tc * COV + 4]);
-          const float wv[COV] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int i = 0; i < PIX; ++i) {
-            const float a = s_in[k][py + 2 * i + dy][px + dx];
-#pragma unroll
-            for (int j = 0; j < COV; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    cbase += cp;
-  }
-
-  const int x = x0 + px;
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const int y = y0 + py + 2 * i;
-    if (y >= H || x >= W) continue;
-    T* dst = out + ((long long)(n * H + y) * W + x) * co;
-#pragma unroll
-    for (int j = 0; j < COV; ++j) {
-      const int c = co0 + tc * COV + j;
-      if (c < co) dst[c] = from_f<T>(acc[i][j] + (bias ? bias[c] : 0.f));
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: implicit GEMM on the tensor cores
@@ -516,58 +424,321 @@ conv3x3_bf16_mma_kernel(Parts parts, const __nv_bfloat16* __restrict__ weight,
   cluster.sync();  // no block leaves while another still reads its partials
 }
 
-using Bf16Kernel = void (*)(Parts, const __nv_bfloat16*, const float*, __nv_bfloat16*,
-                            int, int, int, int, int, int, int);
+// ---------------------------------------------------------------------------
+// float32: implicit GEMM on the FP32 cores
+// ---------------------------------------------------------------------------
 
-struct Bf16Variant {
-  int bn, threads, smem;
-  Bf16Kernel kernel;
+constexpr int kFKC = 16;                           // input channels per K chunk
+constexpr int kFHaloW = kTileW + 2;                // halo columns (and rows: 12x12 tile)
+constexpr int kFHaloPix = (kTileH + 2) * kFHaloW;  // 196
+constexpr int kFPlane = kFHaloPix + 6;  // 16-byte units per staged 4-channel plane, 2 (mod 8)
+
+// At co slice 32 the 96 (tile row, co group) threads would leave an SM 9
+// warps at 3 blocks; there the 4 planes of a chunk are split between two
+// halves of 96 threads, whose accumulators are summed in fixed order at the
+// end, so every variant runs 192 threads.
+template <int kBN>
+struct FmaCfg {
+  static constexpr int kGroups = kBN / 4;            // 4-channel co groups
+  static constexpr int kKHalves = kBN == 32 ? 2 : 1;  // planes split over thread halves
+  static constexpr int kPlanes = 4 / kKHalves;       // planes per half
+  static constexpr int kThreads = kKHalves * kTileH * kGroups;  // (half, tile row, co group)
+  static constexpr int kMinBlocks = 2;               // per SM, as the ring allows
+  static constexpr int kHaloTasks = (kFHaloPix * 4 + kThreads - 1) / kThreads;
+  static constexpr int kABytes = 4 * kFPlane * 16;
+  static constexpr int kBBytes = 9 * kFKC * kBN * 4;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static constexpr int kPS = kBN + 4;  // floats per row of split-K partials
+  static_assert(kTileH * kTileW * kPS * 4 <= kSmem, "split-K partials fit the ring");
+  static_assert(kABytes % 16 == 0 && kStageBytes % 16 == 0, "16-byte aligned stages");
+};
+
+// 4 consecutive floats at g, of which the first n exist (the rest, and all of
+// them when n <= 0, read as zero), packed for one 16-byte shared store.
+__device__ __forceinline__ uint4 load4_masked(const float* g, int n) {
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) w[e] = e < n ? __float_as_uint(g[e]) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& w) {
+  acc[0] = fmaf(a, w.x, acc[0]);
+  acc[1] = fmaf(a, w.y, acc[1]);
+  acc[2] = fmaf(a, w.z, acc[2]);
+  acc[3] = fmaf(a, w.w, acc[3]);
+}
+
+// One block: one (image, pixel tile, co slice) and, when ksplit > 1, one of
+// the ksplit shares of the 16-channel K chunks, as the bf16 kernel. Thread
+// (kh, row, grp) accumulates tile row `row` x channels n0 + 4*grp .. + 3 over
+// planes kh*kPlanes .. + kPlanes - 1 of each chunk.
+template <int kBN>
+__global__ void __launch_bounds__(FmaCfg<kBN>::kThreads, FmaCfg<kBN>::kMinBlocks)
+conv3x3_f32_fma_kernel(Parts parts, const float* __restrict__ weight,
+                       const float* __restrict__ bias, float* __restrict__ out, int H, int W,
+                       int cin, int co, int tiles_w, int ksplit, int vec_co) {
+  using C = FmaCfg<kBN>;
+  constexpr int kWUnits = kBN / 4;  // 16-byte units per weight row
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_addr(smem);
+  const int tid = threadIdx.x;
+  const int kh = tid / (kTileH * C::kGroups);
+  const int row = tid / C::kGroups % kTileH;
+  const int grp = tid % C::kGroups;
+  const int rank = blockIdx.x % ksplit;
+  const int tile = blockIdx.x / ksplit;
+  const int n = blockIdx.z;
+  const int n0 = blockIdx.y * kBN;
+  const int y0 = (tile / tiles_w) * kTileH;
+  const int x0 = (tile % tiles_w) * kTileW;
+
+  int nk = 0;
+  for (int p = 0; p < parts.n; ++p) nk += (parts.ch[p] + kFKC - 1) / kFKC;
+  const int k_begin = nk * rank / ksplit, k_end = nk * (rank + 1) / ksplit;
+  int lp = 0, lrow = 0, skip = k_begin;
+  while (lp < parts.n && skip >= (parts.ch[lp] + kFKC - 1) / kFKC) {
+    skip -= (parts.ch[lp] + kFKC - 1) / kFKC;
+    lrow += parts.ch[lp];
+    ++lp;
+  }
+  int lk = skip * kFKC;
+
+  // Copy task i = (halo pixel i / 4, plane i % 4): the same pixels every
+  // chunk; their pixel index in the batch, or -1 outside the image.
+  int hpix[C::kHaloTasks];
+#pragma unroll
+  for (int s = 0; s < C::kHaloTasks; ++s) {
+    const int i = tid + s * C::kThreads;
+    const int q = i / 4;
+    const int gy = y0 + q / kFHaloW - 1, gx = x0 + q % kFHaloW - 1;
+    hpix[s] = i < kFHaloPix * 4 && gy >= 0 && gy < H && gx >= 0 && gx < W
+                  ? (n * H + gy) * W + gx : -1;
+  }
+
+  auto load_chunk = [&](int stage) {
+    const int cp = parts.ch[lp];
+    const float* src = static_cast<const float*>(parts.ptr[lp]);
+    const bool vec_a = cp % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+    const uint32_t sa = sbase + stage * C::kStageBytes;
+    const uint32_t sb = sa + C::kABytes;
+#pragma unroll
+    for (int s = 0; s < C::kHaloTasks; ++s) {
+      const int i = tid + s * C::kThreads;
+      if (i >= kFHaloPix * 4) break;
+      const int q = i / 4, kq = i % 4;
+      const int k = lk + 4 * kq;
+      const int have = hpix[s] >= 0 ? cp - k : 0;  // channels from k on (<= 0: none)
+      const float* g = have > 0 ? src + (long long)hpix[s] * cp + k : src;
+      const uint32_t dst = sa + (kq * kFPlane + q) * 16;
+      if (vec_a) cp_async16(dst, g, have > 0 ? 16 : 0);
+      else st_shared16(dst, load4_masked(g, have));
+    }
+    for (int i = tid; i < 9 * kFKC * kWUnits; i += C::kThreads) {
+      const int r = i / kWUnits, c = i % kWUnits;
+      const int tap = r / kFKC, k = lk + r % kFKC;
+      const int nn = n0 + 4 * c;
+      const int have = k < cp ? co - nn : 0;
+      const float* g = have > 0 ? weight + ((long long)(tap * cin + lrow + k) * co + nn) : weight;
+      const uint32_t dst = sb + i * 16;
+      if (vec_co) cp_async16(dst, g, have > 0 ? 16 : 0);
+      else st_shared16(dst, load4_masked(g, have));
+    }
+    lk += kFKC;
+    if (lk >= cp) {
+      lk = 0;
+      lrow += cp;
+      do { ++lp; } while (lp < parts.n && parts.ch[lp] == 0);
+    }
+  };
+
+  float acc[kTileW][4];
+#pragma unroll
+  for (int j = 0; j < kTileW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int count = k_end - k_begin;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < count) load_chunk(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < count; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < count) load_chunk((it + kStages - 1) % kStages);
+    cp_async_commit();
+    const unsigned char* sa = smem + (it % kStages) * C::kStageBytes;
+    const float4* sw = reinterpret_cast<const float4*>(sa + C::kABytes) + grp;
+#pragma unroll 1
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll 1
+      for (int kq = kh * C::kPlanes; kq < (kh + 1) * C::kPlanes; ++kq) {
+        // w[dx][kk]: tap (dy, dx), input channel 4*kq + kk, this thread's 4 co
+        float4 w[3][4];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            w[dx][kk] = sw[((dy * 3 + dx) * kFKC + 4 * kq + kk) * kWUnits];
+        const float4* a =
+            reinterpret_cast<const float4*>(sa) + kq * kFPlane + (row + dy) * kFHaloW;
+#pragma unroll
+        for (int c = 0; c < kFHaloW; ++c) {
+          const float4 v = a[c];  // halo pixel c of row row+dy, channels 4*kq..+3
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int j = c - dx;  // the output pixel it lies under at tap dx
+            if (j < 0 || j >= kTileW) continue;
+            fma4(acc[j], v.x, w[dx][0]);
+            fma4(acc[j], v.y, w[dx][1]);
+            fma4(acc[j], v.z, w[dx][2]);
+            fma4(acc[j], v.w, w[dx][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the folds below stage through it
+
+  float* sp = reinterpret_cast<float*>(smem);
+  if constexpr (C::kKHalves == 2) {  // half 1's sums onto half 0's
+    if (kh == 1)
+#pragma unroll
+      for (int j = 0; j < kTileW; ++j)
+        *reinterpret_cast<float4*>(sp + (row * kTileW + j) * C::kPS + 4 * grp) =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+    __syncthreads();
+    if (kh == 0)
+#pragma unroll
+      for (int j = 0; j < kTileW; ++j) {
+        const float4 u =
+            *reinterpret_cast<const float4*>(sp + (row * kTileW + j) * C::kPS + 4 * grp);
+        acc[j][0] += u.x; acc[j][1] += u.y; acc[j][2] += u.z; acc[j][3] += u.w;
+      }
+    __syncthreads();
+  }
+
+  if (ksplit == 1) {
+    const int y = y0 + row, nn = n0 + 4 * grp;
+    if (kh != 0 || y >= H || nn >= co) return;
+    float b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) b[e] = bias != nullptr && nn + e < co ? bias[nn + e] : 0.f;
+    float* dst = out + ((long long)(n * H + y) * W + x0) * co + nn;
+#pragma unroll
+    for (int j = 0; j < kTileW; ++j) {
+      if (x0 + j >= W) break;
+      const float4 v = make_float4(acc[j][0] + b[0], acc[j][1] + b[1], acc[j][2] + b[2],
+                                   acc[j][3] + b[3]);
+      if (vec_co) {
+        *reinterpret_cast<float4*>(dst + (long long)j * co) = v;
+      } else {
+        const float e4[4] = {v.x, v.y, v.z, v.w};
+        for (int e = 0; e < 4 && nn + e < co; ++e) dst[(long long)j * co + e] = e4[e];
+      }
+    }
+    return;
+  }
+
+  // Split K: partials to this block's shared memory; then it finishes rows
+  // [m_begin, m_end) of the tile from every block's partials in rank order.
+  if (kh == 0)
+#pragma unroll
+    for (int j = 0; j < kTileW; ++j)
+      *reinterpret_cast<float4*>(sp + (row * kTileW + j) * C::kPS + 4 * grp) =
+          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int kM = kTileH * kTileW;
+  const int m_begin = kM * rank / ksplit, m_end = kM * (rank + 1) / ksplit;
+  for (int i = m_begin * kWUnits + tid; i < m_end * kWUnits; i += C::kThreads) {
+    const int m = i / kWUnits, c = i % kWUnits;
+    const int y = y0 + m / kTileW, x = x0 + m % kTileW, nn = n0 + 4 * c;
+    if (y >= H || x >= W || nn >= co) continue;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < ksplit; ++r) {
+      const float4 u = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(sp + m * C::kPS + 4 * c, r));
+      v[0] += u.x; v[1] += u.y; v[2] += u.z; v[3] += u.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (bias != nullptr && nn + e < co) v[e] += bias[nn + e];
+    float* dst = out + ((long long)(n * H + y) * W + x) * co + nn;
+    if (vec_co) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int e = 0; e < 4 && nn + e < co; ++e) dst[e] = v[e];
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its partials
+}
+
+// A kernel of either dtype and its launch shape; both kernels take
+// (Parts, weight, bias, out, H, W, cin, co, tiles_w, ksplit, vec_co).
+struct Variant {
+  int bn, threads, smem, chunk;  // chunk: input channels per K step
+  const void* fn;
 };
 
 template <int kBN>
-Bf16Variant bf16_variant() {
-  return {kBN, MmaCfg<kBN>::kThreads, MmaCfg<kBN>::kSmem, conv3x3_bf16_mma_kernel<kBN>};
+Variant bf16_variant() {
+  return {kBN, MmaCfg<kBN>::kThreads, MmaCfg<kBN>::kSmem, kKC,
+          reinterpret_cast<const void*>(conv3x3_bf16_mma_kernel<kBN>)};
 }
 
-struct Bf16Launch {
-  Bf16Variant v;
+template <int kBN>
+Variant f32_variant() {
+  return {kBN, FmaCfg<kBN>::kThreads, FmaCfg<kBN>::kSmem, kFKC,
+          reinterpret_cast<const void*>(conv3x3_f32_fma_kernel<kBN>)};
+}
+
+struct Launch {
+  Variant v;
   int split;
   dim3 grid;
 };
 
 constexpr int kMaxDevices = 64;
 
-// The launch for a shape. Co slice: 32 when co <= 32, else 64. K is split
-// over a cluster of 2 blocks when twice the grid still fits in one round of
-// the blocks the card holds at once (so the split only fills SMs that would
-// idle) and each half keeps at least 3 chunks. On the H100 that splits the
-// 24x24 and 12x12 nodes of NestedUNet at batch 16; splits of 3, 4 and 8, and
-// a split at 48x48, measured slower (PERF.md). A variant's first plan on a
-// device sets its shared-memory limit there and caches how many of its
-// blocks the device holds at once; later plans only do the arithmetic.
-cudaError_t plan_bf16(int B, int H, int W, int co, const int* part_ch, int nparts,
-                      Bf16Launch* plan) {
-  static const Bf16Variant table[2] = {bf16_variant<32>(), bf16_variant<64>()};
-  static std::atomic<int> resident_of[kMaxDevices][2];  // 0: not set up yet
+// The launch for a shape in dtype 0 (float32) or 1 (bfloat16). Co slice: 32
+// when co <= 32, else 64. K is split over a cluster of 2 blocks when twice
+// the grid still fits in one round of the blocks the card holds at once (so
+// the split only fills SMs that would idle) and each half keeps at least 3
+// chunks. On the H100 that splits the 24x24 and 12x12 nodes of NestedUNet at
+// batch 16; in bf16, splits of 3, 4 and 8, and a split at 48x48, measured
+// slower (PERF.md). A variant's first plan on a device sets its shared-memory
+// limit there and caches how many of its blocks the device holds at once;
+// later plans only do the arithmetic.
+cudaError_t plan_launch(int dtype, int B, int H, int W, int co, const int* part_ch, int nparts,
+                        Launch* plan) {
+  static const Variant table[2][2] = {{f32_variant<32>(), f32_variant<64>()},
+                                      {bf16_variant<32>(), bf16_variant<64>()}};
+  static std::atomic<int> resident_of[kMaxDevices][2][2];  // 0: not set up yet
   const int slice = co > 32 ? 1 : 0;
-  const Bf16Variant& v = table[slice];
+  const Variant& v = table[dtype][slice];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int resident = resident_of[dev][slice].load(std::memory_order_relaxed);
+  int resident = resident_of[dev][dtype][slice].load(std::memory_order_relaxed);
   if (resident == 0) {
     int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(v.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, v.smem);
+    err = cudaFuncSetAttribute(v.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, v.smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v.kernel, v.threads, v.smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v.fn, v.threads, v.smem);
     if (err != cudaSuccess) return err;
     resident = sms * per_sm;
-    resident_of[dev][slice].store(resident, std::memory_order_relaxed);
+    resident_of[dev][dtype][slice].store(resident, std::memory_order_relaxed);
   }
   int nk = 0;
-  for (int i = 0; i < nparts; ++i) nk += (part_ch[i] + kKC - 1) / kKC;
+  for (int i = 0; i < nparts; ++i) nk += (part_ch[i] + v.chunk - 1) / v.chunk;
   const int tiles = (H + kTileH - 1) / kTileH * ((W + kTileW - 1) / kTileW);
   const long long blocks = (long long)tiles * ((co + v.bn - 1) / v.bn) * B;
   const int split = 2 * blocks <= resident && nk >= 6 ? 2 : 1;
@@ -585,7 +756,8 @@ extern "C" int decoder_fusion_fwd(int dtype, const void* const* part_ptrs,
                                   const int* part_ch, int nparts, const void* weight,
                                   const void* bias, void* out, int B, int H, int W,
                                   int co, void* stream) {
-  if (nparts < 1 || nparts > kMaxParts || B < 1 || H < 1 || W < 1 || co < 1)
+  if (nparts < 1 || nparts > kMaxParts || B < 1 || H < 1 || W < 1 || co < 1 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Parts parts;
   int cin = 0;
@@ -595,51 +767,40 @@ extern "C" int decoder_fusion_fwd(int dtype, const void* const* part_ptrs,
     cin += parts.ch[i];
   }
   parts.n = nparts;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) {
-    const int tiles_w = (W + TW - 1) / TW;
-    const int tiles_h = (H + TH - 1) / TH;
-    const dim3 grid(tiles_h * tiles_w, (co + CO_T - 1) / CO_T, B);
-    multipart_conv3x3_kernel<float><<<grid, THREADS, 0, s>>>(
-        parts, static_cast<const float*>(weight), b, static_cast<float*>(out),
-        H, W, cin, co, tiles_w);
-  } else if (dtype == 1) {
-    Bf16Launch plan;
-    const cudaError_t err = plan_bf16(B, H, W, co, part_ch, nparts, &plan);
-    if (err != cudaSuccess) return (int)err;
-    const int vec_co = co % 8 == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = plan.grid;
-    cfg.blockDim = dim3(plan.v.threads);
-    cfg.dynamicSmemBytes = plan.v.smem;
-    cfg.stream = s;
-    cudaLaunchAttribute cluster;
-    cluster.id = cudaLaunchAttributeClusterDimension;
-    cluster.val.clusterDim.x = plan.split;
-    cluster.val.clusterDim.y = 1;
-    cluster.val.clusterDim.z = 1;
-    cfg.attrs = &cluster;
-    cfg.numAttrs = plan.split > 1 ? 1 : 0;
-    const cudaError_t launch = cudaLaunchKernelEx(
-        &cfg, plan.v.kernel, parts, static_cast<const __nv_bfloat16*>(weight), b,
-        static_cast<__nv_bfloat16*>(out), H, W, cin, co, (W + kTileW - 1) / kTileW,
-        plan.split, vec_co);
-    if (launch != cudaSuccess) return (int)launch;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  Launch plan;
+  const cudaError_t err = plan_launch(dtype, B, H, W, co, part_ch, nparts, &plan);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte weight rows and output stores: 4 floats or 8 bf16
+  int vec_co = co % (dtype == 0 ? 4 : 8) == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0 &&
+               reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int tiles_w = (W + kTileW - 1) / kTileW;
+  int split = plan.split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = plan.grid;
+  cfg.blockDim = dim3(plan.v.threads);
+  cfg.dynamicSmemBytes = plan.v.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = plan.split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = plan.split > 1 ? 1 : 0;
+  void* args[] = {&parts, &weight, &bias, &out, &H, &W, &cin, &co, &tiles_w, &split, &vec_co};
+  const cudaError_t launch = cudaLaunchKernelExC(&cfg, plan.v.fn, args);
+  if (launch != cudaSuccess) return (int)launch;
   return (int)cudaGetLastError();
 }
 
-// The bf16 launch decoder_fusion_fwd makes for a shape: out = {tile rows,
-// tile columns, co per block, K split, blocks, threads per block, dynamic
-// shared bytes}. Returns a cudaError_t (0 on success).
-extern "C" int decoder_fusion_bf16_plan(int B, int H, int W, int co, const int* part_ch,
-                                        int nparts, int* out) {
-  Bf16Launch plan;
-  const cudaError_t err = plan_bf16(B, H, W, co, part_ch, nparts, &plan);
+// The launch decoder_fusion_fwd makes for a shape in `dtype`: out = {tile
+// rows, tile columns, co per block, K split, blocks, threads per block,
+// dynamic shared bytes}. Returns a cudaError_t (0 on success).
+extern "C" int decoder_fusion_plan(int dtype, int B, int H, int W, int co, const int* part_ch,
+                                   int nparts, int* out) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Launch plan;
+  const cudaError_t err = plan_launch(dtype, B, H, W, co, part_ch, nparts, &plan);
   if (err != cudaSuccess) return (int)err;
   const int values[7] = {kTileH, kTileW, plan.v.bn, plan.split,
                          (int)(plan.grid.x * plan.grid.y * plan.grid.z), plan.v.threads,

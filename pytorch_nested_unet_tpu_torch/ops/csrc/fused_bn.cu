@@ -22,8 +22,9 @@
 //
 // Design. The TPU kernels carry their sums from one sequential grid step to
 // the next; on the card blocks run in parallel and in no order, so K1 and K2
-// are two-stage reductions with no float atomics, and the same inputs give
-// the same bits on every run:
+// reduce across blocks with no float atomics, and the same inputs give the
+// same bits on every run. K2 is one launch with a last-block finish (see
+// bwd_reduce_kernel below). K1 is two:
 //   stage 1: a grid of (row chunk, channel slice) blocks. Each thread owns a
 //     fixed group of VEC neighbouring channels (16-byte loads when C allows:
 //     8 bf16 or 4 float) and walks the chunk's rows with a stride of `lanes`;
@@ -242,36 +243,164 @@ struct ChannelParams {
   }
 };
 
-// K2 stage 1: part[0][p][c] = sum dz, part[1][p][c] = sum dz*xhat.
+// ---------------------------------------------------------------------------
+// K2 in one launch. Grid (P row chunks, gridy channel slices) of kThreads
+// threads, sized to about kReduceBlocksPerSm blocks per SM rather than to the
+// rows, so each thread walks many rows with kUnroll rows of 16-byte loads in
+// flight. A slice
+// is at most 128 bytes of a row (gpb <= kSliceBytes / (VEC * sizeof(T))
+// channel groups), so a warp still reads whole 128-byte lines while narrow
+// slices give more blocks a last-block finish of their own. The block folds
+// its lanes with warp shuffles and one pass through shared memory, writes a
+// row of f32 partials, and the block that draws its slice's last ticket sums
+// that slice's P rows in the fixed order p = 0..P-1 (consecutive threads on
+// consecutive 16-byte columns), writes dbeta and dgamma and resets the
+// ticket. The loads of the kUnroll rows all start before their
+// arithmetic; one accumulator per channel keeps the registers at 2 blocks
+// per SM (its VEC channels are independent chains already). No float
+// atomics: the same inputs give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kReduceBlocksPerSm = 2;
+constexpr int kUnroll = 4;
+constexpr int kSliceBytes = 128;
+constexpr int kFinishLoads = 16;   // most float4 partials a finishing thread sums
+constexpr int kFoldFloats = 1024;  // shared floats for the block fold and finish
+
+// How K2 cuts the (rows, C) view: `gpb` groups of `vec` channels per slice,
+// `lanes` = kThreads / gpb threads per group, `nparts` chunks of
+// `rows_per_block` rows per slice, partial rows of `width` floats (dbeta of
+// the slice's gpb*vec channels, then dgamma; at least 4).
+struct ReduceLayout {
+  int vec, gpb, lanes, gridy, nparts, width;
+  long long rows_per_block;
+};
+
+ReduceLayout make_reduce_layout(long long rows, int C, int vec, int esz, int sms) {
+  ReduceLayout L;
+  L.vec = vec;
+  const int groups = C / vec;
+  const int max_gpb = kSliceBytes / (vec * esz);
+  L.gpb = 1;
+  while (L.gpb < groups && L.gpb < max_gpb) L.gpb *= 2;
+  L.lanes = kThreads / L.gpb;
+  L.gridy = (groups + L.gpb - 1) / L.gpb;
+  L.width = 2 * L.gpb * vec < 4 ? 4 : 2 * L.gpb * vec;
+  long long target = (long long)sms * kReduceBlocksPerSm / L.gridy;
+  const long long finish_cap = (long long)kFinishLoads * kThreads / (L.width / 4);
+  if (target > finish_cap) target = finish_cap;
+  if (target < 1) target = 1;
+  long long rpb = (rows + target - 1) / target;
+  rpb = (rpb + L.lanes - 1) / L.lanes * L.lanes;
+  if (rpb < (long long)L.lanes * kMinRowsPerLane) rpb = (long long)L.lanes * kMinRowsPerLane;
+  L.rows_per_block = rpb;
+  L.nparts = (int)((rows + rpb - 1) / rpb);
+  return L;
+}
+
+// The last-block handshake of a reduction whose blocks each wrote one row of
+// partials: every thread fences its writes, thread 0 draws a ticket from
+// tickets[slice], and the function returns true, in every thread, only in
+// the block that drew the slice's last of P tickets, after a fence that
+// makes the other blocks' partials visible to it. That block resets the
+// ticket (to be read again only by a later kernel on the stream).
+__device__ __forceinline__ bool last_block_of_slice(int* tickets, int slice, int P) {
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(&tickets[slice], 1);
+    is_last = t == P - 1;
+    if (is_last) tickets[slice] = 0;
+  }
+  __syncthreads();
+  if (!is_last) return false;
+  __threadfence();
+  return true;
+}
+
+// Column totals of the P rows of `width` floats (a multiple of 4, at most
+// 4 * kThreads) at `part`, each summed in the fixed order p = 0..P-1, into
+// sh[0..width). Thread t sums column group t % (width/4) over the rows
+// p = j, j + J, ... (j = t / (width/4), J = kThreads / (width/4)) with
+// 16-byte L2 reads, then the J subtotals fold in order j = 0..J-1. Needs
+// sh of kThreads * 4 floats; ends with a __syncthreads.
+__device__ __forceinline__ void sum_partial_rows(const float* part, int P, int width,
+                                                 float* sh) {
+  const int w4 = width / 4;
+  const int J = kThreads / w4;
+  const int col = threadIdx.x % w4;
+  const int j = threadIdx.x / w4;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j < J) {
+    const float4* src = reinterpret_cast<const float4*>(part) + col;
+#pragma unroll 4
+    for (int p = j; p < P; p += J) {
+      const float4 v = __ldcg(src + (long long)p * w4);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    reinterpret_cast<float4*>(sh)[j * w4 + col] = s;
+  }
+  __syncthreads();
+  float tot = 0.f;
+  if (threadIdx.x < width)
+    for (int jj = 0; jj < J; ++jj) tot += sh[jj * width + threadIdx.x];
+  __syncthreads();
+  if (threadIdx.x < width) sh[threadIdx.x] = tot;
+  __syncthreads();
+}
+
+// K2: out[0][c] = dbeta = sum dz, out[1][c] = dgamma = sum dz*xhat.
+// part: [gridy][P][width] f32 scratch; tickets: [gridy] ints, 0 on entry
+// and on exit.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-bwd_reduce_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                          const float* __restrict__ mean, const float* __restrict__ inv,
-                          const float* __restrict__ gamma, const float* __restrict__ beta,
-                          float* __restrict__ part, long long rows, int C, int gpb,
-                          long long rows_per_block) {
-  __shared__ float sh_b[kThreads * VEC];
-  __shared__ float sh_g[kThreads * VEC];
+__global__ void __launch_bounds__(kThreads, kReduceBlocksPerSm)
+bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                  const float* __restrict__ mean, const float* __restrict__ inv,
+                  const float* __restrict__ gamma, const float* __restrict__ beta,
+                  float* part, int* tickets,
+                  float* __restrict__ out, long long rows, int C, int gpb,
+                  long long rows_per_block, int width) {
+  __shared__ __align__(16) float sh[kFoldFloats];
+  const int P = gridDim.x;
+  const int slice = blockIdx.y;
   const int lanes = kThreads / gpb;
   const int tg = threadIdx.x % gpb;
   const int lane = threadIdx.x / gpb;
-  const int g = blockIdx.y * gpb + tg;
-  const bool active = g * VEC < C;
+  const int g = slice * gpb + tg;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
 
   float db[VEC], dg[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) db[i] = dg[i] = 0.f;
-  if (active) {
+  if (g * VEC < C) {
     ChannelParams<VEC> cp;
     cp.load(mean, inv, gamma, beta, g * VEC);
-    const long long off = (long long)g * VEC;
-#pragma unroll 2
-    for (long long r = r0 + lane; r < r1; r += lanes) {
+    const T* xs = x + (long long)g * VEC;
+    const T* gs = dy + (long long)g * VEC;
+    long long r = r0 + lane;
+    for (; r + (kUnroll - 1) * lanes < r1; r += kUnroll * lanes) {
+      float xv[kUnroll][VEC], gv[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        load_vec<T, VEC>(xs + (r + u * lanes) * C, xv[u]);
+        load_vec<T, VEC>(gs + (r + u * lanes) * C, gv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float xhat, d;
+          cp.dz(i, xv[u][i], gv[u][i], xhat, d);
+          db[i] += d;
+          dg[i] = fmaf(d, xhat, dg[i]);
+        }
+    }
+    for (; r < r1; r += lanes) {
       float xv[VEC], gv[VEC];
-      load_vec<T, VEC>(x + r * C + off, xv);
-      load_vec<T, VEC>(dy + r * C + off, gv);
+      load_vec<T, VEC>(xs + r * C, xv);
+      load_vec<T, VEC>(gs + r * C, gv);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         float xhat, d;
@@ -281,37 +410,43 @@ bwd_reduce_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       }
     }
   }
+
+  // Block fold: lanes of one group within a warp by a butterfly (xor by
+  // multiples of gpb keeps the group), then the nrow = 8 warp totals (or,
+  // when gpb >= 32, the kThreads / gpb lanes) through shared memory.
+  const int wl = threadIdx.x % 32;
+  if (gpb < 32) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sh_b[threadIdx.x * VEC + i] = db[i];
-    sh_g[threadIdx.x * VEC + i] = dg[i];
+    for (int i = 0; i < VEC; ++i)
+      for (int off = 16; off >= gpb; off /= 2) {
+        db[i] += __shfl_xor_sync(0xffffffffu, db[i], off);
+        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], off);
+      }
   }
-  __syncthreads();
-  fold_lanes<VEC>(sh_b, lane, lanes, gpb);
-  fold_lanes<VEC>(sh_g, lane, lanes, gpb);
-  if (lane == 0 && active) {
-    const long long P = gridDim.x;
-    float* pb = part + (long long)blockIdx.x * C + (long long)g * VEC;
+  const int nrow = gpb < 32 ? kThreads / 32 : lanes;
+  const int srow = gpb < 32 ? threadIdx.x / 32 : lane;
+  const int half = gpb * VEC;  // floats of dbeta (then of dgamma) in a row
+  if (gpb >= 32 || wl < gpb) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      pb[i] = sh_b[tg * VEC + i];
-      pb[P * C + i] = sh_g[tg * VEC + i];
+      sh[srow * width + tg * VEC + i] = db[i];
+      sh[srow * width + half + tg * VEC + i] = dg[i];
     }
   }
-}
+  __syncthreads();
+  float* prow = part + ((long long)slice * P + blockIdx.x) * width;
+  for (int j = threadIdx.x; j < width; j += kThreads) {
+    float s = 0.f;
+    if (j < 2 * half)
+      for (int rr = 0; rr < nrow; ++rr) s += sh[rr * width + j];
+    prow[j] = s;
+  }
 
-// K2 stage 2: out rows 0, 1 = dbeta, dgamma.
-__global__ void __launch_bounds__(kFinalWarps * 32)
-bwd_reduce_final_kernel(const float* __restrict__ part, int P, int C,
-                        float* __restrict__ out) {
-  const int c = blockIdx.x * kFinalWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (c >= C) return;
-  const float db = warp_total(part, P, C, c, lane);
-  const float dg = warp_total(part + (long long)P * C, P, C, c, lane);
-  if (lane == 0) {
-    out[c] = db;
-    out[C + c] = dg;
+  if (!last_block_of_slice(tickets, slice, P)) return;
+  sum_partial_rows(part + (long long)slice * P * width, P, width, sh);
+  for (int j = threadIdx.x; j < 2 * half; j += kThreads) {
+    const int c = slice * half + (j < half ? j : j - half);
+    if (c < C) out[(j < half ? 0 : C) + c] = sh[j];
   }
 }
 
@@ -375,12 +510,12 @@ void launch_stats(const Layout& L, const void* x, float* work, long long rows, i
 }
 
 template <typename T, int VEC>
-void launch_reduce(const Layout& L, const void* x, const void* dy, const float* mean,
+void launch_reduce(const ReduceLayout& L, const void* x, const void* dy, const float* mean,
                    const float* inv, const float* gamma, const float* beta, float* work,
-                   long long rows, int C, cudaStream_t s) {
-  bwd_reduce_partial_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
+                   int* tickets, float* out, long long rows, int C, cudaStream_t s) {
+  bwd_reduce_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, gamma, beta, work,
-      rows, C, L.gpb, L.rows_per_block);
+      tickets, out, rows, C, L.gpb, L.rows_per_block, L.width);
 }
 
 template <typename T, int VEC>
@@ -396,12 +531,12 @@ void launch_dx(const Layout& L, const void* x, const void* dy, const float* mean
 
 // Every entry point: dtype 0 = float32, 1 = bfloat16; x (and dy, dx) are
 // contiguous (rows, C) in that dtype; per-channel vectors are float32 [C];
-// `work` is float32 scratch of `work_floats` floats: 2 * min(rows, 1056) * C
-// always suffices (a layout has at most kTargetBlocks row chunks, and at most
-// one per row).
+// `work` is float32 scratch of `work_floats` floats.
 // Kernels launch on `stream`; the return value is cudaGetLastError().
 
-// K1. out: float32 [5, C] = sum, sumsq, mean, biased var, inv. With run_mean
+// K1 (two launches). work: 2 * min(rows, 1056) * C floats always suffice (a
+// layout has at most kTargetBlocks row chunks, and at most one per row).
+// out: float32 [5, C] = sum, sumsq, mean, biased var, inv. With run_mean
 // and run_var non-null: run = momentum*run + (1 - momentum)*stat, the variance
 // taken unbiased (times rows/(rows-1)).
 extern "C" int bn_stats(int dtype, const void* x, long long rows, int C, double eps,
@@ -426,27 +561,36 @@ extern "C" int bn_stats(int dtype, const void* x, long long rows, int C, double 
   return (int)cudaGetLastError();
 }
 
-// K2. out: float32 [2, C] = dbeta, dgamma.
+// K2 (one launch). out: float32 [2, C] = dbeta, dgamma. `sms`: the device's
+// SM count. work: 128 * max(2 * sms, C) floats always suffice. tickets:
+// int32 [num_tickets], num_tickets >= ceil(C / 32), all 0; the kernel leaves
+// them 0, so one zeroed buffer serves every later call, replays from a CUDA
+// graph included, as long as the calls that share it are ordered on one
+// stream (two kernels in flight at once on one buffer would mix tickets).
 extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long rows, int C,
                              const float* mean, const float* inv, const float* gamma,
                              const float* beta, float* work, long long work_floats,
-                             float* out, void* stream) {
-  if (rows < 1 || C < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                             int* tickets, int num_tickets, int sms, float* out, void* stream) {
+  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x, dy}) : vec_for<__nv_bfloat16>(C, {x, dy});
-  const Layout L = make_layout(rows, C, vec);
-  if (2LL * L.nparts * C > work_floats) return (int)cudaErrorInvalidValue;
+  const ReduceLayout L = make_reduce_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
+  if ((long long)L.gridy * L.nparts * L.width > work_floats || L.gridy > num_tickets)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (vec == 4) launch_reduce<float, 4>(L, x, dy, mean, inv, gamma, beta, work, rows, C, s);
-    else launch_reduce<float, 1>(L, x, dy, mean, inv, gamma, beta, work, rows, C, s);
+    if (vec == 4)
+      launch_reduce<float, 4>(L, x, dy, mean, inv, gamma, beta, work, tickets, out, rows, C, s);
+    else
+      launch_reduce<float, 1>(L, x, dy, mean, inv, gamma, beta, work, tickets, out, rows, C, s);
   } else {
     if (vec == 8)
-      launch_reduce<__nv_bfloat16, 8>(L, x, dy, mean, inv, gamma, beta, work, rows, C, s);
+      launch_reduce<__nv_bfloat16, 8>(L, x, dy, mean, inv, gamma, beta, work, tickets, out,
+                                      rows, C, s);
     else
-      launch_reduce<__nv_bfloat16, 1>(L, x, dy, mean, inv, gamma, beta, work, rows, C, s);
+      launch_reduce<__nv_bfloat16, 1>(L, x, dy, mean, inv, gamma, beta, work, tickets, out,
+                                      rows, C, s);
   }
-  bwd_reduce_final_kernel<<<(C + kFinalWarps - 1) / kFinalWarps, kFinalWarps * 32, 0, s>>>(
-      work, L.nparts, C, out);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ Every nested decoder node of NestedUNet computes
 ``conv3x3(concat(skips..., upsample2x(low))) + bias``. On a CUDA tensor
 `multipart_conv3x3` launches the hand-written kernel in
 `csrc/decoder_fusion.cu`, which reads each part through its own base pointer,
-so the concatenated activation is never written: in bfloat16 an implicit GEMM
-on the tensor cores, in float32 a direct conv on the FP32 cores. It takes
+so the concatenated activation is never written: an implicit GEMM, in
+bfloat16 on the tensor cores and in float32 on the FP32 cores. It takes
 every shape: there is no shape guard and no fall-back. On CPU tensors it runs
 the plain version,
 `reference_multipart_conv3x3`, which the tests hold against the JAX package.
@@ -71,24 +71,26 @@ def _lib():
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        plan = lib.decoder_fusion_bf16_plan
-        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        plan = lib.decoder_fusion_plan
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                                               ctypes.POINTER(ctypes.c_int)]
         plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def bf16_launch_plan(b: int, h: int, w: int, part_channels: Sequence[int], co: int) -> dict:
-    """The launch the bf16 kernel makes on the current CUDA device for a
-    shape: its pixel tile, output channels per block, K split (blocks per
+def launch_plan(dtype: torch.dtype, b: int, h: int, w: int, part_channels: Sequence[int],
+                co: int) -> dict:
+    """The launch the kernel makes in `dtype` on the current CUDA device for
+    a shape: its pixel tile, output channels per block, K split (blocks per
     cluster), block count, threads per block and dynamic shared memory
     (builds the library on first use)."""
     chans = (ctypes.c_int * len(part_channels))(*part_channels)
     out = (ctypes.c_int * 7)()
-    err = _lib().decoder_fusion_bf16_plan(b, h, w, co, chans, len(part_channels), out)
+    err = _lib().decoder_fusion_plan(_DTYPE_CODE[dtype], b, h, w, co, chans,
+                                     len(part_channels), out)
     if err != 0:
-        raise RuntimeError(f"decoder_fusion_bf16_plan failed: cudaError {err}")
+        raise RuntimeError(f"decoder_fusion_plan failed: cudaError {err}")
     keys = ("tile_h", "tile_w", "co_per_block", "split", "blocks", "threads", "smem_bytes")
     return dict(zip(keys, out))
 

@@ -35,6 +35,11 @@ MOMENTUM = 0.9  # running-stat decay (torch momentum 0.1)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TARGET_BLOCKS = 1056  # csrc/fused_bn.cu kTargetBlocks: most row chunks per layout
 _LIB = None
+# K2's per-device state: (zeroed int32 ticket buffer, SM count). The kernel
+# leaves its tickets at 0, so the buffer is made once per device and every
+# later call, a CUDA graph's replay included, reuses it; calls that share it
+# run in stream order (csrc/fused_bn.cu, bn_bwd_reduce).
+_REDUCE_STATE = {}
 
 
 # ---------------------------------------------------------------- plain versions
@@ -90,7 +95,7 @@ def _lib():
         lib = _build.load("fused_bn")
         p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
         lib.bn_stats.argtypes = [i, p, ll, i, d, d, p, ll, p, p, p, p]
-        lib.bn_bwd_reduce.argtypes = [i, p, p, ll, i, p, p, p, p, p, ll, p, p]
+        lib.bn_bwd_reduce.argtypes = [i, p, p, ll, i, p, p, p, p, p, ll, p, i, i, p, p]
         lib.bn_bwd_dx.argtypes = [i, p, p, ll, i, p, p, p, p, p, p, p, p]
         for fn in (lib.bn_stats, lib.bn_bwd_reduce, lib.bn_bwd_dx):
             fn.restype = i
@@ -166,21 +171,40 @@ def bn_stats(x2d: torch.Tensor, eps: float = 1e-5,
     return tuple(out.unbind(0))
 
 
+def _reduce_state(dev, c):
+    """K2's ticket buffer (at least ceil(c / 32) zeroed ints) and SM count
+    on `dev`, made at first use; growing it is one zero fill, never inside a
+    CUDA graph capture."""
+    need = -(-c // 32)
+    state = _REDUCE_STATE.get(dev.index)
+    if state is None or state[0].numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bn_bwd_reduce: call it once on this device (at this "
+                               "channel count or more) before capturing a CUDA graph")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        state = (torch.zeros(max(need, 64), dtype=torch.int32, device=dev), sms)
+        _REDUCE_STATE[dev.index] = state
+    return state
+
+
 def bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta):
     """K2: (dbeta, dgamma) in float32, xhat and the ReLU mask recomputed from
-    x. CUDA tensors: the kernel; CPU tensors: `reference_bn_bwd_reduce`."""
+    x. CUDA tensors: the kernel, one launch per call; CPU tensors:
+    `reference_bn_bwd_reduce`."""
     if _is_cpu(x2d, dy2d, mean, inv, gamma, beta):
         return reference_bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta)
     rows, c = _check("bn_bwd_reduce", x2d, (dy2d,), (mean, inv, gamma, beta))
     dev = x2d.device
-    work_floats = 2 * min(rows, _TARGET_BLOCKS) * c
+    tickets, sms = _reduce_state(dev, c)
+    work_floats = 128 * max(2 * sms, c)
     work = torch.empty(work_floats, dtype=torch.float32, device=dev)
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().bn_bwd_reduce(
             _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy2d.data_ptr(), rows, c,
             mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            work.data_ptr(), work_floats, out.data_ptr(), _stream(dev))
+            work.data_ptr(), work_floats, tickets.data_ptr(), tickets.numel(), sms,
+            out.data_ptr(), _stream(dev))
     _raise_on(err, "bn_bwd_reduce")
     LAUNCHES["bn_bwd_reduce"] += 1
     return out[0], out[1]

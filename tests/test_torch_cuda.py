@@ -47,8 +47,9 @@ def _inputs(seed, cps, co, hw, dev, dtype, batch=2):
 # The shapes hit the edges of the bf16 kernel's tiling: 8 parts (MAX_PARTS), a
 # part whose channel count is not a multiple of 8 between parts whose are (scalar
 # staging), co not a multiple of 8 (scalar weights and stores) and co > 128,
-# H and W off the 12x12 pixel tile, batch 1, and K split over a cluster of 2
-# blocks (each shape of 6 or more 32-channel chunks over few blocks).
+# H and W off the 12x12 pixel tile (one pixel, 13x10, 5x33, 25x25: ragged tiles
+# in both directions), batch 1, and K split over a cluster of 2 blocks (each
+# shape of 6 or more K chunks over few blocks).
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("cps,co,hw,batch", [
     ((5, 3, 8), 6, (13, 10), 2), ((7,), 4, (1, 1), 2), ((32, 32, 64), 32, (24, 24), 2),
@@ -56,6 +57,7 @@ def _inputs(seed, cps, co, hw, dev, dtype, batch=2):
     ((32, 5, 64), 64, (12, 12), 2), ((96, 40), 136, (13, 10), 1),
     ((64, 128), 70, (24, 24), 1), ((8, 16, 8, 24, 8, 8, 32, 40), 48, (13, 10), 2),
     ((256, 200), 136, (12, 12), 1), ((256, 512), 256, (12, 12), 2),
+    ((32, 64), 32, (25, 25), 2), ((64, 128), 64, (25, 25), 2), ((32, 5, 64), 64, (5, 33), 2),
 ])
 def test_multipart_conv3x3_kernel(cuda, dtype, tol, cps, co, hw, batch):
     parts, kernel, bias = _inputs(0, cps, co, hw, cuda, dtype, batch=batch)
@@ -78,23 +80,25 @@ NODES = [(96, (32, 64), 32), (96, (32, 32, 64), 32), (96, (32, 32, 32, 64), 32),
          (12, (256, 512), 256)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("size,cps,co", NODES)
-def test_bf16_launch_fills_the_card(cuda, size, cps, co):
+def test_launch_fills_the_card(cuda, size, cps, co, dtype):
     """Every decoder node at batch 16 launches a block per SM, or its tiles
     are too few for that and it splits K to fill more of them (the 12x12
     node: 64 tiles, 128 blocks)."""
-    plan = df.bf16_launch_plan(16, size, size, cps, co)
+    plan = df.launch_plan(dtype, 16, size, size, cps, co)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert plan["blocks"] >= sms or plan["split"] == 2, plan
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cps,co,hw,batch", [
     ((256, 200), 136, (12, 12), 1), ((8, 16, 8, 24, 8, 8, 32, 40), 48, (13, 10), 2)])
-def test_bf16_split_k_is_deterministic(cuda, cps, co, hw, batch):
+def test_split_k_is_deterministic(cuda, cps, co, hw, batch, dtype):
     """The split-K route sums its partials in a fixed order: the same bits
     on every run."""
-    assert df.bf16_launch_plan(batch, *hw, cps, co)["split"] == 2
-    parts, kernel, bias = _inputs(3, cps, co, hw, cuda, torch.bfloat16, batch=batch)
+    assert df.launch_plan(dtype, batch, *hw, cps, co)["split"] == 2
+    parts, kernel, bias = _inputs(3, cps, co, hw, cuda, dtype, batch=batch)
     first = df.multipart_conv3x3(parts, kernel, bias)
     for _ in range(3):
         assert torch.equal(df.multipart_conv3x3(parts, kernel, bias), first)
@@ -176,6 +180,75 @@ def test_bn_kernels(cuda, dtype, c, rows):
         "bn_stats": 1, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
     # no float atomics: the same inputs give the same bits
     assert torch.equal(bn.bn_stats(x)[0], got[0])
+
+
+def _k2_inputs(c, rows, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, c, generator=g) * 1.5 + 0.3).to(dev, dtype)
+    dy = torch.randn(rows, c, generator=g).to(dev, dtype)
+    gamma = (torch.rand(c, generator=g) + 0.5).to(dev)
+    beta = (torch.rand(c, generator=g) * 0.6 - 0.3).to(dev)
+    xf = x.float()
+    mean = xf.mean(0)
+    inv = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+    return x, dy, mean, inv, gamma, beta
+
+
+def _assert_k2_close(got, args):
+    x, dy, mean, inv, gamma, beta = args
+    xf, dyf = x.float(), dy.float()
+    want = bn.reference_bn_bwd_reduce(xf, dyf, mean, inv, gamma, beta)
+    xhat = (xf - mean) * inv
+    dz = torch.where(gamma * xhat + beta > 0, dyf, 0.0)
+    _assert_sums_close(got[0], want[0], dz.abs().sum(0))
+    _assert_sums_close(got[1], want[1], (dz * xhat).abs().sum(0))
+
+
+# K2 is one launch whose last block sums the partials in a fixed order and
+# resets its ticket: level 0 of the training step and the ragged shapes give
+# the same bits on every rerun.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,rows", [(32, 147456)] + [
+    (c, rows) for c in (1, 3, 48, 70) for rows in (1, 37, 1000)])
+def test_bn_bwd_reduce_same_bits(cuda, dtype, c, rows):
+    args = _k2_inputs(c, rows, dtype, cuda, seed=c + rows)
+    first = bn.bn_bwd_reduce(*args)
+    _assert_k2_close(first, args)
+    for _ in range(3):
+        got = bn.bn_bwd_reduce(*args)
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+
+
+def test_bn_bwd_reduce_back_to_back_shapes(cuda):
+    """Calls of different shapes queued on one stream with no sync between
+    them are each right: every call leaves its tickets at 0 for the next."""
+    cases = [(32, 147456, torch.float32), (70, 37, torch.bfloat16), (512, 576, torch.float32),
+             (1, 1, torch.bfloat16), (48, 1000, torch.float32), (256, 2304, torch.bfloat16),
+             (3, 37, torch.float32), (64, 36864, torch.bfloat16)]
+    args = [_k2_inputs(c, rows, dtype, cuda, seed=i) for i, (c, rows, dtype) in enumerate(cases)]
+    torch.cuda.synchronize()
+    outs = [bn.bn_bwd_reduce(*a) for a in args]
+    torch.cuda.synchronize()
+    for got, a in zip(outs, args):
+        _assert_k2_close(got, a)
+
+
+def test_bn_bwd_reduce_graph_replay(cuda):
+    """K2 captured in a CUDA graph gives the eager result on every replay."""
+    args = _k2_inputs(64, 36864, torch.bfloat16, cuda, seed=7)
+    want = bn.bn_bwd_reduce(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bn.bn_bwd_reduce(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bn.bn_bwd_reduce(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
 
 def test_bn_kernels_reject_bad_inputs(cuda):

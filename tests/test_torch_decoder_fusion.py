@@ -86,6 +86,7 @@ def test_plain_matches_pallas(cps, co, hw, with_bias):
     ((32, 5, 64), 64, (12, 12), 2),        # 12x12, a part with C % 8 != 0
     ((96, 40), 136, (13, 10), 1),          # co > 128, batch 1
     ((256, 200), 136, (12, 12), 1),        # the shape of the kernel's split-K route
+    ((32, 64), 32, (25, 25), 1),           # ragged 12x12 tiles in both directions
 ])
 def test_plain_matches_jax_at_edges(cps, co, hw, batch):
     """The plain version at the other edges of the CUDA kernel's tiling,

@@ -26,6 +26,8 @@ SHAPES = [
     (2, 8, 8, 128),    # unpacked
     (2, 16, 16, 1),    # score-map channel count, f=128
     (2, 10, 10, 48),   # C that is no power of two
+    (2, 6, 6, 256),    # wide C: several channel slices in the one-launch K2
+    (1, 6, 6, 512),    # the deepest level's width
 ]
 
 
