@@ -20,14 +20,15 @@
    with the launch counts of every kernel read around each run, a
    torch.profiler breakdown of a few more batches by kernel, and the fp32
    probabilities held against the same weights on the CPU;
-5. K1-K3 kernel phase: one bn_bwd_reduce call must run one CUDA kernel
-   (torch.profiler, level 0, both dtypes); then the training-mode BN kernels
-   against their plain versions at the (C, rows) shapes of the training
-   step (full width, batch 16, 96x96) and at ragged shapes, both dtypes,
-   with bounds and library
-   yardsticks, per level and summed over the step's 30 instances; times are
-   device time replayed from a CUDA graph (a call from Python also pays the
-   host's launch gaps, printed beside it as "call");
+5. K1-K3 kernel phase: one bn_stats and one bn_bwd_reduce call must each run
+   one CUDA kernel (torch.profiler, level 0, both dtypes); then the
+   training-mode BN kernels against their plain versions at the (C, rows)
+   shapes of the training step (full width, batch 16, 96x96) and at ragged
+   shapes, both dtypes, with bounds and library yardsticks, per level and
+   summed over the step's 30 instances; times are device time replayed from
+   a CUDA graph (a call from Python also pays the host's launch gaps,
+   printed beside it as "call"); then each kernel's step sequence, the 30
+   instances replayed from one graph;
 6. K4 backward phase: the differentiable decoder-fusion op's gradients against
    autograd through its plain version at the 10 node shapes, and its time;
 7. training path phase: `train.fit` on full-width NestedUNet wDS (batch 16,
@@ -402,9 +403,10 @@ def _sum_err(got, want, mags, what):
     return err
 
 
-def k2_kernels_per_call(bn, dev):
-    """CUDA kernels one bn_bwd_reduce call runs at level 0 (147,456 x 32), in
-    each dtype, counted by torch.profiler; raises unless each is one."""
+def bn_kernels_per_call(bn, dev):
+    """CUDA kernels one bn_stats (K1) and one bn_bwd_reduce (K2) call run at
+    level 0 (147,456 x 32), in each dtype, counted by torch.profiler; raises
+    unless each is one."""
     from torch.profiler import ProfilerActivity, profile
 
     _, c, rows, _ = BN_LEVELS[0]
@@ -413,24 +415,79 @@ def k2_kernels_per_call(bn, dev):
     found = {}
     for dtype in (torch.float32, torch.bfloat16):
         x, dy = (torch.randn(rows, c, generator=gen, device=dev).to(dtype) for _ in range(2))
-        bn.bn_bwd_reduce(x, dy, *vecs)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            bn.bn_bwd_reduce(x, dy, *vecs)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        calls = {"K1": lambda: bn.bn_stats(x, 1e-5, rm, rv),
+                 "K2": lambda: bn.bn_bwd_reduce(x, dy, *vecs)}
+        for k, call in calls.items():
+            call()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        found[DTYPE_NAME[dtype]] = names
-        if len(names) != 1:
-            raise AssertionError(f"K2 {DTYPE_NAME[dtype]}: one bn_bwd_reduce call ran "
-                                 f"{len(names)} CUDA kernels, expected 1: {names}")
-    print("K2 CUDA kernels per bn_bwd_reduce call at level 0 (torch.profiler): "
-          + "; ".join(f"{k} {len(v)} ({v[0][:60]})" for k, v in found.items()), flush=True)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            found[f"{k} {DTYPE_NAME[dtype]}"] = names
+            if len(names) != 1:
+                raise AssertionError(f"{k} {DTYPE_NAME[dtype]}: one call ran {len(names)} "
+                                     f"CUDA kernels, expected 1: {names}")
+    print("CUDA kernels per bn_stats (K1) and bn_bwd_reduce (K2) call at level 0 "
+          "(torch.profiler): " + "; ".join(f"{k} {len(v)} ({v[0][:60]})"
+                                           for k, v in found.items()), flush=True)
+
+
+def bn_step_sequence(bn, dev, dtype, gen, flush):
+    """K1-K3, their plain versions and library calls over the 30 BN instances
+    of one training step, each instance on its own buffers, each set of 30
+    captured in one CUDA graph and replayed after one L2 flush: the graph
+    timing floor is paid once per step, not once per instance. K1 updates
+    running stats, as in the step. Returns {kernel: (kernel, plain, library ms)}."""
+    nbb = torch.ops.aten.native_batch_norm_backward
+    insts = []
+    for lvl, c, rows, n in BN_LEVELS:
+        nhw = (BATCH, SIZE >> lvl, SIZE >> lvl)
+        for _ in range(n):
+            x = (torch.randn(rows, c, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+            dy = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+            gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+            beta = torch.rand(c, generator=gen, device=dev) * 0.6 - 0.3
+            _, _, mean, _, inv = bn.reference_bn_stats(x.float())
+            db, dg = bn.reference_bn_bwd_reduce(x.float(), dy.float(), mean, inv, gamma, beta)
+            xhat = (x.float() - mean) * inv
+            dz4 = torch.where(gamma * xhat + beta > 0, dy.float(), 0.0).to(dtype) \
+                .view(*nhw, c).permute(0, 3, 1, 2)
+            insts.append(dict(x=x, dy=dy, p=(mean, inv, gamma, beta), db=db, dg=dg, dz4=dz4,
+                              x4=x.view(*nhw, c).permute(0, 3, 1, 2),
+                              run=(torch.zeros(c, device=dev), torch.ones(c, device=dev))))
+
+    def each(fn):
+        return lambda: [fn(i) for i in insts]
+
+    fns = {
+        "K1": (each(lambda i: bn.bn_stats(i["x"], 1e-5, *i["run"])),
+               each(lambda i: bn.reference_bn_stats(i["x"], 1e-5, *i["run"])),
+               each(lambda i: torch.var_mean(i["x"], dim=0, correction=0))),
+        "K2": (each(lambda i: bn.bn_bwd_reduce(i["x"], i["dy"], *i["p"])),
+               each(lambda i: bn.reference_bn_bwd_reduce(i["x"], i["dy"], *i["p"])),
+               each(lambda i: nbb(i["dz4"], i["x4"], i["p"][2], None, None, i["p"][0],
+                                  i["p"][1], True, 1e-5, [False, True, True]))),
+        "K3": (each(lambda i: bn.bn_bwd_dx(i["x"], i["dy"], *i["p"], i["db"], i["dg"])),
+               each(lambda i: bn.reference_bn_bwd_dx(i["x"], i["dy"], *i["p"], i["db"],
+                                                     i["dg"])),
+               each(lambda i: nbb(i["dz4"], i["x4"], i["p"][2], None, None, i["p"][0],
+                                  i["p"][1], True, 1e-5, [True, False, False]))),
+    }
+    out = {k: tuple(graph_ms(f, flush) for f in trio) for k, trio in fns.items()}
+    print(f"BN {DTYPE_NAME[dtype]} step sequence (the {len(insts)} instances of one step in "
+          "one CUDA graph, one L2 flush before each replay): " + " | ".join(
+              f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} library {t[2]:.4f}"
+              for k, t in out.items()), flush=True)
+    return out
 
 
 def bn_kernel_phase(bn, dev):
     """K1-K3 against their plain versions; returns {(kernel, dtype): summary}
-    with times summed over the 30 BN instances of one training step."""
+    with times summed over the 30 BN instances of one training step. Each
+    dtype ends with the step sequence (`bn_step_sequence`)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     nbb = torch.ops.aten.native_batch_norm_backward
@@ -516,6 +573,7 @@ def bn_kernel_phase(bn, dev):
                   f"{a['plain_ms']:.4f} ms | library "
                   f"{a['library_ms']:.4f} ms | bound {a['bound_ms']:.4f} ms ({a['bound_by']}) "
                   f"| max abs err {a['max_abs_err']:.3g}", flush=True)
+        bn_step_sequence(bn, dev, dtype, gen, flush)
     return out
 
 
@@ -812,7 +870,7 @@ def main():
     k4 = kernel_phase(df, dev)
     k4_host_us(df, dev)
     serve_launches = path_phase(df, card)
-    k2_kernels_per_call(bn, dev)
+    bn_kernels_per_call(bn, dev)
     bnk = bn_kernel_phase(bn, dev)
     k4_backward_phase(df, dev)
     train_launches = train_phase(bn, df, card)

@@ -20,25 +20,25 @@
 // in bf16, some 45-140 us at 3.35 TB/s, while the smallest instances (0.6 MB)
 // are below a launch's latency.
 //
-// Design. The TPU kernels carry their sums from one sequential grid step to
-// the next; on the card blocks run in parallel and in no order, so K1 and K2
-// reduce across blocks with no float atomics, and the same inputs give the
-// same bits on every run. K2 is one launch with a last-block finish (see
-// bwd_reduce_kernel below). K1 is two:
-//   stage 1: a grid of (row chunk, channel slice) blocks. Each thread owns a
-//     fixed group of VEC neighbouring channels (16-byte loads when C allows:
-//     8 bf16 or 4 float) and walks the chunk's rows with a stride of `lanes`;
-//     neighbouring threads take neighbouring channel groups, and when a row
-//     is narrower than a warp (C = 32 in bf16 is 64 bytes) one warp spans
-//     several rows, so every warp reads contiguous memory. The block folds its
-//     lanes in shared memory by a fixed tree and writes f32 partials [P][C].
-//   stage 2: one warp per channel sums the P partials in a fixed order. K1's
-//     stage 2 also finishes mean, biased var = max(sum x^2/n - mean^2, 0),
-//     inv = rsqrt(var + eps) and, when given, the running-stat update
-//     (decay `momentum`, unbiased variance), so a BN layer's forward costs two
-//     launches before its normalize pass.
-// K3 uses the same thread-to-channel map, so each thread keeps its channels'
-// mean, inv, gamma, beta, dbeta/n and dgamma/n in registers for all its rows.
+// Design. Every kernel is one launch whose grid is sized to the card (a few
+// blocks per SM), not to the rows, so each thread walks many rows with
+// kUnroll rows of 16-byte loads in flight, all issued before their
+// arithmetic. Channels are cut into slices of at most 128 bytes of a row:
+// each thread owns a fixed group of VEC neighbouring channels (16-byte loads
+// when C allows: 8 bf16 or 4 float), neighbouring threads take neighbouring
+// groups, and when a row is narrower than a warp (C = 32 in bf16 is 64 bytes)
+// one warp spans several rows, so every warp reads whole lines. A thread
+// keeps its channels' per-channel values in registers for all its rows.
+// The TPU kernels carry their sums from one sequential grid step to the
+// next; on the card blocks run in parallel and in no order, so K1 and K2
+// reduce across blocks with a last-block finish and no float atomics: each
+// block folds its lanes (warp shuffles, one pass through shared memory) into
+// one row of f32 partial sums, and the block that draws its slice's last
+// ticket sums the slice's rows in the fixed order p = 0..P-1, finishes (K1:
+// mean, biased var = max(sum x^2/n - mean^2, 0), inv = rsqrt(var + eps) and
+// the running-stat update; K2: dbeta, dgamma) and resets the ticket. The
+// same inputs give the same bits on every run. K3 has no reduction; its grid
+// is the blocks the card holds at once.
 // Any C >= 1 and any row count work: a row chunk's edge and a channel slice's
 // edge are masked, and a C that is not a multiple of VEC (or a pointer that is
 // not 16-byte aligned) takes the scalar instantiation.
@@ -52,9 +52,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFinalWarps = 8;     // stage 2: channels per block
-constexpr int kTargetBlocks = 1056;  // 132 SMs x 8 blocks of 256 threads
-constexpr int kMinRowsPerLane = 4;
+constexpr int kReduceBlocksPerSm = 2;  // K1, K2
+constexpr int kDxBlocksPerSm = 2;      // K3: up to 128 registers a thread
+constexpr int kUnroll = 4;             // rows of loads in flight per thread
+constexpr int kDxUnrollBf16 = 2;       // K3 at VEC 8: 4 rows spill at 128 registers
+constexpr int kMinRowsPerLane = 4;     // K1, K2: rows a lane walks at least
+constexpr int kSliceBytes = 128;
+constexpr int kFinishLoads = 16;   // most float4 partials a finishing thread sums
+constexpr int kFoldFloats = 1024;  // shared floats for the block fold and finish
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -91,133 +96,6 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VE
   }
 }
 
-// How the (rows, C) view is cut: groups of `vec` channels, `gpb` groups per
-// block (a power of two), `lanes` = kThreads / gpb threads per group, each
-// block `rows_per_block` rows; grid (nparts, gridy).
-struct Layout {
-  int vec, groups, gpb, lanes, gridy, nparts;
-  long long rows_per_block;
-};
-
-Layout make_layout(long long rows, int C, int vec) {
-  Layout L;
-  L.vec = vec;
-  L.groups = C / vec;
-  L.gpb = 1;
-  while (L.gpb < L.groups && L.gpb < kThreads) L.gpb *= 2;
-  L.lanes = kThreads / L.gpb;
-  L.gridy = (L.groups + L.gpb - 1) / L.gpb;
-  const long long per_lane = (rows + L.lanes - 1) / L.lanes;
-  const long long target = kTargetBlocks / L.gridy > 0 ? kTargetBlocks / L.gridy : 1;
-  long long iters = (per_lane + target - 1) / target;
-  if (iters < kMinRowsPerLane) iters = kMinRowsPerLane;
-  L.rows_per_block = iters * L.lanes;
-  L.nparts = (int)((rows + L.rows_per_block - 1) / L.rows_per_block);
-  return L;
-}
-
-// Fold the `lanes` rows of sh[kThreads * VEC] (thread t's values at t*VEC) into
-// the first gpb threads' slots by a fixed tree: lane l adds lane l + stride.
-template <int VEC>
-__device__ __forceinline__ void fold_lanes(float* sh, int lane, int lanes, int gpb) {
-  for (int stride = lanes / 2; stride > 0; stride /= 2) {
-    if (lane < stride) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        sh[threadIdx.x * VEC + i] += sh[(threadIdx.x + stride * gpb) * VEC + i];
-    }
-    __syncthreads();
-  }
-}
-
-// K1 stage 1: part[0][p][c] = sum of x, part[1][p][c] = sum of x^2 over
-// block p's rows.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, long long rows,
-                     int C, int gpb, long long rows_per_block) {
-  __shared__ float sh_s[kThreads * VEC];
-  __shared__ float sh_q[kThreads * VEC];
-  const int lanes = kThreads / gpb;
-  const int tg = threadIdx.x % gpb;
-  const int lane = threadIdx.x / gpb;
-  const int g = blockIdx.y * gpb + tg;
-  const bool active = g * VEC < C;
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = min(rows, r0 + rows_per_block);
-
-  float s[VEC], q[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) s[i] = q[i] = 0.f;
-  if (active) {
-    const T* src = x + (long long)g * VEC;
-#pragma unroll 4
-    for (long long r = r0 + lane; r < r1; r += lanes) {
-      float v[VEC];
-      load_vec<T, VEC>(src + r * C, v);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        s[i] += v[i];
-        q[i] = fmaf(v[i], v[i], q[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sh_s[threadIdx.x * VEC + i] = s[i];
-    sh_q[threadIdx.x * VEC + i] = q[i];
-  }
-  __syncthreads();
-  fold_lanes<VEC>(sh_s, lane, lanes, gpb);
-  fold_lanes<VEC>(sh_q, lane, lanes, gpb);
-  if (lane == 0 && active) {
-    const long long P = gridDim.x;
-    float* ps = part + (long long)blockIdx.x * C + (long long)g * VEC;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      ps[i] = sh_s[tg * VEC + i];
-      ps[P * C + i] = sh_q[tg * VEC + i];
-    }
-  }
-}
-
-// Sum the P partials of channel c in a fixed order: lane l takes p = l, l+32,
-// ..., then a butterfly over the warp. Every lane ends with the total.
-__device__ __forceinline__ float warp_total(const float* __restrict__ part, int P, int C,
-                                            int c, int lane) {
-  float s = 0.f;
-  for (int p = lane; p < P; p += 32) s += part[(long long)p * C + c];
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-  return s;
-}
-
-// K1 stage 2: out rows 0..4 = sum, sumsq, mean, biased var, inv; running
-// stats updated in place when given.
-__global__ void __launch_bounds__(kFinalWarps * 32)
-stats_final_kernel(const float* __restrict__ part, int P, int C, long long rows, float eps,
-                   float keep, float take, float unbias, float* __restrict__ out,
-                   float* __restrict__ run_mean, float* __restrict__ run_var) {
-  const int c = blockIdx.x * kFinalWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (c >= C) return;
-  const float s = warp_total(part, P, C, c, lane);
-  const float q = warp_total(part + (long long)P * C, P, C, c, lane);
-  if (lane != 0) return;
-  const float n = (float)rows;
-  const float mean = s / n;
-  const float var = fmaxf(__fsub_rn(q / n, __fmul_rn(mean, mean)), 0.f);
-  out[c] = s;
-  out[C + c] = q;
-  out[2 * C + c] = mean;
-  out[3 * C + c] = var;
-  out[4 * C + c] = rsqrtf(var + eps);
-  if (run_mean != nullptr) {
-    run_mean[c] = keep * run_mean[c] + take * mean;
-    run_var[c] = keep * run_var[c] + take * (var * unbias);
-  }
-}
-
 // Per-channel parameters of one thread's VEC channels.
 template <int VEC>
 struct ChannelParams {
@@ -243,42 +121,20 @@ struct ChannelParams {
   }
 };
 
-// ---------------------------------------------------------------------------
-// K2 in one launch. Grid (P row chunks, gridy channel slices) of kThreads
-// threads, sized to about kReduceBlocksPerSm blocks per SM rather than to the
-// rows, so each thread walks many rows with kUnroll rows of 16-byte loads in
-// flight. A slice
-// is at most 128 bytes of a row (gpb <= kSliceBytes / (VEC * sizeof(T))
-// channel groups), so a warp still reads whole 128-byte lines while narrow
-// slices give more blocks a last-block finish of their own. The block folds
-// its lanes with warp shuffles and one pass through shared memory, writes a
-// row of f32 partials, and the block that draws its slice's last ticket sums
-// that slice's P rows in the fixed order p = 0..P-1 (consecutive threads on
-// consecutive 16-byte columns), writes dbeta and dgamma and resets the
-// ticket. The loads of the kUnroll rows all start before their
-// arithmetic; one accumulator per channel keeps the registers at 2 blocks
-// per SM (its VEC channels are independent chains already). No float
-// atomics: the same inputs give the same bits.
-// ---------------------------------------------------------------------------
-
-constexpr int kReduceBlocksPerSm = 2;
-constexpr int kUnroll = 4;
-constexpr int kSliceBytes = 128;
-constexpr int kFinishLoads = 16;   // most float4 partials a finishing thread sums
-constexpr int kFoldFloats = 1024;  // shared floats for the block fold and finish
-
-// How K2 cuts the (rows, C) view: `gpb` groups of `vec` channels per slice,
-// `lanes` = kThreads / gpb threads per group, `nparts` chunks of
-// `rows_per_block` rows per slice, partial rows of `width` floats (dbeta of
-// the slice's gpb*vec channels, then dgamma; at least 4).
-struct ReduceLayout {
-  int vec, gpb, lanes, gridy, nparts, width;
+// How a kernel cuts the (rows, C) view: `gridy` channel slices of `gpb`
+// groups of `vec` channels (gpb a power of two, gpb * vec at most
+// kSliceBytes of a row), `lanes` = kThreads / gpb threads per group; each
+// slice `nparts` chunks of `rows_per_block` rows (a multiple of lanes);
+// grid (nparts, gridy). A reduction's partial rows are `width` floats (the
+// slice's gpb*vec first sums, then its second sums; at least 4).
+struct Layout {
+  int gpb, lanes, gridy, nparts, width;
   long long rows_per_block;
 };
 
-ReduceLayout make_reduce_layout(long long rows, int C, int vec, int esz, int sms) {
-  ReduceLayout L;
-  L.vec = vec;
+// The channel slices of C channels of `esz` bytes in groups of `vec`.
+Layout slice_channels(int C, int vec, int esz) {
+  Layout L;
   const int groups = C / vec;
   const int max_gpb = kSliceBytes / (vec * esz);
   L.gpb = 1;
@@ -286,16 +142,75 @@ ReduceLayout make_reduce_layout(long long rows, int C, int vec, int esz, int sms
   L.lanes = kThreads / L.gpb;
   L.gridy = (groups + L.gpb - 1) / L.gpb;
   L.width = 2 * L.gpb * vec < 4 ? 4 : 2 * L.gpb * vec;
-  long long target = (long long)sms * kReduceBlocksPerSm / L.gridy;
-  const long long finish_cap = (long long)kFinishLoads * kThreads / (L.width / 4);
-  if (target > finish_cap) target = finish_cap;
+  return L;
+}
+
+// Row chunks for about `target` blocks per slice, each walking at least
+// `min_iters` rows per lane.
+void cut_rows(Layout& L, long long rows, long long target, long long min_iters) {
   if (target < 1) target = 1;
   long long rpb = (rows + target - 1) / target;
   rpb = (rpb + L.lanes - 1) / L.lanes * L.lanes;
-  if (rpb < (long long)L.lanes * kMinRowsPerLane) rpb = (long long)L.lanes * kMinRowsPerLane;
+  if (rpb < (long long)L.lanes * min_iters) rpb = (long long)L.lanes * min_iters;
   L.rows_per_block = rpb;
   L.nparts = (int)((rows + rpb - 1) / rpb);
+}
+
+// K1 and K2: about kReduceBlocksPerSm blocks per SM, and few enough row
+// chunks that a finishing thread sums at most kFinishLoads float4 partials.
+Layout make_reduce_layout(long long rows, int C, int vec, int esz, int sms) {
+  Layout L = slice_channels(C, vec, esz);
+  long long target = (long long)sms * kReduceBlocksPerSm / L.gridy;
+  const long long finish_cap = (long long)kFinishLoads * kThreads / (L.width / 4);
+  if (target > finish_cap) target = finish_cap;
+  cut_rows(L, rows, target, kMinRowsPerLane);
   return L;
+}
+
+// K3: the blocks the card holds at once (no finish; a lane may walk one row).
+Layout make_dx_layout(long long rows, int C, int vec, int esz, int sms) {
+  Layout L = slice_channels(C, vec, esz);
+  cut_rows(L, rows, (long long)sms * kDxBlocksPerSm / L.gridy, 1);
+  return L;
+}
+
+// Fold the block's per-thread sums a[VEC] and b[VEC] and write them as one
+// row of `width` floats at prow: the slice's gpb*VEC channels of a, then of
+// b (zeros after). The lanes of one group within a warp fold by a butterfly
+// (xor by multiples of gpb keeps the group), then the 8 warp totals (or,
+// when gpb >= 32, the kThreads / gpb lanes) through sh, in a fixed order.
+template <int VEC>
+__device__ __forceinline__ void write_partial_row(float (&a)[VEC], float (&b)[VEC], float* sh,
+                                                  float* prow, int gpb, int width) {
+  const int lanes = kThreads / gpb;
+  const int tg = threadIdx.x % gpb;
+  const int lane = threadIdx.x / gpb;
+  const int wl = threadIdx.x % 32;
+  if (gpb < 32) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      for (int off = 16; off >= gpb; off /= 2) {
+        a[i] += __shfl_xor_sync(0xffffffffu, a[i], off);
+        b[i] += __shfl_xor_sync(0xffffffffu, b[i], off);
+      }
+  }
+  const int nrow = gpb < 32 ? kThreads / 32 : lanes;
+  const int srow = gpb < 32 ? threadIdx.x / 32 : lane;
+  const int half = gpb * VEC;  // floats of a (then of b) in a row
+  if (gpb >= 32 || wl < gpb) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sh[srow * width + tg * VEC + i] = a[i];
+      sh[srow * width + half + tg * VEC + i] = b[i];
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < width; j += kThreads) {
+    float s = 0.f;
+    if (j < 2 * half)
+      for (int rr = 0; rr < nrow; ++rr) s += sh[rr * width + j];
+    prow[j] = s;
+  }
 }
 
 // The last-block handshake of a reduction whose blocks each wrote one row of
@@ -350,9 +265,80 @@ __device__ __forceinline__ void sum_partial_rows(const float* part, int P, int w
   __syncthreads();
 }
 
+// K1: out rows 0..4 = sum, sumsq, mean, biased var, inv; with run_mean and
+// run_var non-null, run = keep*run + take*stat (the variance times unbias),
+// once per call. part: [gridy][P][width] f32 scratch; tickets: [gridy] ints,
+// 0 on entry and on exit. The kUnroll rows of a step are loaded (rows past
+// the chunk's end as zeros) before any is added. The finish is the plain
+// version's f32 arithmetic, each step rounded on its own.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kReduceBlocksPerSm)
+stats_kernel(const T* __restrict__ x, float* part, int* tickets, float* __restrict__ out,
+             float* __restrict__ run_mean, float* __restrict__ run_var, long long rows, int C,
+             int gpb, long long rows_per_block, int width, float eps, float keep, float take,
+             float unbias) {
+  __shared__ __align__(16) float sh[kFoldFloats];
+  const int P = gridDim.x;
+  const int slice = blockIdx.y;
+  const int lanes = kThreads / gpb;
+  const int g = slice * gpb + threadIdx.x % gpb;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+
+  float s[VEC], q[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) s[i] = q[i] = 0.f;
+  if (g * VEC < C) {
+    const T* xs = x + (long long)g * VEC;
+    for (long long r = r0 + threadIdx.x / gpb; r < r1; r += kUnroll * lanes) {
+      float v[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (r + u * lanes < r1) {
+          load_vec<T, VEC>(xs + (r + u * lanes) * C, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[u][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          s[i] += v[u][i];
+          q[i] = fmaf(v[u][i], v[u][i], q[i]);
+        }
+    }
+  }
+  write_partial_row<VEC>(s, q, sh, part + ((long long)slice * P + blockIdx.x) * width, gpb,
+                         width);
+
+  if (!last_block_of_slice(tickets, slice, P)) return;
+  sum_partial_rows(part + (long long)slice * P * width, P, width, sh);
+  const int half = gpb * VEC;
+  for (int j = threadIdx.x; j < half; j += kThreads) {
+    const int c = slice * half + j;
+    if (c >= C) continue;
+    const float sum = sh[j], sumsq = sh[half + j];
+    const float n = (float)rows;
+    const float mean = sum / n;
+    const float var = fmaxf(__fsub_rn(sumsq / n, __fmul_rn(mean, mean)), 0.f);
+    out[c] = sum;
+    out[C + c] = sumsq;
+    out[2 * C + c] = mean;
+    out[3 * C + c] = var;
+    out[4 * C + c] = rsqrtf(var + eps);
+    if (run_mean != nullptr) {
+      run_mean[c] = keep * run_mean[c] + take * mean;
+      run_var[c] = keep * run_var[c] + take * (var * unbias);
+    }
+  }
+}
+
 // K2: out[0][c] = dbeta = sum dz, out[1][c] = dgamma = sum dz*xhat.
 // part: [gridy][P][width] f32 scratch; tickets: [gridy] ints, 0 on entry
-// and on exit.
+// and on exit. One accumulator per channel keeps the registers at 2 blocks
+// per SM (its VEC channels are independent chains already).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, kReduceBlocksPerSm)
 bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -365,9 +351,8 @@ bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int P = gridDim.x;
   const int slice = blockIdx.y;
   const int lanes = kThreads / gpb;
-  const int tg = threadIdx.x % gpb;
   const int lane = threadIdx.x / gpb;
-  const int g = slice * gpb + tg;
+  const int g = slice * gpb + threadIdx.x % gpb;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
 
@@ -410,62 +395,37 @@ bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       }
     }
   }
-
-  // Block fold: lanes of one group within a warp by a butterfly (xor by
-  // multiples of gpb keeps the group), then the nrow = 8 warp totals (or,
-  // when gpb >= 32, the kThreads / gpb lanes) through shared memory.
-  const int wl = threadIdx.x % 32;
-  if (gpb < 32) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      for (int off = 16; off >= gpb; off /= 2) {
-        db[i] += __shfl_xor_sync(0xffffffffu, db[i], off);
-        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], off);
-      }
-  }
-  const int nrow = gpb < 32 ? kThreads / 32 : lanes;
-  const int srow = gpb < 32 ? threadIdx.x / 32 : lane;
-  const int half = gpb * VEC;  // floats of dbeta (then of dgamma) in a row
-  if (gpb >= 32 || wl < gpb) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      sh[srow * width + tg * VEC + i] = db[i];
-      sh[srow * width + half + tg * VEC + i] = dg[i];
-    }
-  }
-  __syncthreads();
-  float* prow = part + ((long long)slice * P + blockIdx.x) * width;
-  for (int j = threadIdx.x; j < width; j += kThreads) {
-    float s = 0.f;
-    if (j < 2 * half)
-      for (int rr = 0; rr < nrow; ++rr) s += sh[rr * width + j];
-    prow[j] = s;
-  }
+  write_partial_row<VEC>(db, dg, sh, part + ((long long)slice * P + blockIdx.x) * width, gpb,
+                         width);
 
   if (!last_block_of_slice(tickets, slice, P)) return;
   sum_partial_rows(part + (long long)slice * P * width, P, width, sh);
+  const int half = gpb * VEC;
   for (int j = threadIdx.x; j < 2 * half; j += kThreads) {
     const int c = slice * half + (j < half ? j : j - half);
     if (c < C) out[(j < half ? 0 : C) + c] = sh[j];
   }
 }
 
-// K3: dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n), in x's dtype.
+// K3: dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n), in x's dtype. The
+// U rows of a step are loaded (x and dy) before any is computed, and dx is
+// written as 16-byte stores; rows past the chunk's end are skipped. U is
+// kUnroll, or kDxUnrollBf16 for 8 bf16 channels a thread: their 56
+// per-channel registers and 4 rows of loads spill at the 128 registers of 2
+// blocks per SM, and 2 rows measured faster than 4.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kDxBlocksPerSm)
 bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
               const float* __restrict__ mean, const float* __restrict__ inv,
               const float* __restrict__ gamma, const float* __restrict__ beta,
               const float* __restrict__ dbeta, const float* __restrict__ dgamma,
               T* __restrict__ dx, long long rows, int C, int gpb, long long rows_per_block) {
+  constexpr int U = VEC == 8 ? kDxUnrollBf16 : kUnroll;
   const int lanes = kThreads / gpb;
-  const int tg = threadIdx.x % gpb;
-  const int lane = threadIdx.x / gpb;
-  const int g = blockIdx.y * gpb + tg;
-  if (g * VEC >= C) return;
+  const int c0 = (blockIdx.y * gpb + threadIdx.x % gpb) * VEC;
+  if (c0 >= C) return;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
-  const int c0 = g * VEC;
   const float n = (float)rows;
   ChannelParams<VEC> cp;
   cp.load(mean, inv, gamma, beta, c0);
@@ -476,18 +436,31 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     db_n[i] = dbeta[c0 + i] / n;
     dg_n[i] = dgamma[c0 + i] / n;
   }
-#pragma unroll 2
-  for (long long r = r0 + lane; r < r1; r += lanes) {
-    float xv[VEC], gv[VEC], out[VEC];
-    load_vec<T, VEC>(x + r * C + c0, xv);
-    load_vec<T, VEC>(dy + r * C + c0, gv);
+  const T* xs = x + c0;
+  const T* gs = dy + c0;
+  T* ds = dx + c0;
+  for (long long r = r0 + threadIdx.x / gpb; r < r1; r += U * lanes) {
+    float xv[U][VEC], gv[U][VEC];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      float xhat, d;
-      cp.dz(i, xv[i], gv[i], xhat, d);
-      out[i] = scale[i] * (d - db_n[i] - xhat * dg_n[i]);
+    for (int u = 0; u < U; ++u) {
+      if (r + u * lanes < r1) {
+        load_vec<T, VEC>(xs + (r + u * lanes) * C, xv[u]);
+        load_vec<T, VEC>(gs + (r + u * lanes) * C, gv[u]);
+      }
     }
-    store_vec<T, VEC>(dx + r * C + c0, out);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r + u * lanes < r1) {
+        float o[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float xhat, d;
+          cp.dz(i, xv[u][i], gv[u][i], xhat, d);
+          o[i] = scale[i] * (d - db_n[i] - xhat * dg_n[i]);
+        }
+        store_vec<T, VEC>(ds + (r + u * lanes) * C, o);
+      }
+    }
   }
 }
 
@@ -503,14 +476,16 @@ int vec_for(int C, std::initializer_list<const void*> ptrs) {
 }
 
 template <typename T, int VEC>
-void launch_stats(const Layout& L, const void* x, float* work, long long rows, int C,
-                  cudaStream_t s) {
-  stats_partial_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
-      static_cast<const T*>(x), work, rows, C, L.gpb, L.rows_per_block);
+void launch_stats(const Layout& L, const void* x, float* work, int* tickets, float* out,
+                  float* run_mean, float* run_var, long long rows, int C, float eps, float keep,
+                  float take, float unbias, cudaStream_t s) {
+  stats_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
+      static_cast<const T*>(x), work, tickets, out, run_mean, run_var, rows, C, L.gpb,
+      L.rows_per_block, L.width, eps, keep, take, unbias);
 }
 
 template <typename T, int VEC>
-void launch_reduce(const ReduceLayout& L, const void* x, const void* dy, const float* mean,
+void launch_reduce(const Layout& L, const void* x, const void* dy, const float* mean,
                    const float* inv, const float* gamma, const float* beta, float* work,
                    int* tickets, float* out, long long rows, int C, cudaStream_t s) {
   bwd_reduce_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
@@ -531,42 +506,51 @@ void launch_dx(const Layout& L, const void* x, const void* dy, const float* mean
 
 // Every entry point: dtype 0 = float32, 1 = bfloat16; x (and dy, dx) are
 // contiguous (rows, C) in that dtype; per-channel vectors are float32 [C];
-// `work` is float32 scratch of `work_floats` floats.
+// `sms` is the device's SM count. K1 and K2 take `work`, float32 scratch of
+// `work_floats` floats, 16-byte aligned (128 * max(2 * sms, C) always
+// suffice), and
+// `tickets`, int32 [num_tickets] with num_tickets >= ceil(C / 32), all 0:
+// the kernels leave them 0, so one zeroed buffer serves every later call of
+// either, replays from a CUDA graph included, as long as the calls that
+// share it are ordered on one stream (two kernels in flight at once on one
+// buffer would mix tickets).
 // Kernels launch on `stream`; the return value is cudaGetLastError().
 
-// K1 (two launches). work: 2 * min(rows, 1056) * C floats always suffice (a
-// layout has at most kTargetBlocks row chunks, and at most one per row).
-// out: float32 [5, C] = sum, sumsq, mean, biased var, inv. With run_mean
-// and run_var non-null: run = momentum*run + (1 - momentum)*stat, the variance
-// taken unbiased (times rows/(rows-1)).
+// K1 (one launch). out: float32 [5, C] = sum, sumsq, mean, biased var, inv.
+// With run_mean and run_var non-null: run = momentum*run + (1 - momentum)*stat,
+// the variance taken unbiased (times rows/(rows-1)).
 extern "C" int bn_stats(int dtype, const void* x, long long rows, int C, double eps,
-                        double momentum, float* work, long long work_floats, float* out,
-                        float* run_mean, float* run_var, void* stream) {
-  if (rows < 1 || C < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                        double momentum, float* work, long long work_floats, int* tickets,
+                        int num_tickets, int sms, float* out, float* run_mean, float* run_var,
+                        void* stream) {
+  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x}) : vec_for<__nv_bfloat16>(C, {x});
-  const Layout L = make_layout(rows, C, vec);
-  if (2LL * L.nparts * C > work_floats) return (int)cudaErrorInvalidValue;
+  const Layout L = make_reduce_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
+  if ((long long)L.gridy * L.nparts * L.width > work_floats || L.gridy > num_tickets)
+    return (int)cudaErrorInvalidValue;
+  const float unbias = (float)((double)rows / (double)(rows > 1 ? rows - 1 : 1));
+  const float e = (float)eps, keep = (float)momentum, take = (float)(1.0 - momentum);
   if (dtype == 0) {
-    if (vec == 4) launch_stats<float, 4>(L, x, work, rows, C, s);
-    else launch_stats<float, 1>(L, x, work, rows, C, s);
+    if (vec == 4)
+      launch_stats<float, 4>(L, x, work, tickets, out, run_mean, run_var, rows, C, e, keep,
+                             take, unbias, s);
+    else
+      launch_stats<float, 1>(L, x, work, tickets, out, run_mean, run_var, rows, C, e, keep,
+                             take, unbias, s);
   } else {
-    if (vec == 8) launch_stats<__nv_bfloat16, 8>(L, x, work, rows, C, s);
-    else launch_stats<__nv_bfloat16, 1>(L, x, work, rows, C, s);
+    if (vec == 8)
+      launch_stats<__nv_bfloat16, 8>(L, x, work, tickets, out, run_mean, run_var, rows, C, e,
+                                     keep, take, unbias, s);
+    else
+      launch_stats<__nv_bfloat16, 1>(L, x, work, tickets, out, run_mean, run_var, rows, C, e,
+                                     keep, take, unbias, s);
   }
-  const double unbias = (double)rows / (double)(rows > 1 ? rows - 1 : 1);
-  stats_final_kernel<<<(C + kFinalWarps - 1) / kFinalWarps, kFinalWarps * 32, 0, s>>>(
-      work, L.nparts, C, rows, (float)eps, (float)momentum, (float)(1.0 - momentum),
-      (float)unbias, out, run_mean, run_var);
   return (int)cudaGetLastError();
 }
 
-// K2 (one launch). out: float32 [2, C] = dbeta, dgamma. `sms`: the device's
-// SM count. work: 128 * max(2 * sms, C) floats always suffice. tickets:
-// int32 [num_tickets], num_tickets >= ceil(C / 32), all 0; the kernel leaves
-// them 0, so one zeroed buffer serves every later call, replays from a CUDA
-// graph included, as long as the calls that share it are ordered on one
-// stream (two kernels in flight at once on one buffer would mix tickets).
+// K2 (one launch). out: float32 [2, C] = dbeta, dgamma.
 extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long rows, int C,
                              const float* mean, const float* inv, const float* gamma,
                              const float* beta, float* work, long long work_floats,
@@ -575,7 +559,7 @@ extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x, dy}) : vec_for<__nv_bfloat16>(C, {x, dy});
-  const ReduceLayout L = make_reduce_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
+  const Layout L = make_reduce_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
   if ((long long)L.gridy * L.nparts * L.width > work_floats || L.gridy > num_tickets)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -594,16 +578,17 @@ extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long
   return (int)cudaGetLastError();
 }
 
-// K3. dx: contiguous (rows, C) in x's dtype.
+// K3 (one launch). dx: contiguous (rows, C) in x's dtype.
 extern "C" int bn_bwd_dx(int dtype, const void* x, const void* dy, long long rows, int C,
                          const float* mean, const float* inv, const float* gamma,
                          const float* beta, const float* dbeta, const float* dgamma, void* dx,
-                         void* stream) {
-  if (rows < 1 || C < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                         int sms, void* stream) {
+  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x, dy, dx})
                              : vec_for<__nv_bfloat16>(C, {x, dy, dx});
-  const Layout L = make_layout(rows, C, vec);
+  const Layout L = make_dx_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
   if (dtype == 0) {
     if (vec == 4)
       launch_dx<float, 4>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows, C, s);

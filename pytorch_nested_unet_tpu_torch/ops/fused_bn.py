@@ -33,13 +33,25 @@ LAUNCHES = {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
 
 MOMENTUM = 0.9  # running-stat decay (torch momentum 0.1)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_TARGET_BLOCKS = 1056  # csrc/fused_bn.cu kTargetBlocks: most row chunks per layout
 _LIB = None
-# K2's per-device state: (zeroed int32 ticket buffer, SM count). The kernel
-# leaves its tickets at 0, so the buffer is made once per device and every
-# later call, a CUDA graph's replay included, reuses it; calls that share it
-# run in stream order (csrc/fused_bn.cu, bn_bwd_reduce).
-_REDUCE_STATE = {}
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+# The C interface of csrc/fused_bn.cu, argument by argument (the CPU tests
+# hold it against the source's extern "C" signatures).
+ARGTYPES = {
+    "bn_stats": [_I, _P, _LL, _I, _D, _D, _P, _LL, _P, _I, _I, _P, _P, _P, _P],
+    "bn_bwd_reduce": [_I, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _P, _P],
+    "bn_bwd_dx": [_I, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+}
+# Per device: one zeroed int32 ticket buffer, shared by K1 and K2. Both
+# kernels leave their tickets at 0, so the buffer is made once and every later
+# call, a CUDA graph's replay included, reuses it. One buffer is safe because
+# the calls that share it run in stream order: K1 in the forward and K2 in the
+# backward of a step are queued on one stream, and a kernel starts only after
+# the one before it has reset its tickets (csrc/fused_bn.cu). A buffer of its
+# own for K1 would be no safer: two K1 calls on two streams at once would
+# still share one.
+_TICKETS = {}
+_SMS = {}  # SM count per device
 
 
 # ---------------------------------------------------------------- plain versions
@@ -93,12 +105,9 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load("fused_bn")
-        p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-        lib.bn_stats.argtypes = [i, p, ll, i, d, d, p, ll, p, p, p, p]
-        lib.bn_bwd_reduce.argtypes = [i, p, p, ll, i, p, p, p, p, p, ll, p, i, i, p, p]
-        lib.bn_bwd_dx.argtypes = [i, p, p, ll, i, p, p, p, p, p, p, p, p]
-        for fn in (lib.bn_stats, lib.bn_bwd_reduce, lib.bn_bwd_dx):
-            fn.restype = i
+        for name, argtypes in ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, _I
         _LIB = lib
     return _LIB
 
@@ -142,14 +151,39 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _sms(dev):
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
+def _reduce_scratch(name, dev, c):
+    """K1's or K2's scratch on `dev`: (work, work_floats, tickets, sms). The
+    ticket buffer (at least ceil(c / 32) zeroed ints) is made at first use;
+    growing it is one zero fill, never inside a CUDA graph capture."""
+    sms = _sms(dev)
+    need = -(-c // 32)
+    tickets = _TICKETS.get(dev.index)
+    if tickets is None or tickets.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: call bn_stats or bn_bwd_reduce once on this device "
+                               "(at this channel count or more) before capturing a CUDA graph")
+        tickets = _TICKETS[dev.index] = torch.zeros(max(need, 64), dtype=torch.int32,
+                                                    device=dev)
+    work_floats = 128 * max(2 * sms, c)
+    work = torch.empty(work_floats, dtype=torch.float32, device=dev)
+    return work, work_floats, tickets, sms
+
+
 def bn_stats(x2d: torch.Tensor, eps: float = 1e-5,
              running_mean: Optional[torch.Tensor] = None,
              running_var: Optional[torch.Tensor] = None, momentum: float = MOMENTUM):
     """K1: (sum, sumsq, mean, biased var, inv), float32 [C] each, of the
     (rows, C) view; updates the running stats in place when given.
 
-    CUDA tensors: the kernel (two-stage reduction, no float atomics). CPU
-    tensors: `reference_bn_stats`.
+    CUDA tensors: the kernel (one launch, no float atomics). CPU tensors:
+    `reference_bn_stats`.
     """
     if _is_cpu(x2d, running_mean, running_var):
         return reference_bn_stats(x2d, eps, running_mean, running_var, momentum)
@@ -157,34 +191,17 @@ def bn_stats(x2d: torch.Tensor, eps: float = 1e-5,
     if (running_mean is None) != (running_var is None):
         raise ValueError("bn_stats: give both running stats or neither")
     dev = x2d.device
-    work_floats = 2 * min(rows, _TARGET_BLOCKS) * c
-    work = torch.empty(work_floats, dtype=torch.float32, device=dev)
+    work, work_floats, tickets, sms = _reduce_scratch("bn_stats", dev, c)
     out = torch.empty((5, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().bn_stats(
             _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), rows, c, eps, momentum,
-            work.data_ptr(), work_floats, out.data_ptr(),
-            None if running_mean is None else running_mean.data_ptr(),
+            work.data_ptr(), work_floats, tickets.data_ptr(), tickets.numel(), sms,
+            out.data_ptr(), None if running_mean is None else running_mean.data_ptr(),
             None if running_var is None else running_var.data_ptr(), _stream(dev))
     _raise_on(err, "bn_stats")
     LAUNCHES["bn_stats"] += 1
     return tuple(out.unbind(0))
-
-
-def _reduce_state(dev, c):
-    """K2's ticket buffer (at least ceil(c / 32) zeroed ints) and SM count
-    on `dev`, made at first use; growing it is one zero fill, never inside a
-    CUDA graph capture."""
-    need = -(-c // 32)
-    state = _REDUCE_STATE.get(dev.index)
-    if state is None or state[0].numel() < need:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("bn_bwd_reduce: call it once on this device (at this "
-                               "channel count or more) before capturing a CUDA graph")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        state = (torch.zeros(max(need, 64), dtype=torch.int32, device=dev), sms)
-        _REDUCE_STATE[dev.index] = state
-    return state
 
 
 def bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta):
@@ -195,9 +212,7 @@ def bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta):
         return reference_bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta)
     rows, c = _check("bn_bwd_reduce", x2d, (dy2d,), (mean, inv, gamma, beta))
     dev = x2d.device
-    tickets, sms = _reduce_state(dev, c)
-    work_floats = 128 * max(2 * sms, c)
-    work = torch.empty(work_floats, dtype=torch.float32, device=dev)
+    work, work_floats, tickets, sms = _reduce_scratch("bn_bwd_reduce", dev, c)
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().bn_bwd_reduce(
@@ -222,7 +237,7 @@ def bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma):
         err = _lib().bn_bwd_dx(
             _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy2d.data_ptr(), rows, c,
             mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            dbeta.data_ptr(), dgamma.data_ptr(), dx.data_ptr(), _stream(dev))
+            dbeta.data_ptr(), dgamma.data_ptr(), dx.data_ptr(), _sms(dev), _stream(dev))
     _raise_on(err, "bn_bwd_dx")
     LAUNCHES["bn_bwd_dx"] += 1
     return dx

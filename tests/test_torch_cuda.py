@@ -140,10 +140,13 @@ def _assert_sums_close(got, want, magnitude):
     assert ((got - want).abs() <= 1e-6 * magnitude).all(), (got - want).abs().max()
 
 
+# The training step's five levels are (32, 147456), (64, 36864), (128, 9216),
+# (256, 2304) and (512, 576); 40001 rows are no multiple of any kernel's
+# unrolled stride (kUnroll rows of every lane of a block).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,rows", [
     (32, 1000), (64, 37), (1, 1), (1, 1000), (3, 37), (48, 1000), (70, 37), (70, 1),
-    (512, 576), (256, 2304),
+    (512, 576), (256, 2304), (32, 147456), (64, 36864), (32, 40001),
 ])
 def test_bn_kernels(cuda, dtype, c, rows):
     g = torch.Generator().manual_seed(1000 * c + rows)
@@ -204,33 +207,53 @@ def _assert_k2_close(got, args):
     _assert_sums_close(got[1], want[1], (dz * xhat).abs().sum(0))
 
 
-# K2 is one launch whose last block sums the partials in a fixed order and
-# resets its ticket: level 0 of the training step and the ragged shapes give
-# the same bits on every rerun.
+def _assert_k1_close(got, args):
+    xf = args[0].float()
+    want = bn.reference_bn_stats(xf)
+    _assert_sums_close(got[0], want[0], xf.abs().sum(0))
+    _assert_sums_close(got[1], want[1], (xf * xf).sum(0))
+    vec_tol = BN_TOL[args[0].dtype][0]
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, atol=vec_tol, rtol=vec_tol)
+
+
+# K1 and K2 each are one launch whose last block sums the partials in a fixed
+# order and resets its ticket: level 0 of the training step and the ragged
+# shapes give the same bits on every rerun.
+@pytest.mark.parametrize("kernel", ["bn_stats", "bn_bwd_reduce"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,rows", [(32, 147456)] + [
     (c, rows) for c in (1, 3, 48, 70) for rows in (1, 37, 1000)])
-def test_bn_bwd_reduce_same_bits(cuda, dtype, c, rows):
+def test_bn_bwd_reduce_same_bits(cuda, dtype, c, rows, kernel):
     args = _k2_inputs(c, rows, dtype, cuda, seed=c + rows)
-    first = bn.bn_bwd_reduce(*args)
-    _assert_k2_close(first, args)
+    if kernel == "bn_stats":
+        run, check = (lambda: bn.bn_stats(args[0])), _assert_k1_close
+    else:
+        run, check = (lambda: bn.bn_bwd_reduce(*args)), _assert_k2_close
+    first = run()
+    check(first, args)
     for _ in range(3):
-        got = bn.bn_bwd_reduce(*args)
-        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+        got = run()
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
 def test_bn_bwd_reduce_back_to_back_shapes(cuda):
-    """Calls of different shapes queued on one stream with no sync between
-    them are each right: every call leaves its tickets at 0 for the next."""
+    """K1 and K2 calls of different shapes, interleaved on one stream with no
+    sync between them, are each right: every call leaves the ticket buffer
+    that the two kernels share at 0 for the next."""
     cases = [(32, 147456, torch.float32), (70, 37, torch.bfloat16), (512, 576, torch.float32),
              (1, 1, torch.bfloat16), (48, 1000, torch.float32), (256, 2304, torch.bfloat16),
              (3, 37, torch.float32), (64, 36864, torch.bfloat16)]
     args = [_k2_inputs(c, rows, dtype, cuda, seed=i) for i, (c, rows, dtype) in enumerate(cases)]
     torch.cuda.synchronize()
-    outs = [bn.bn_bwd_reduce(*a) for a in args]
+    stats, reds = [], []
+    for i, a in enumerate(args):
+        stats.append(bn.bn_stats(a[0]))
+        reds.append(bn.bn_bwd_reduce(*args[(i + 3) % len(args)]))
     torch.cuda.synchronize()
-    for got, a in zip(outs, args):
-        _assert_k2_close(got, a)
+    for i, a in enumerate(args):
+        _assert_k1_close(stats[i], a)
+        _assert_k2_close(reds[i], args[(i + 3) % len(args)])
 
 
 def test_bn_bwd_reduce_graph_replay(cuda):
@@ -249,6 +272,27 @@ def test_bn_bwd_reduce_graph_replay(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_stats_graph_replay(cuda, dtype):
+    """K1 captured in a CUDA graph gives the eager sums on every replay, and
+    its running statistics after N replays equal those of N eager calls: the
+    update is applied once per launch."""
+    x = _k2_inputs(64, 36864, dtype, cuda, seed=8)[0]
+    want = bn.bn_stats(x)
+    graph_run = [torch.zeros(64, device=cuda), torch.ones(64, device=cuda)]
+    eager_run = [t.clone() for t in graph_run]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bn.bn_stats(x, 1e-5, *graph_run)
+    for _ in range(3):
+        graph.replay()
+        bn.bn_stats(x, 1e-5, *eager_run)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+        assert all(torch.equal(a, b) for a, b in zip(graph_run, eager_run))
+    assert not torch.equal(graph_run[0], torch.zeros(64, device=cuda))
 
 
 def test_bn_kernels_reject_bad_inputs(cuda):
@@ -286,7 +330,21 @@ def test_train_step_cuda_matches_cpu(cuda):
     masks = torch.from_numpy((rng.random((2, 32, 32, 1)) > 0.6).astype(np.uint8) * 255)
     models, metrics = {}, {}
     for dev in ("cpu", "cuda"):
-        m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW).to(dev)
+        m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW)
+        # Every conv bias that feeds a BN starts at 0. Train-mode BN subtracts
+        # the batch mean, so such a bias changes nothing in exact arithmetic;
+        # at its init it dominates the first conv's output on these inputs
+        # (mean^2 up to 1,370 times var), and var = E[x^2] - mean^2 then turns
+        # the last bit of a BN sum into a 1e-4 change of var. On the CPU alone,
+        # taking those sums exactly instead of in f32 order moves the
+        # gradients by up to 865 times the bound below (0.12 times with these
+        # biases at 0), so the comparison would hold the card to the CPU's
+        # summation order rather than to the step.
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith(("conv1.bias", "conv2.bias")):
+                    p.zero_()
+        m = m.to(dev)
         step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-2), "BCEDiceLoss",
                                True, augment="none")
         before = (dict(bn.LAUNCHES), df.LAUNCHES)

@@ -10,6 +10,10 @@ held against the plain versions on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
+import ctypes
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,6 +177,38 @@ def test_function_outputs_and_bf16_dtypes():
     xf = xb.detach().float()
     y32, _, _ = tbn.fused_bn_relu_train(xf, g.detach(), b.detach())
     np.testing.assert_allclose(y.detach().float().numpy(), y32.numpy(), atol=2e-2, rtol=1e-2)
+
+
+_C_KINDS = {ctypes.c_int: "int", ctypes.c_longlong: "long long", ctypes.c_double: "double",
+            ctypes.c_void_p: "pointer"}
+
+
+def _c_signatures():
+    """{name: [kind of each parameter]} of the extern "C" functions in
+    csrc/fused_bn.cu, parsed from the source (nothing is built)."""
+    with open(os.path.join(_build.CSRC, "fused_bn.cu")) as f:
+        src = f.read()
+    sigs = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        kinds = []
+        for param in params.split(","):
+            decl = " ".join(param.split())
+            if "*" in decl:
+                kinds.append("pointer")
+            else:
+                kinds.append(decl.removeprefix("const ").rsplit(" ", 1)[0])
+        sigs[name] = kinds
+    return sigs
+
+
+@pytest.mark.parametrize("name", ["bn_stats", "bn_bwd_reduce", "bn_bwd_dx"])
+def test_ctypes_table_matches_c_signature(name):
+    """The wrapper's argtypes hold each parameter's kind of the C function, so
+    a changed C interface fails here, without a card."""
+    sig = _c_signatures()
+    assert sorted(sig) == sorted(tbn.ARGTYPES)
+    assert [_C_KINDS[t] for t in tbn.ARGTYPES[name]] == sig[name]
+    assert "fused_bn" not in _build._LIBS
 
 
 def test_eval_mode_uses_running_stats_and_cpu_builds_nothing():
