@@ -23,12 +23,13 @@
 5. K1-K3 kernel phase: one bn_stats and one bn_bwd_reduce call must each run
    one CUDA kernel (torch.profiler, level 0, both dtypes); then the
    training-mode BN kernels against their plain versions at the (C, rows)
-   shapes of the training step (full width, batch 16, 96x96) and at ragged
-   shapes, both dtypes, with bounds and library yardsticks, per level and
-   summed over the step's 30 instances; times are device time replayed from
-   a CUDA graph (a call from Python also pays the host's launch gaps,
-   printed beside it as "call"); then each kernel's step sequence, the 30
-   instances replayed from one graph;
+   shapes of the NestedUNet and UNetRNN training steps (full width, batch
+   16, 96x96), at the other CRDN archs' shapes (C = 2, 8, 72, 256, 512) and
+   at ragged shapes, both dtypes, with bounds and library yardsticks, per
+   shape and summed over each step's instances (30 and 15); times are device
+   time replayed from a CUDA graph (a call from Python also pays the host's
+   launch gaps, printed beside it as "call"); then each kernel's step
+   sequence per step, its instances replayed from one graph;
 6. K4 backward phase: the differentiable decoder-fusion op's gradients against
    autograd through its plain version at the 10 node shapes, and its time;
 7. training path phase: `train.fit` on full-width NestedUNet wDS (batch 16,
@@ -39,8 +40,18 @@
 8. card against CPU: one full-width fp32 train step (batch 2, augment none)
    on the card and on the CPU from the same weights: loss, every gradient and
    the running statistics;
-9. a JSON line of the kernels, then the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+9. the CRDN path: phases 4, 7 and 8 for UNetRNN (GRU, feature_scale 4): no
+   kernel launched in eval, 15 launches of each BN kernel per train step and
+   no K4; in phase 8 the conv biases that feed a BN start at 0 (at their
+   init the first BN's mean^2 / var is ~3e4 on these inputs, and the
+   comparison would measure summation order);
+10. arch sweep (run between UNetRNN's phases 7 and 8): UNet, UNetRM3,
+   UNetRM7, UNetRNN with the LSTM and vanilla decoders, UNetRNNGhost and
+   the three attention variants, each at full width, 96x96, batch 2, bf16:
+   one train step and one served batch with their K1-K3 and K4 launches
+   counted;
+11. a JSON line of the kernels (launches over every path above), then the
+   last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -93,6 +104,24 @@ BN_LEVELS = [(lvl, NB[lvl], BATCH * (SIZE >> lvl) ** 2, n)
              for lvl, n in zip(range(5), (10, 8, 6, 4, 2))]
 BN_RAGGED = [(c, rows) for c in (1, 3, 48, 70) for rows in (1, 37, 1000)]
 BN_PER_STEP = sum(n for *_, n in BN_LEVELS)  # 30
+# UNetRNN's train step (feature_scale 4: filters 16..256, batch 16, 96x96):
+# (name, C, H = W, BN instances per step) -- two encoder BNs per level and a
+# score block's BN at C = num_classes = 1 per level
+CRDN_FILTERS = (16, 32, 64, 128, 256)
+UNETRNN_BN = ([(f"enc{lvl}", c, SIZE >> lvl, 2) for lvl, c in enumerate(CRDN_FILTERS)]
+              + [(f"score{lvl}", 1, SIZE >> lvl, 1) for lvl in range(5)])
+UNETRNN_BN_PER_STEP = sum(n for *_, n in UNETRNN_BN)  # 15
+# BN shapes of the other new archs that neither step above has: num_classes
+# 2 at level 0, RM7's level 0 and its 3x3 and 1x1 levels, RM3's level 1
+CRDN_EXTRA_BN = [("nc2", 2, SIZE), ("rm7_l0", 8, SIZE), ("rm3_l1", 72, SIZE >> 1),
+                 ("rm7_l5", 256, 3), ("rm7_l6", 512, 1)]
+# The other new archs, each driven once at full width (96x96, batch 2):
+# (arch, arch_kwargs, train-mode BN layers = K1-K3 launches per step, K4
+# launches per forward)
+ARCH_SWEEP = [("UNet", {}, 18, 4), ("UNetRM3", {}, 9, 0), ("UNetRM7", {}, 21, 0),
+              ("UNetRNN", {"decoder": "LSTM"}, 15, 0), ("UNetRNN", {"decoder": "vanilla"}, 15, 0),
+              ("UNetRNNGhost", {}, 10, 0), ("UNetRNNPAttention", {}, 15, 0),
+              ("UNetRNNCAttention", {}, 15, 0), ("UNetRNNAttention", {}, 15, 0)]
 LOG_COLUMNS = ["epoch", "lr", "loss", "iou", "val_loss", "val_iou"]
 
 
@@ -305,24 +334,31 @@ def profile_batches(pred, request, precision):
               f"x{e.count // batches:<3d} {e.key[:110]}")
 
 
-def path_phase(df, card):
-    """Serve full-width NestedUNet wDS through Predictor in fp32 and bf16."""
+def path_phase(bn, df, card, arch="NestedUNet", deep_supervision=True, k4_per_batch=10,
+               bf16_tol=1e-2):
+    """Serve full-width `arch` through Predictor in fp32 and bf16: 8 requests of
+    16 images, the launch counts read around each run (eval BN runs no K1-K3;
+    K4 `k4_per_batch` times a batch), the fp32 probabilities held against the
+    CPU. Returns the launch counts per precision."""
     from pytorch_nested_unet_tpu_torch.infer import Predictor
 
     rng = np.random.default_rng(0)
     requests = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
                 for _ in range(8)]
     launches, probs = {}, {}
+    label = f"{arch}{' wDS' if deep_supervision else ''}"
     for precision in ("fp32", "bf16"):
-        pred = Predictor("NestedUNet", 1, 3, deep_supervision=True, precision=precision,
+        pred = Predictor(arch, 1, 3, deep_supervision=deep_supervision, precision=precision,
                          batch_size=BATCH, seed=0, device="cuda")
-        df.LAUNCHES = 0
+        reset_counts(bn, df)
         outs = [pred.predict_u8(r) for r in requests]
-        launches[precision] = df.LAUNCHES
-        want = 10 * len(requests)
-        if launches[precision] != want:
-            raise AssertionError(f"{precision}: K4 launched {launches[precision]} times, "
-                                 f"expected {want} (10 decoder nodes x {len(requests)} batches)")
+        counts = launch_counts(bn, df)
+        launches[precision] = counts
+        want = {**{k: 0 for k in bn.LAUNCHES}, "multipart_conv3x3": k4_per_batch * len(requests)}
+        if counts != want:
+            raise AssertionError(f"serve {label} {precision}: launches {counts}, expected {want} "
+                                 f"(K4 at {k4_per_batch} decoder nodes x {len(requests)} batches, "
+                                 "no K1-K3 in eval)")
         y = np.concatenate(outs)
         if y.shape != (len(requests) * BATCH, SIZE, SIZE, 1) or not np.isfinite(y).all() \
                 or y.min() < 0 or y.max() > 1:
@@ -330,27 +366,29 @@ def path_phase(df, card):
                                  f"[{np.nanmin(y)}, {np.nanmax(y)}]")
         probs[precision] = y
         s = pred.summary()
-        print(f"path {precision}: NestedUNet wDS nb_filter={NB} batch {BATCH} {SIZE}x{SIZE}, "
+        print(f"path {precision}: {label} batch {BATCH} {SIZE}x{SIZE}, "
               f"{s['batches']} batches: steady p50 {s['p50_ms']:.3f} ms, p95 "
               f"{s['p95_ms']:.3f} ms, {s['img_per_s']:.1f} img/s (first batch "
-              f"{s['first_batch_ms']:.1f} ms) | K4 launches {launches[precision]} | "
-              f"card: {card}", flush=True)
-        profile_batches(pred, requests[0], precision)
+              f"{s['first_batch_ms']:.1f} ms) | launches {counts} | card: {card}", flush=True)
+        profile_batches(pred, requests[0], f"{label} {precision}")
         if precision == "fp32":
             sd = {k: v.cpu() for k, v in pred.model.state_dict().items()}
-            cpu = Predictor("NestedUNet", 1, 3, deep_supervision=True, precision="fp32",
+            cpu = Predictor(arch, 1, 3, deep_supervision=deep_supervision, precision="fp32",
                             batch_size=2, weights=sd, device="cpu")
             ref = cpu.predict_u8(requests[0][:2])
             err = float(np.abs(y[:2] - ref).max())
-            print(f"path fp32 vs CPU plain path, 2 images: max abs err {err:.3g} (atol 1e-4)")
+            print(f"path {label} fp32 vs CPU plain path, 2 images: max abs err {err:.3g} "
+                  "(atol 1e-4)")
             if err > 1e-4:
-                raise AssertionError(f"fp32 card vs CPU: max abs err {err} > 1e-4")
-    # bf16 rounds activations and weights at every layer; the same seeded
-    # weights give probabilities within 2e-4 of fp32 on the card (PERF.md)
+                raise AssertionError(f"{label} fp32 card vs CPU: max abs err {err} > 1e-4")
+    # bf16 rounds activations and weights at every layer; for NestedUNet the
+    # same seeded weights give probabilities within 2e-4 of fp32 on the card
+    # (PERF.md); for the other archs the difference is printed, not gated
     err = float(np.abs(probs["bf16"] - probs["fp32"]).max())
-    print(f"path bf16 vs fp32 probabilities: max abs diff {err:.3g} (atol 1e-2)")
-    if err > 1e-2:
-        raise AssertionError(f"bf16 vs fp32 probabilities: max abs diff {err} > 1e-2")
+    print(f"path {label} bf16 vs fp32 probabilities: max abs diff {err:.3g}"
+          + (f" (atol {bf16_tol})" if bf16_tol else " (not gated)"))
+    if bf16_tol and err > bf16_tol:
+        raise AssertionError(f"bf16 vs fp32 probabilities: max abs diff {err} > {bf16_tol}")
     return launches
 
 
@@ -406,7 +444,9 @@ def _sum_err(got, want, mags, what):
 def bn_kernels_per_call(bn, dev):
     """CUDA kernels one bn_stats (K1) and one bn_bwd_reduce (K2) call run at
     level 0 (147,456 x 32), in each dtype, counted by torch.profiler; raises
-    unless each is one."""
+    unless each is one. A window in which the profiler recorded no device
+    event at all (CUPTI can drop a short window; launches and results are
+    checked elsewhere) is profiled again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
 
     _, c, rows, _ = BN_LEVELS[0]
@@ -421,11 +461,14 @@ def bn_kernels_per_call(bn, dev):
         for k, call in calls.items():
             call()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                names = [e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                if names:
+                    break
             found[f"{k} {DTYPE_NAME[dtype]}"] = names
             if len(names) != 1:
                 raise AssertionError(f"{k} {DTYPE_NAME[dtype]}: one call ran {len(names)} "
@@ -435,16 +478,17 @@ def bn_kernels_per_call(bn, dev):
                                            for k, v in found.items()), flush=True)
 
 
-def bn_step_sequence(bn, dev, dtype, gen, flush):
-    """K1-K3, their plain versions and library calls over the 30 BN instances
-    of one training step, each instance on its own buffers, each set of 30
-    captured in one CUDA graph and replayed after one L2 flush: the graph
-    timing floor is paid once per step, not once per instance. K1 updates
-    running stats, as in the step. Returns {kernel: (kernel, plain, library ms)}."""
+def bn_step_sequence(bn, dev, dtype, gen, flush, step, label):
+    """K1-K3, their plain versions and library calls over the BN instances of
+    one training step, `step` = [(C, H = W, instances)] at batch 16, each
+    instance on its own buffers, each set captured in one CUDA graph and
+    replayed after one L2 flush: the graph timing floor is paid once per
+    step, not once per instance. K1 updates running stats, as in the step.
+    Returns {kernel: (kernel, plain, library ms)}."""
     nbb = torch.ops.aten.native_batch_norm_backward
     insts = []
-    for lvl, c, rows, n in BN_LEVELS:
-        nhw = (BATCH, SIZE >> lvl, SIZE >> lvl)
+    for c, hw, n in step:
+        nhw, rows = (BATCH, hw, hw), BATCH * hw * hw
         for _ in range(n):
             x = (torch.randn(rows, c, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
             dy = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
@@ -477,17 +521,26 @@ def bn_step_sequence(bn, dev, dtype, gen, flush):
                                   i["p"][1], True, 1e-5, [True, False, False]))),
     }
     out = {k: tuple(graph_ms(f, flush) for f in trio) for k, trio in fns.items()}
-    print(f"BN {DTYPE_NAME[dtype]} step sequence (the {len(insts)} instances of one step in "
-          "one CUDA graph, one L2 flush before each replay): " + " | ".join(
+    print(f"BN {DTYPE_NAME[dtype]} {label} step sequence (the {len(insts)} instances of one "
+          "step in one CUDA graph, one L2 flush before each replay): " + " | ".join(
               f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} library {t[2]:.4f}"
               for k, t in out.items()), flush=True)
     return out
 
 
+# The BN steps whose instances bn_kernel_phase sums: path -> [(C, H = W,
+# instances per step)] at batch 16
+BN_STEPS = {"NestedUNet": [(c, SIZE >> lvl, n) for lvl, c, _, n in BN_LEVELS],
+            "UNetRNN": [(c, hw, n) for _, c, hw, n in UNETRNN_BN]}
+
+
 def bn_kernel_phase(bn, dev):
-    """K1-K3 against their plain versions; returns {(kernel, dtype): summary}
-    with times summed over the 30 BN instances of one training step. Each
-    dtype ends with the step sequence (`bn_step_sequence`)."""
+    """K1-K3 against their plain versions at NestedUNet's and UNetRNN's
+    training-step shapes, the other new archs' shapes and ragged shapes;
+    returns {(kernel, dtype, path): summary} with times summed over the BN
+    instances of one training step of `path` (30 for NestedUNet, 15 for
+    UNetRNN). Each dtype ends with each path's step sequence
+    (`bn_step_sequence`)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     nbb = torch.ops.aten.native_batch_norm_backward
@@ -498,13 +551,17 @@ def bn_kernel_phase(bn, dev):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         vec_tol, dx_tol = BN_TOL[dtype]
-        aggs = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                    "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0, "call_ms": 0.0}
-                for k in BN_OPS}
-        cases = [(f"level{lvl}", c, rows, n, (BATCH, SIZE >> lvl, SIZE >> lvl))
+        aggs = {(path, k): {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                            "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0, "call_ms": 0.0}
+                for path in BN_STEPS for k in BN_OPS}
+        # (name, C, rows, instances per step of each path, N/H/W of the rows)
+        cases = [(f"level{lvl}", c, rows, {"NestedUNet": n}, (BATCH, SIZE >> lvl, SIZE >> lvl))
                  for lvl, c, rows, n in BN_LEVELS]
-        cases += [("ragged", c, rows, 0, (1, rows, 1)) for c, rows in BN_RAGGED]
-        for name, c, rows, count, nhw in cases:
+        cases += [(f"rnn_{name}", c, BATCH * hw * hw, {"UNetRNN": n}, (BATCH, hw, hw))
+                  for name, c, hw, n in UNETRNN_BN]
+        cases += [(name, c, BATCH * hw * hw, {}, (BATCH, hw, hw)) for name, c, hw in CRDN_EXTRA_BN]
+        cases += [("ragged", c, rows, {}, (1, rows, 1)) for c, rows in BN_RAGGED]
+        for name, c, rows, counts, nhw in cases:
             x = (torch.randn(rows, c, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
             dy = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
             gamma = torch.rand(c, generator=gen, device=dev) + 0.5
@@ -554,26 +611,30 @@ def bn_kernel_phase(bn, dev):
                 ms, plain_ms, lib_ms = (graph_ms(f, flush) for f in (kern, plain, lib))
                 call_ms = time_ms(kern, flush)
                 bound, by = bn_bound_ms(k, rows, c, dtype)
-                a = aggs[k]
-                a["max_abs_err"] = max(a["max_abs_err"], errs[k])
-                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                               ("bound_ms", bound), (by, bound), ("call_ms", call_ms)):
-                    a[key] += count * v
+                for path in BN_STEPS:
+                    a, count = aggs[(path, k)], counts.get(path, 0)
+                    a["max_abs_err"] = max(a["max_abs_err"], errs[k])
+                    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                                   ("bound_ms", bound), (by, bound), ("call_ms", call_ms)):
+                        a[key] += count * v
                 parts.append(f"{k} err {errs[k]:.3g} kernel {ms:.4f} ({100 * bound / ms:.1f}% of "
                              f"bound; call {call_ms:.4f}) plain {plain_ms:.4f} library "
                              f"{lib_ms:.4f} bound {bound:.4f} ({by})")
-            print(f"BN {DTYPE_NAME[dtype]} {name:7s} C={c:<3d} rows={rows:<6d} x{count:<2d}| "
+            count = sum(counts.values())
+            print(f"BN {DTYPE_NAME[dtype]} {name:10s} C={c:<3d} rows={rows:<6d} x{count:<2d}| "
                   + " | ".join(parts), flush=True)
-        for k, a in aggs.items():
+        for (path, k), a in aggs.items():
             a["bound_by"] = "bytes" if a.pop("bytes") > a.pop("operations") else "operations"
             call_ms = a.pop("call_ms")
-            out[(k, dtype)] = a
-            print(f"BN {DTYPE_NAME[dtype]} {k} over the {BN_PER_STEP} instances of one step: "
+            out[(k, dtype, path)] = a
+            n = sum(i for *_, i in BN_STEPS[path])
+            print(f"BN {DTYPE_NAME[dtype]} {k} over the {n} instances of one {path} step: "
                   f"kernel {a['ms']:.4f} ms (per call from Python: {call_ms:.4f} ms) | plain "
                   f"{a['plain_ms']:.4f} ms | library "
                   f"{a['library_ms']:.4f} ms | bound {a['bound_ms']:.4f} ms ({a['bound_by']}) "
                   f"| max abs err {a['max_abs_err']:.3g}", flush=True)
-        bn_step_sequence(bn, dev, dtype, gen, flush)
+        for path, step in BN_STEPS.items():
+            bn_step_sequence(bn, dev, dtype, gen, flush, step, path)
     return out
 
 
@@ -690,9 +751,11 @@ def profile_steps(step, batch, gen, precision, card, steps=5):
               f"x{e.count // steps:<3d} {e.key[:110]}")
 
 
-def train_phase(bn, df, card):
-    """train.fit on full-width NestedUNet wDS in bf16 and fp32; returns the
-    launch counts of each run."""
+def train_phase(bn, df, card, arch="NestedUNet", deep_supervision=True,
+                bn_per_step=BN_PER_STEP, k4_per_forward=10):
+    """train.fit on full-width `arch` in bf16 and fp32; returns the launch
+    counts of each run: exactly `bn_per_step` launches of each BN kernel per
+    train step and `k4_per_forward` K4 launches per step and per val batch."""
     from pytorch_nested_unet_tpu_torch.infer import Predictor
     from pytorch_nested_unet_tpu_torch.train import fit
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
@@ -703,51 +766,55 @@ def train_phase(bn, df, card):
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke")
     epochs, steps = 3, 64 // BATCH
     val_batches = -(-len(va_x) // BATCH)
+    ds = "wDS" if deep_supervision else "woDS"
+    label = f"{arch}{' wDS' if deep_supervision else ''}"
     launches = {}
     for precision in ("bf16", "fp32"):
         reset_counts(bn, df)
         t0 = time.perf_counter()
-        r = fit(tr_x, tr_y, va_x, va_y, name=f"NestedUNet_wDS_{precision}", output_dir=out_dir,
-                epochs=epochs, batch_size=BATCH, deep_supervision=True, loss="BCEDiceLoss",
-                optimizer="SGD", lr=1e-3, momentum=0.9, weight_decay=1e-4,
+        r = fit(tr_x, tr_y, va_x, va_y, name=f"{arch}_{ds}_{precision}", output_dir=out_dir,
+                epochs=epochs, batch_size=BATCH, arch=arch, deep_supervision=deep_supervision,
+                loss="BCEDiceLoss", optimizer="SGD", lr=1e-3, momentum=0.9, weight_decay=1e-4,
                 scheduler="CosineAnnealingLR", min_lr=1e-5, precision=precision, seed=41,
                 augment="full", device="cuda")
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = launch_counts(bn, df)
         launches[precision] = counts
-        want = {k: BN_PER_STEP * epochs * steps for k in bn.LAUNCHES}
-        want["multipart_conv3x3"] = 10 * epochs * (steps + val_batches)
+        want = {k: bn_per_step * epochs * steps for k in bn.LAUNCHES}
+        want["multipart_conv3x3"] = k4_per_forward * epochs * (steps + val_batches)
         if counts != want:
-            raise AssertionError(f"train {precision}: launches {counts}, expected {want} "
-                                 f"({BN_PER_STEP} BN per step, 10 decoder nodes per step and "
-                                 f"per val batch, {epochs}x{steps} steps, {epochs}x"
+            raise AssertionError(f"train {label} {precision}: launches {counts}, expected {want} "
+                                 f"({bn_per_step} BN per step, {k4_per_forward} decoder nodes "
+                                 f"per step and per val batch, {epochs}x{steps} steps, {epochs}x"
                                  f"{val_batches} val batches)")
         log = r["log"]
         with open(os.path.join(r["model_dir"], "log.csv")) as f:
             rows = list(csv.reader(f))
         if rows[0] != LOG_COLUMNS or len(rows) != 1 + epochs:
-            raise AssertionError(f"train {precision}: log.csv {rows}")
+            raise AssertionError(f"train {label} {precision}: log.csv {rows}")
         if not all(np.isfinite(log[k]).all() for k in ("loss", "val_loss", "iou", "val_iou")):
-            raise AssertionError(f"train {precision}: non-finite log {log}")
-        print(f"train {precision}: fit 3 epochs x {steps} steps (+{val_batches} val batches "
-              f"each, the last padded) in {fit_s:.2f} s; train s/epoch "
+            raise AssertionError(f"train {label} {precision}: non-finite log {log}")
+        print(f"train {label} {precision}: fit 3 epochs x {steps} steps (+{val_batches} val "
+              f"batches each, the last padded) in {fit_s:.2f} s; train s/epoch "
               f"{[round(t, 3) for t in r['train_s']]}, val s/epoch "
               f"{[round(t, 3) for t in r['val_s']]}; loss {[round(v, 4) for v in log['loss']]}, "
               f"val_loss {[round(v, 4) for v in log['val_loss']]}, val_iou "
               f"{[round(v, 4) for v in log['val_iou']]} | launches {counts} | card: {card}",
               flush=True)
         pth = os.path.join(r["model_dir"], "model.pth")
-        pred = Predictor("NestedUNet", 1, 3, deep_supervision=True, precision=precision,
+        pred = Predictor(arch, 1, 3, deep_supervision=deep_supervision, precision=precision,
                          batch_size=BATCH, weights=pth, device="cuda")
         probs = pred.predict_u8(va_x[:BATCH])
         if probs.shape != (BATCH, SIZE, SIZE, 1) or not np.isfinite(probs).all():
-            raise AssertionError(f"train {precision}: served model.pth gave {probs.shape}")
+            raise AssertionError(f"train {label} {precision}: served model.pth gave "
+                                 f"{probs.shape}")
 
         # steady step time: the same step as fit's, synchronized after each
         model = r["model"]
         step = make_train_step(model, build_optimizer(model.parameters(), "SGD", 1e-3, 0.9,
-                                                      1e-4), "BCEDiceLoss", True, "full")
+                                                      1e-4), "BCEDiceLoss", deep_supervision,
+                               "full")
         gen = torch.Generator(device="cuda").manual_seed(0)
         batch = (torch.from_numpy(tr_x[:BATCH]).cuda(), torch.from_numpy(tr_y[:BATCH]).cuda())
         for _ in range(3):
@@ -761,74 +828,179 @@ def train_phase(bn, df, card):
             times.append((time.perf_counter() - t0) * 1e3)
         times.sort()
         p50, p95 = times[len(times) // 2], times[min(len(times) - 1, int(len(times) * 0.95))]
-        print(f"train {precision} steady: NestedUNet wDS nb_filter={NB} batch {BATCH} "
+        print(f"train {precision} steady: {label} full width, batch {BATCH} "
               f"{SIZE}x{SIZE}, 20 steps: p50 {p50:.3f} ms/step, p95 {p95:.3f} ms/step, "
               f"{BATCH * 1e3 / (sum(times) / len(times)):.1f} img/s | card: {card}", flush=True)
-        profile_steps(step, batch, gen, precision, card)
+        profile_steps(step, batch, gen, f"{label} {precision}", card)
     return launches
 
 
-def cpu_step_phase():
+def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=False):
     """One full-width fp32 train step (batch 2, augment none) on the card and on
     the CPU from the same weights: the loss within 1e-5, the running statistics
     within atol = rtol = 1e-5, and every gradient within 1e-4 relative L2 norm
     or, where the step itself is less stable than that, within 4x of how far
-    the CPU's own gradient moves when the weights move by 1e-7 of themselves
-    (a last-bit change). At full width the deep layers' gradients move by
-    several percent under such a change (ReLU masks and max-pool choices
-    flip), so no implementation can meet 1e-4 there.
+    the CPU's own gradient moves under a rounding-sized change: the larger
+    of its movement when the weights move by 1e-7 of themselves (a last-bit
+    change) and when every conv output moves by 1e-6 of itself (how far two
+    f32 convolutions that sum their 9 * C_in terms in different orders, the
+    card's and the CPU's, can differ). At full width some gradients move by
+    up to several percent under such a change (ReLU masks and max-pool
+    choices flip, and a BN's dgamma and dbeta are sums whose terms cancel),
+    so no implementation can meet 1e-4 there.
 
     Each gradient's norm is taken relative to the larger of its own norm and
     its module's weight gradient norm: a conv bias that feeds a BN has a true
     gradient of zero (the BN's mean subtraction cancels it), so every device
     computes rounding noise for it.
+
+    zero_bn_fed_biases sets the biases of the convs of every (conv, BN)
+    sequence to 0 first, which changes nothing in exact arithmetic. At their
+    init they can dominate the first BN's input: its largest mean^2 / var,
+    printed, is the factor by which var = E[x^2] - mean^2 magnifies one
+    rounding of a BN sum, so above ~1e3 the comparison holds the card to the
+    CPU's summation order rather than to the step.
     """
+    from pytorch_nested_unet_tpu_torch.data.augment import eval_transform
     from pytorch_nested_unet_tpu_torch.models import create_model
+    from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
     from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
 
     imgs, masks = synthetic_set(2, seed=3)
     imgs, masks = torch.from_numpy(imgs), torch.from_numpy(masks)
 
-    def run(dev, perturb=0.0):
-        m = create_model("NestedUNet", 1, 3, True, generator=torch.Generator().manual_seed(5))
+    def build(zero):
+        m = create_model(arch, 1, 3, deep_supervision,
+                         generator=torch.Generator().manual_seed(5))
+        if zero:
+            with torch.no_grad():
+                for seq in m.modules():
+                    if isinstance(seq, torch.nn.Sequential) and len(seq) > 1 \
+                            and isinstance(seq[1], FusedBatchNormReLU):
+                        seq[0].bias.zero_()
+        return m
+
+    def first_bn_ratio(zero):
+        """The first BN layer's largest mean^2 / var on these inputs (CPU)."""
+        m, got = build(zero), []
+        bn0 = next(b for b in m.modules() if isinstance(b, FusedBatchNormReLU))
+        bn0.register_forward_pre_hook(lambda _, args: got.append(
+            args[0].double().reshape(-1, args[0].shape[-1])))
+        with torch.no_grad():
+            m.train()(eval_transform(imgs)[0])
+        mean = got[0].mean(0)
+        return (mean * mean / got[0].var(0, unbiased=False)).max().item()
+
+    ratios = [first_bn_ratio(False)] + ([first_bn_ratio(True)] if zero_bn_fed_biases else [])
+
+    def run(dev, perturb=0.0, noise=0.0):
+        m = build(zero_bn_fed_biases)
+        g = torch.Generator().manual_seed(6)
         if perturb:
-            g = torch.Generator().manual_seed(6)
             with torch.no_grad():
                 for p in m.parameters():
                     p.mul_(1 + perturb * torch.randn(p.shape, generator=g))
+        if noise:  # every conv output times (1 + noise * N(0, 1))
+            for mod in m.modules():
+                w = getattr(mod, "weight", None)
+                if isinstance(w, torch.Tensor) and w.dim() == 4:
+                    mod.register_forward_hook(lambda _, args, out: out * (
+                        1 + noise * torch.randn(out.shape, generator=g)).to(out.dtype))
         m = m.to(dev)
         step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
-                               "BCEDiceLoss", True, augment="none")
+                               "BCEDiceLoss", deep_supervision, augment="none")
         t0 = time.perf_counter()
         loss = float(step(imgs.to(dev), masks.to(dev), torch.Generator(device=dev))["loss"])
-        print(f"card vs CPU: {dev}{' (weights moved by 1e-7)' if perturb else ''} step "
-              f"{time.perf_counter() - t0:.2f} s, loss {loss:.7f}", flush=True)
+        what = " (weights moved by 1e-7)" if perturb else " (conv outputs moved by 1e-6)" \
+            if noise else ""
+        print(f"card vs CPU {arch}: {dev}{what} step {time.perf_counter() - t0:.2f} s, loss "
+              f"{loss:.7f}", flush=True)
         return (loss, {n: p.grad.cpu() for n, p in m.named_parameters()},
                 {n: b.cpu() for n, b in m.named_buffers()})
 
-    cuda, cpu, moved = run("cuda"), run("cpu"), run("cpu", perturb=1e-7)
+    cuda, cpu = run("cuda"), run("cpu")
+    moved, noisy = run("cpu", perturb=1e-7), run("cpu", noise=1e-6)
 
     def rel(a, b):
         return {n: ((a[n] - b[n]).norm() / max(b[n].norm(), b[n.rsplit(".", 1)[0] + ".weight"]
                                                 .norm())).item() for n in b}
 
-    card_rel, floor = rel(cuda[1], cpu[1]), rel(moved[1], cpu[1])
+    card_rel = rel(cuda[1], cpu[1])
+    by_weights, by_convs = rel(moved[1], cpu[1]), rel(noisy[1], cpu[1])
+    floor = {n: max(by_weights[n], by_convs[n]) for n in by_weights}
     bound = {n: max(1e-4, 4 * floor[n]) for n in floor}
     worst = max(card_rel, key=lambda n: card_rel[n] / bound[n])
     loss_err = abs(cuda[0] - cpu[0])
     stat_ok = all(torch.allclose(cuda[2][n], b, atol=1e-5, rtol=1e-5) for n, b in cpu[2].items())
     stat_err = max((cuda[2][n] - b).abs().max().item() for n, b in cpu[2].items())
     loose = sorted(n for n in floor if bound[n] > 1e-4)
-    print(f"card vs CPU, one full-width fp32 train step: loss diff {loss_err:.3g} (tol 1e-5); "
-          f"gradients: worst {worst} at {card_rel[worst]:.3g} relative L2 against a bound of "
-          f"{bound[worst]:.3g}; median card-vs-CPU {np.median(list(card_rel.values())):.3g}, "
-          f"median movement under a 1e-7 weight change {np.median(list(floor.values())):.3g}; "
-          f"{len(loose)} of {len(floor)} gradients bounded by that movement rather than 1e-4 "
-          f"(largest: {max(floor.values()):.3g}); running stats max abs diff {stat_err:.3g} "
+    cond = f"{ratios[0]:.3g} with the BN-fed conv biases at init"
+    if zero_bn_fed_biases:
+        cond += f", {ratios[1]:.3g} with them at 0 (compared here)"
+    print(f"card vs CPU, one full-width fp32 {arch} train step (first BN layer's mean^2/var "
+          f"on the CPU up to {cond}): loss diff {loss_err:.3g} (tol "
+          f"1e-5); gradients: worst {worst} at {card_rel[worst]:.3g} relative L2 against a "
+          f"bound of {bound[worst]:.3g}; median card-vs-CPU "
+          f"{np.median(list(card_rel.values())):.3g}, median movement under a 1e-7 weight "
+          f"change {np.median(list(by_weights.values())):.3g} and under a 1e-6 change of "
+          f"the conv outputs {np.median(list(by_convs.values())):.3g}; {len(loose)} of "
+          f"{len(floor)} gradients bounded by that movement rather than 1e-4 (largest: "
+          f"{max(floor.values()):.3g}); running stats max abs diff {stat_err:.3g} "
           f"(atol = rtol = 1e-5)", flush=True)
     if loss_err > 1e-5 or card_rel[worst] > bound[worst] or not stat_ok:
-        raise AssertionError("card vs CPU train step outside its bounds")
+        raise AssertionError(f"card vs CPU {arch} train step outside its bounds")
+
+
+def arch_sweep_phase(bn, df, card):
+    """Each other new arch once at full width, 96x96, batch 2, in bf16: one
+    train step (augment full) with its K1-K3 and K4 launches counted, then one
+    served batch through Predictor (K4 only). Returns the summed launches."""
+    from pytorch_nested_unet_tpu_torch.infer import Predictor
+    from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
+    from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
+
+    imgs, masks = synthetic_set(2, seed=4)
+    total = {k: 0 for k in launch_counts(bn, df)}
+    for arch, kw, bn_per_step, k4 in ARCH_SWEEP:
+        label = arch + "".join(f" {k}={v}" for k, v in kw.items())
+        pred = Predictor(arch, precision="bf16", batch_size=2, seed=0, device="cuda",
+                         arch_kwargs=kw)
+        m = pred.model
+        params = sum(p.numel() for p in m.parameters())
+        step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
+                               "BCEDiceLoss", False, "full")
+        batch = (torch.from_numpy(imgs).cuda(), torch.from_numpy(masks).cuda())
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(bn, df)
+        t0 = time.perf_counter()
+        loss = float(step(*batch, gen)["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        train_counts = launch_counts(bn, df)
+        want = {**{k: bn_per_step for k in bn.LAUNCHES}, "multipart_conv3x3": k4}
+        if train_counts != want or not np.isfinite(loss):
+            raise AssertionError(f"sweep {label}: train step loss {loss}, launches "
+                                 f"{train_counts}, expected {want}")
+        m.eval()  # the train step left it in train mode
+        reset_counts(bn, df)
+        t0 = time.perf_counter()
+        probs = pred.predict_u8(imgs)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        serve_counts = launch_counts(bn, df)
+        want = {**{k: 0 for k in bn.LAUNCHES}, "multipart_conv3x3": k4}
+        if serve_counts != want or probs.shape != (2, SIZE, SIZE, 1) \
+                or not np.isfinite(probs).all():
+            raise AssertionError(f"sweep {label}: served {probs.shape}, launches "
+                                 f"{serve_counts}, expected {want}")
+        for k in total:
+            total[k] += train_counts[k] + serve_counts[k]
+        print(f"sweep {label}: {params} parameters, bf16, batch 2 {SIZE}x{SIZE}: first train "
+              f"step {step_ms:.1f} ms (loss {loss:.4f}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB), first served batch "
+              f"{serve_ms:.1f} ms | train launches {train_counts} | card: {card}", flush=True)
+        del pred, m, step
+    return total
 
 
 def main():
@@ -869,12 +1041,19 @@ def main():
 
     k4 = kernel_phase(df, dev)
     k4_host_us(df, dev)
-    serve_launches = path_phase(df, card)
+    runs = [path_phase(bn, df, card)]
     bn_kernels_per_call(bn, dev)
     bnk = bn_kernel_phase(bn, dev)
     k4_backward_phase(df, dev)
-    train_launches = train_phase(bn, df, card)
+    runs.append(train_phase(bn, df, card))
     cpu_step_phase()
+    runs.append(path_phase(bn, df, card, "UNetRNN", False, k4_per_batch=0, bf16_tol=None))
+    runs.append(train_phase(bn, df, card, "UNetRNN", False, UNETRNN_BN_PER_STEP, 0))
+    runs.append({"bf16": arch_sweep_phase(bn, df, card)})
+    cpu_step_phase("UNetRNN", False, zero_bn_fed_biases=True)
+    # launches of each kernel per dtype over every path driven above
+    launches = {name: {k: sum(r[name][k] for r in runs if name in r)
+                       for k in launch_counts(bn, df)} for name in DTYPE_NAME.values()}
 
     kernels = []
     for dtype, agg in k4.items():
@@ -883,26 +1062,28 @@ def main():
             "name": f"multipart_conv3x3[{name}]", "route": "cuda",
             "source": "pytorch_nested_unet_tpu_torch/ops/csrc/decoder_fusion.cu",
             "replaces": "pytorch_nested_unet_tpu/ops/decoder_fusion.py:209",
-            "launches": serve_launches[name] + train_launches[name]["multipart_conv3x3"],
+            "launches": launches[name]["multipart_conv3x3"],
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": agg["bound_by"], "library_ms": agg["library_ms"]})
     bn_names = {"K1": ("bn_stats", "pytorch_nested_unet_tpu/ops/fused_bn.py:145"),
                 "K2": ("bn_bwd_reduce", "pytorch_nested_unet_tpu/ops/fused_bn.py:260"),
                 "K3": ("bn_bwd_dx", "pytorch_nested_unet_tpu/ops/fused_bn.py:284")}
-    for (k, dtype), agg in bnk.items():
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for (k, dtype, path), agg in bnk.items():
+        if path != "NestedUNet":
+            continue
         fn, replaces = bn_names[k]
         kernels.append({
             "name": f"{fn}[{DTYPE_NAME[dtype]}]", "route": "cuda",
             "source": "pytorch_nested_unet_tpu_torch/ops/csrc/fused_bn.cu",
-            "replaces": replaces, "launches": train_launches[DTYPE_NAME[dtype]][fn],
-            "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
-            "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
-            "bound_by": agg["bound_by"], "library_ms": agg["library_ms"]})
-    print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 forward; "
-          "bn_* sums over the 30 BN instances of one batch-16 training step; launches: "
-          "multipart_conv3x3 over the serving (8 batches) and training (3 epochs) runs, bn_* "
-          "over the training run; card:")
+            "replaces": replaces, "launches": launches[DTYPE_NAME[dtype]][fn],
+            **{key: agg[key] for key in timed},
+            "unetrnn_step": {key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}})
+    print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 NestedUNet "
+          "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
+          "step (unetrnn_step: the 15 of a UNetRNN step); launches: over every path driven "
+          "(NestedUNet and UNetRNN serving and training, the arch sweep); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

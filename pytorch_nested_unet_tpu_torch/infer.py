@@ -7,12 +7,14 @@ device-to-host copy; `summary()` gives the steady-state p50/p95 per batch and
 img/s, with the first batch reported apart.
 
     python -m pytorch_nested_unet_tpu_torch.infer --input images.npy \
-        --output probs.npy [--weights model.pth] [--deep_supervision true] \
-        [--precision bf16] [--batch_size 16] [--device cuda]
+        --output probs.npy [--weights model.pth] [--arch NestedUNet] \
+        [--arch_kwargs JSON] [--deep_supervision true] [--precision bf16] \
+        [--batch_size 16] [--device cuda]
 
 reads a (N,H,W,3) uint8 `.npy` and writes (N,H,W,num_classes) float32
-probabilities. Image decoding, capsule loading and --refine wait for the data
-and CLI slices (ROADMAP.md queue 1).
+probabilities, for any registered arch (the UNet and CRDN families). Image
+decoding, capsule loading and --refine wait for the data and CLI slices
+(ROADMAP.md queue 1).
 """
 
 import argparse
@@ -23,7 +25,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .models import create_model
+from .models import arch_names, create_model, parse_arch_kwargs
 from .training.loop import make_predict_fn
 from .utils.convert import load_reference_pth
 from .utils.device import resolve_device
@@ -34,9 +36,11 @@ PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 class Predictor:
     """A model on one device, answering `predict_u8` requests in fixed batches.
 
-    weights: None (random init from `seed`), a path to a reference-layout
-    `model.pth`, or a state dict; loaded strict. arch_kwargs go to the model
-    constructor (e.g. nb_filter).
+    arch: any registered arch. weights: None (random init from `seed`), a
+    path to a reference-layout `model.pth` (a CRDN checkpoint's gate convs of
+    other decoders than the model's are dropped), or a state dict; loaded
+    strict. arch_kwargs go to the model constructor (e.g. nb_filter,
+    decoder); an option the arch does not have raises ValueError.
     """
 
     def __init__(self, arch: str = "NestedUNet", num_classes: int = 1,
@@ -53,10 +57,10 @@ class Predictor:
         model = create_model(arch, num_classes, input_channels, deep_supervision,
                              dtype=PRECISIONS[precision],
                              generator=torch.Generator().manual_seed(seed),
-                             **dict(arch_kwargs or {}))
+                             **parse_arch_kwargs(arch, arch_kwargs))
         if weights is not None:
             if isinstance(weights, (str, os.PathLike)):
-                weights = load_reference_pth(weights)
+                weights = load_reference_pth(weights, arch, getattr(model, "decoder", None))
             model.load_state_dict(weights, strict=True)
         self.model = model.to(self.device)
         self._predict = make_predict_fn(self.model)
@@ -114,7 +118,9 @@ def parse_args(argv=None):
     p.add_argument("--input", required=True, help="(N,H,W,C) uint8 .npy")
     p.add_argument("--output", required=True, help="probabilities .npy to write")
     p.add_argument("--weights", default=None, help="reference-layout model.pth")
-    p.add_argument("--arch", default="NestedUNet")
+    p.add_argument("--arch", default="NestedUNet", choices=arch_names())
+    p.add_argument("--arch_kwargs", default=None,
+                   help="JSON object of the arch's constructor options")
     p.add_argument("--num_classes", default=1, type=int)
     p.add_argument("--input_channels", default=3, type=int)
     p.add_argument("--deep_supervision", default=False, type=_str2bool)
@@ -129,7 +135,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     predictor = Predictor(args.arch, args.num_classes, args.input_channels,
                           args.deep_supervision, args.precision, args.batch_size,
-                          weights=args.weights, seed=args.seed, device=args.device)
+                          weights=args.weights, seed=args.seed, device=args.device,
+                          arch_kwargs=args.arch_kwargs)
     probs = predictor.predict_u8(np.load(args.input))
     np.save(args.output, probs)
     s = predictor.summary()

@@ -1,27 +1,80 @@
 """Model registry (counterpart of models/__init__.py).
 
-The port registers NestedUNet only; the rest of the zoo is queued family by
-family in ROADMAP.md (queue 1).
+The port registers the UNet family (UNet, NestedUNet) and the CRDN family
+(UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost and the three UNetRNN attention
+variants); the rest of the zoo is queued family by family in ROADMAP.md
+(queue 1).
 """
+
+import inspect
+import json
 
 import torch.nn as nn
 
+from .dual_attention import UNetRNNAttention, UNetRNNCAttention, UNetRNNPAttention
+from .ghost import UNetRNNGhost
 from .nested_unet import NestedUNet
+from .rdc import UNetRM3, UNetRM7, UNetRNN
+from .unet import UNet
 
-_REGISTRY = {"NestedUNet": NestedUNet}
+_REGISTRY = {cls.__name__: cls for cls in (
+    UNet, NestedUNet, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
+    UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention)}
+# constructor arguments that create_model and the entry points set themselves
+_SET_BY_CALLER = ("num_classes", "input_channels", "deep_supervision", "dtype", "generator")
 
 
 def arch_names():
     return sorted(_REGISTRY)
 
 
-def create_model(name: str, num_classes: int = 1, input_channels: int = 3,
-                 deep_supervision: bool = False, **kwargs) -> nn.Module:
-    """Build a model with the reference trainer's constructor contract
-    (reference trains.py:219-223); `kwargs` go to the model (nb_filter, dtype,
-    generator)."""
+def _get(name: str):
     if name not in _REGISTRY:
         raise KeyError(f"arch {name!r} is not ported yet (ported: {arch_names()}); "
                        "see ROADMAP.md queue 1 for the order of the rest of the zoo")
-    return _REGISTRY[name](num_classes=num_classes, input_channels=input_channels,
-                           deep_supervision=deep_supervision, **kwargs)
+    return _REGISTRY[name]
+
+
+def create_model(name: str, num_classes: int = 1, input_channels: int = 3,
+                 deep_supervision: bool = False, **kwargs) -> nn.Module:
+    """Build a model with the reference trainer's constructor contract
+    (reference trains.py:219-223); `kwargs` go to the model (nb_filter,
+    decoder, feature_scale, ..., dtype, generator)."""
+    return _get(name)(num_classes=num_classes, input_channels=input_channels,
+                      deep_supervision=deep_supervision, **kwargs)
+
+
+def arch_options(name: str):
+    """The constructor options of `name` that arch_kwargs may set, from its
+    constructor and those of the classes it passes **kwargs on to."""
+    names = []
+    for cls in _get(name).__mro__:
+        if "__init__" not in vars(cls):
+            continue
+        params = inspect.signature(vars(cls)["__init__"]).parameters.values()
+        names += [p.name for p in params
+                  if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY) and p.name != "self"]
+        if not any(p.kind is p.VAR_KEYWORD for p in params):
+            break
+    return sorted(set(names) - set(_SET_BY_CALLER))
+
+
+def parse_arch_kwargs(name: str, raw):
+    """Validate per-arch constructor options given as a JSON object string (or
+    an already-parsed mapping): the --arch_kwargs format of the JAX package's
+    train.py. JSON arrays become tuples. Raises ValueError naming unknown
+    options."""
+    if not raw:
+        return {}
+    kw = json.loads(raw) if isinstance(raw, str) else dict(raw)
+    if not isinstance(kw, dict):
+        raise ValueError(f"arch_kwargs must be a JSON object, got {raw!r}")
+    allowed = arch_options(name)
+    unknown = sorted(set(kw) - set(allowed))
+    if unknown:
+        raise ValueError(f"{name} has no option(s) {unknown}; available: {allowed}")
+
+    def _freeze(v):
+        return tuple(_freeze(x) for x in v) if isinstance(v, list) else v
+
+    return {k: _freeze(v) for k, v in kw.items()}

@@ -1,4 +1,9 @@
-"""Conv blocks of NestedUNet over NHWC tensors (counterpart of models/blocks.py)."""
+"""Conv blocks of the model zoo over NHWC tensors (counterpart of models/blocks.py).
+
+`UnetConv2` and `ConvBNReLU` keep the reference's index-style layout
+(`conv1.0` the conv, `conv1.1` the BN; a score block's `0` and `1`), so
+their state-dict keys are the reference CRDN checkpoints' own.
+"""
 
 from typing import Optional, Sequence
 
@@ -72,3 +77,31 @@ class VGGBlock(nn.Module):
     def forward(self, x) -> torch.Tensor:
         x = self.bn1(self.conv1(x))
         return self.bn2(self.conv2(x))
+
+
+class UnetConv2(nn.Module):
+    """(conv3x3 [-> BN] -> ReLU) x2 (reference archs_backup.py:365-383,
+    CRDN.py:201-221): `conv1` and `conv2` are each (conv, BN+ReLU), or
+    (conv, ReLU) without batch norm."""
+
+    def __init__(self, in_channels: int, out_channels: int, is_batchnorm: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        for i, cin in ((1, in_channels), (2, out_channels)):
+            act = FusedBatchNormReLU(out_channels, dtype=dtype) if is_batchnorm else nn.ReLU()
+            setattr(self, f"conv{i}", nn.Sequential(
+                TorchConv(cin, out_channels, 3, padding=1, dtype=dtype), act))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class ConvBNReLU(nn.Sequential):
+    """conv -> BN -> ReLU as one (conv, BN+ReLU) sequence: the CRDN score
+    blocks (reference archs_backup.py:313-321). The JAX module's stride and
+    conv_impl options have no caller there and are not ported."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 padding: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__(TorchConv(in_channels, out_channels, kernel_size, padding, dtype),
+                         FusedBatchNormReLU(out_channels, dtype=dtype))

@@ -12,11 +12,11 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.init import torch_conv_init_
+from ..ops.init import init_convs_
 from ..ops.layers import TorchConv
 from ..ops.pool import max_pool2x2
 from ..ops.resize import upsample2x
-from .blocks import MultipartConv3x3, VGGBlock
+from .blocks import VGGBlock
 
 
 class NestedUNet(nn.Module):
@@ -41,11 +41,7 @@ class NestedUNet(nn.Module):
         heads = ("final1", "final2", "final3", "final4") if deep_supervision else ("final",)
         for name in heads:
             setattr(self, name, TorchConv(nb[0], num_classes, 1, dtype=dtype))
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for m in self.modules():
-            if isinstance(m, (TorchConv, MultipartConv3x3)):
-                torch_conv_init_(m.weight, m.bias, generator)
+        init_convs_(self, generator)
 
     def forward(self, x: torch.Tensor):
         if self.dtype is not None:

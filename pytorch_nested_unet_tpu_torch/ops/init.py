@@ -6,6 +6,7 @@ is the same on every device.
 """
 
 import math
+from typing import Optional
 
 import torch
 
@@ -26,3 +27,14 @@ def torch_conv_init_(weight: torch.Tensor, bias, generator: torch.Generator):
     uniform_(weight, bound, generator)
     if bias is not None:
         uniform_(bias, bound, generator)
+
+
+def init_convs_(module: torch.nn.Module, generator: Optional[torch.Generator] = None):
+    """`torch_conv_init_` on every conv of `module` (each submodule with a 4-D
+    `weight`), in module order, from `generator` (default: seed 0)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for m in module.modules():
+        w = getattr(m, "weight", None)
+        if isinstance(w, torch.Tensor) and w.dim() == 4:
+            torch_conv_init_(w, m.bias, generator)

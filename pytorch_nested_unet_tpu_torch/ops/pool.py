@@ -12,3 +12,8 @@ def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
     x = x[:, : h - h % 2, : w - w % 2, :]
     y = x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
     return y.contiguous()
+
+
+def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    """Mean over H and W of (B,H,W,C): (B,1,1,C), or (B,C) without keepdims."""
+    return x.mean(dim=(1, 2), keepdim=keepdims)

@@ -6,6 +6,11 @@ at the repo root, :474-765).
         --val_images va_x.npy --val_masks va_y.npy \
         --arch NestedUNet --deep_supervision true [--epochs 100] [-b 16] \
         [--precision bf16] [--augment full] [--device cuda]
+    ... --arch UNetRNN --arch_kwargs '{"decoder": "LSTM"}'
+
+`--arch` takes any registered arch (the UNet and CRDN families, see
+`models.arch_names()`); `--arch_kwargs` is a JSON object of its constructor
+options (feature_scale, decoder, nb_filter, ...), checked against them.
 
 Images are (N,H,W,3) uint8 and masks (N,H,W,num_classes) uint8 `.npy` files,
 already at the training size; both sets live on the device for the whole run.
@@ -15,9 +20,9 @@ weighted), steps ReduceLROnPlateau with the validation loss, appends a row to
 `<output_dir>/<name>/log.csv` with the JAX trainer's columns, and writes
 `model.pth` in the reference key layout whenever the validation IoU improves.
 That file loads into `infer.Predictor(weights=...)` and into the JAX package's
-`converters_for_arch(arch)[0]`. The seed-41 split of an image folder, image
-decoding, `config.yml`, resume, meshes, remat and profiling wait for later
-slices (ROADMAP.md queue 1).
+`converters_for_arch(arch)[0]`, for every registered arch. The seed-41 split
+of an image folder, image decoding, `config.yml`, resume, meshes, remat and
+profiling wait for later slices (ROADMAP.md queue 1).
 """
 
 import argparse
@@ -33,7 +38,7 @@ from .data.augment import parse_augment_spec
 from .infer import _str2bool
 from .data.pipeline import epoch_batches
 from .losses import LOSS_NAMES
-from .models import arch_names, create_model
+from .models import arch_names, create_model, parse_arch_kwargs
 from .training.loop import make_epoch_evaluator, make_epoch_runner
 from .training.optim import (LRSchedule, build_optimizer, nonfinite_count,
                              params_all_finite, set_learning_rate)
@@ -70,8 +75,11 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     and return a summary: `best_iou`, `log` (the log.csv columns),
     `model_dir`, `model`, and per epoch the host seconds of its training and
     validation parts (`train_s`, `val_s`), each ending in the read of that
-    part's metrics. arch_kwargs go to the model constructor (e.g. nb_filter).
+    part's metrics. arch_kwargs (a mapping or a JSON object string) go to the
+    model constructor (e.g. nb_filter, decoder); an option the arch does not
+    have raises ValueError.
     """
+    arch_kwargs = parse_arch_kwargs(arch, arch_kwargs)
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
     dev = resolve_device(device)
@@ -91,7 +99,7 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     model = create_model(arch, num_classes, input_channels, deep_supervision,
                          dtype=PRECISIONS[precision],
                          generator=torch.Generator().manual_seed(seed),
-                         **dict(arch_kwargs or {}))
+                         **arch_kwargs)
     model = model.to(dev).train()
     opt = build_optimizer(model.parameters(), optimizer, lr, momentum, weight_decay, nesterov,
                           skip_nonfinite, accum_steps)
@@ -210,6 +218,9 @@ def parse_args(argv=None) -> dict:
     p.add_argument("--epochs", default=100, type=int)
     p.add_argument("-b", "--batch_size", default=16, type=int)
     p.add_argument("--arch", "-a", default="NestedUNet", choices=arch_names())
+    p.add_argument("--arch_kwargs", default=None,
+                   help="JSON object of the arch's constructor options, e.g. "
+                        "'{\"decoder\": \"LSTM\", \"feature_scale\": 8}'")
     p.add_argument("--deep_supervision", default=False, type=_str2bool)
     p.add_argument("--input_channels", default=3, type=int)
     p.add_argument("--num_classes", default=1, type=int)

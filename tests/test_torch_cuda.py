@@ -140,13 +140,17 @@ def _assert_sums_close(got, want, magnitude):
     assert ((got - want).abs() <= 1e-6 * magnitude).all(), (got - want).abs().max()
 
 
-# The training step's five levels are (32, 147456), (64, 36864), (128, 9216),
-# (256, 2304) and (512, 576); 40001 rows are no multiple of any kernel's
-# unrolled stride (kUnroll rows of every lane of a block).
+# NestedUNet's training step has five levels, (32, 147456), (64, 36864),
+# (128, 9216), (256, 2304) and (512, 576); 40001 rows are no multiple of any
+# kernel's unrolled stride (kUnroll rows of every lane of a block). The CRDN
+# family adds the score blocks' C = num_classes (1 or 2, scalar loads) over
+# up to 147456 rows, UNetRNN's level 0 (16), RM3's level 1 (72) and RM7's
+# 1x1 level (512 over 16 rows).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,rows", [
     (32, 1000), (64, 37), (1, 1), (1, 1000), (3, 37), (48, 1000), (70, 37), (70, 1),
     (512, 576), (256, 2304), (32, 147456), (64, 36864), (32, 40001),
+    (1, 147456), (2, 147456), (16, 147456), (72, 36864), (512, 16),
 ])
 def test_bn_kernels(cuda, dtype, c, rows):
     g = torch.Generator().manual_seed(1000 * c + rows)
@@ -367,3 +371,63 @@ def test_train_step_cuda_matches_cpu(cuda):
     cpu_bufs = dict(models["cpu"].named_buffers())
     for name, b in models["cuda"].named_buffers():
         torch.testing.assert_close(b.cpu(), cpu_bufs[name], atol=1e-5, rtol=1e-5)
+
+
+def _zero_bn_fed_biases(m):
+    """Every conv bias that feeds a BN starts at 0 (see
+    test_train_step_cuda_matches_cpu)."""
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith(("conv1.bias", "conv2.bias", "conv1.0.bias", "conv2.0.bias")) \
+                    or (name.startswith("score_block") and name.endswith(".0.bias")):
+                p.zero_()
+    return m
+
+
+def test_unetrnn_train_step_cuda_matches_cpu(cuda):
+    """A narrow UNetRNN step on the card against the CPU: 15 launches of each
+    BN kernel (10 encoder BNs, 5 score blocks at C = 1), no K4; the loss,
+    gradients and running stats within the NestedUNet step's bounds."""
+    rng = np.random.default_rng(2)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))
+    masks = torch.from_numpy((rng.random((2, 32, 32, 1)) > 0.6).astype(np.uint8) * 255)
+    models, metrics = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = _zero_bn_fed_biases(create_model("UNetRNN", feature_scale=16)).to(dev)
+        step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-2), "BCEDiceLoss",
+                               False, augment="none")
+        before = (dict(bn.LAUNCHES), df.LAUNCHES)
+        metrics[dev] = step(imgs.to(dev), masks.to(dev), torch.Generator(device=dev))
+        if dev == "cuda":
+            assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
+                "bn_stats": 15, "bn_bwd_reduce": 15, "bn_bwd_dx": 15}
+            assert df.LAUNCHES == before[1]
+        models[dev] = m
+    assert abs(float(metrics["cuda"]["loss"]) - float(metrics["cpu"]["loss"])) <= 1e-5
+    grads = {n: p.grad for n, p in models["cpu"].named_parameters()}
+    for name, p in models["cuda"].named_parameters():
+        want = grads[name]
+        scale = max(want.norm(), grads[name.rsplit(".", 1)[0] + ".weight"].norm())
+        assert (p.grad.cpu() - want).norm() <= 1e-4 * scale, name
+    cpu_bufs = dict(models["cpu"].named_buffers())
+    for name, b in models["cuda"].named_buffers():
+        torch.testing.assert_close(b.cpu(), cpu_bufs[name], atol=1e-5, rtol=1e-5)
+
+
+def test_unet_runs_k4_at_its_four_decoder_nodes(cuda):
+    """UNet launches K4 once per decoder node: 4 per forward, served or
+    trained, and its 18 BN layers run K1-K3 in a train step."""
+    kw = {"arch_kwargs": {"nb_filter": NARROW}, "batch_size": 2}
+    pred = Predictor("UNet", device="cuda", **kw)
+    before = df.LAUNCHES
+    out = pred.predict_u8(np.zeros((3, 32, 32, 3), np.uint8))
+    assert df.LAUNCHES - before == 4 * 2 and np.isfinite(out).all()
+    m = pred.model
+    step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-2), "BCEDiceLoss",
+                           False, augment="none")
+    before = (dict(bn.LAUNCHES), df.LAUNCHES)
+    imgs = torch.zeros(2, 32, 32, 3, dtype=torch.uint8, device=cuda)
+    step(imgs, imgs[..., :1], torch.Generator(device=cuda))
+    assert df.LAUNCHES - before[1] == 4
+    assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
+        "bn_stats": 18, "bn_bwd_reduce": 18, "bn_bwd_dx": 18}

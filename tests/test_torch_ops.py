@@ -129,3 +129,106 @@ def test_conv_init_bounds_and_seed():
     assert w.abs().max() <= bound and b.abs().max() <= bound
     assert w.std() > bound / 3  # uniform, not collapsed
     assert torch.equal(draw(0)[0], w) and not torch.equal(draw(1)[0], w)
+
+
+def _load_conv(tm, variables):
+    conv = variables["params"]["conv"]
+    sd = {"weight": torch.from_numpy(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1).copy())}
+    if "bias" in conv:
+        sd["bias"] = torch.from_numpy(np.array(conv["bias"]))
+    tm.load_state_dict(sd, strict=True)
+    return tm
+
+
+@pytest.mark.parametrize("k,stride,pad,dil,groups,bias", [
+    (3, 2, 1, 1, 1, True), (3, 1, 2, 2, 1, True), (3, 1, 1, 1, 4, False),
+    (5, 2, 2, 1, 2, False), (1, 1, 0, 1, 1, False)])
+def test_torch_conv_stride_dilation_groups_bias(k, stride, pad, dil, groups, bias):
+    """TorchConv's full signature against the JAX module's; a grouped conv's
+    fan-in (its init bound) is in/groups * k * k, as the JAX package's."""
+    x = np.random.default_rng(6).standard_normal((2, 9, 8, 4)).astype(np.float32)
+    jm = jlayers.TorchConv(8, k, stride=stride, padding=pad, dilation=dil, groups=groups,
+                           use_bias=bias)
+    variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    ref = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    tm = tlayers.TorchConv(4, 8, k, pad, stride=stride, dilation=dil, groups=groups,
+                           use_bias=bias)
+    assert tuple(tm.weight.shape) == (8, 4 // groups, k, k) and (tm.bias is None) != bias
+    assert sorted(tm.state_dict()) == sorted(["weight", "bias"] if bias else ["weight"])
+    tinit.init_convs_(tm, torch.Generator().manual_seed(0))
+    assert tm.weight.abs().max() <= 1.0 / np.sqrt(4 // groups * k * k)
+    _load_conv(tm, variables)
+    with torch.inference_mode():
+        out = tm(torch.from_numpy(x))
+    assert out.is_contiguous() and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_shift_conv_is_the_jax_shift_conv():
+    from pytorch_nested_unet_tpu.ops import small_conv as jsc
+    from pytorch_nested_unet_tpu_torch.ops import small_conv as tsc
+
+    x = np.random.default_rng(7).standard_normal((2, 6, 7, 2)).astype(np.float32)
+    for bias in (True, False):
+        jm = jsc.ShiftConv(4, 3, padding=1, use_bias=bias)
+        variables = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))
+        tm = _load_conv(tsc.ShiftConv(2, 4, 3, 1, use_bias=bias), variables)
+        assert isinstance(tm, tlayers.TorchConv)
+        with torch.inference_mode():
+            out = tm(torch.from_numpy(x))
+        np.testing.assert_allclose(out.numpy(), np.asarray(jm.apply(variables, jnp.asarray(x))),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_batch_norm_eval_and_train(dtype):
+    """The plain BatchNorm (no ReLU): eval with the running stats; train with
+    the batch stats, f32 statistics whatever the compute dtype, and the
+    running stats updated with momentum 0.1 and the unbiased variance."""
+    c = 5
+    x, s = _bn_inputs(c, seed=8)
+    jdt, tdt = (None, None) if dtype is None else (jnp.bfloat16, torch.bfloat16)
+    xin = jnp.asarray(x, jdt or jnp.float32)
+    jm = jlayers.BatchNorm(dtype=jdt)
+    variables = {"params": {"bn": {"scale": jnp.asarray(s["scale"]),
+                                   "bias": jnp.asarray(s["bias"])}},
+                 "batch_stats": {"bn": {"mean": jnp.asarray(s["mean"]),
+                                        "var": jnp.asarray(s["var"])}}}
+    tm = tlayers.BatchNorm(c, dtype=tdt)
+    tm.load_state_dict({"weight": torch.from_numpy(s["scale"]), "bias": torch.from_numpy(s["bias"]),
+                        "running_mean": torch.from_numpy(s["mean"]),
+                        "running_var": torch.from_numpy(s["var"])}, strict=True)
+    tol = 1e-5 if dtype is None else 1e-2
+    tx = torch.from_numpy(np.array(xin.astype(jnp.float32))).to(tdt or torch.float32)
+    ref = jm.apply(variables, xin, use_running_average=True)
+    with torch.inference_mode():
+        out = tm.eval()(tx)
+    assert out.dtype == (tdt or torch.float32) and out.is_contiguous()
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
+
+    ref, mut = jm.apply(variables, xin, use_running_average=False, mutable=["batch_stats"])
+    out = tm.train()(tx)
+    np.testing.assert_allclose(out.float().detach().numpy(), np.asarray(ref, np.float32),
+                               atol=tol, rtol=tol)
+    for k, leaf in (("running_mean", "mean"), ("running_var", "var")):
+        np.testing.assert_allclose(getattr(tm, k).numpy(),
+                                   np.asarray(mut["batch_stats"]["bn"][leaf]), atol=1e-5, rtol=1e-5)
+
+
+def test_global_avg_pool():
+    x = np.random.default_rng(9).standard_normal((2, 5, 7, 3)).astype(np.float32)
+    for keep in (True, False):
+        ref = np.asarray(jpool.global_avg_pool(jnp.asarray(x), keepdims=keep))
+        out = tpool.global_avg_pool(torch.from_numpy(x), keepdims=keep)
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", [((1, 1), (3, 3)), ((3, 3), (6, 6)), ((1, 1), (1, 1))])
+def test_resize_bilinear_from_one_pixel(src, dst):
+    """The CRDN carry at RM7's deepest levels (96 -> ... -> 3 -> 1 with floor
+    pooling) is resized 1 -> 3 and 3 -> 6 with align_corners."""
+    x = np.random.default_rng(10).standard_normal((2, *src, 2)).astype(np.float32)
+    ref = np.asarray(jresize.resize_bilinear(jnp.asarray(x), dst, align_corners=True))
+    out = tresize.resize_bilinear(torch.from_numpy(x), dst, align_corners=True)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=1e-6)

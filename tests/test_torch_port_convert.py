@@ -34,7 +34,7 @@ def test_state_dict_from_jax_equals_jax_export(ds):
 
 def test_state_dict_from_jax_rejects_unknown_leaf():
     with pytest.raises(KeyError, match="unrecognized"):
-        state_dict_from_jax({"params": {"x": {"gamma": np.zeros(1)}}})
+        state_dict_from_jax({"params": {"x": {"alpha": np.zeros(1)}}})
 
 
 def test_load_reference_pth_round_trip(tmp_path):
