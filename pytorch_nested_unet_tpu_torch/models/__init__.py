@@ -28,7 +28,7 @@ def arch_names():
     return sorted(_REGISTRY)
 
 
-def _get(name: str):
+def model_class(name: str):
     if name not in _REGISTRY:
         raise KeyError(f"arch {name!r} is not ported yet (ported: {arch_names()}); "
                        "see ROADMAP.md queue 1 for the order of the rest of the zoo")
@@ -40,7 +40,7 @@ def create_model(name: str, num_classes: int = 1, input_channels: int = 3,
     """Build a model with the reference trainer's constructor contract
     (reference trains.py:219-223); `kwargs` go to the model (nb_filter,
     decoder, feature_scale, ..., dtype, generator)."""
-    return _get(name)(num_classes=num_classes, input_channels=input_channels,
+    return model_class(name)(num_classes=num_classes, input_channels=input_channels,
                       deep_supervision=deep_supervision, **kwargs)
 
 
@@ -48,7 +48,7 @@ def arch_options(name: str):
     """The constructor options of `name` that arch_kwargs may set, from its
     constructor and those of the classes it passes **kwargs on to."""
     names = []
-    for cls in _get(name).__mro__:
+    for cls in model_class(name).__mro__:
         if "__init__" not in vars(cls):
             continue
         params = inspect.signature(vars(cls)["__init__"]).parameters.values()

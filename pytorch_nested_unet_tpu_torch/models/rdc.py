@@ -26,10 +26,12 @@ from ..ops.init import init_convs_
 from ..ops.layers import TorchConv
 from ..ops.pool import max_pool2x2
 from ..ops.resize import resize_bilinear
-from ..ops.small_conv import CONV_IMPLS, ShiftConv
 from .blocks import ConvBNReLU, UnetConv2
 
 DECODERS = ("LSTM", "GRU", "vanilla")
+# The JAX package's conv_impl values: how it lowers a gate conv on the TPU
+# (its ShiftConv is plain XLA, no Pallas kernel). Each is the same conv here.
+CONV_IMPLS = ("auto", "mxu", "shift")
 # each decoder's gate convs: name -> output channels in units of hidden_dim
 GATES = {"LSTM": {"lstm_catconv": 4}, "GRU": {"gru_catconv": 2, "gru_conv": 1},
          "vanilla": {"vanilla_conv": 1}}
@@ -39,9 +41,8 @@ class RDC(nn.Module):
     """Recurrent Decoding Cell over class-score maps (hidden_dim = num_classes).
 
     Every gate conv sees 2*hidden_dim channels ([h_up ++ x], or [x ++ r*h_up]
-    for the GRU's candidate). conv_impl 'shift', or 'auto' where
-    in * out channels <= 64 (the JAX package's rule), builds ShiftConvs, else
-    TorchConvs: the same conv either way.
+    for the GRU's candidate). Each is a TorchConv whatever conv_impl says
+    (validated, so configs carry over).
     """
 
     def __init__(self, hidden_dim: int, kernel_size: int = 3, use_bias: bool = True,
@@ -55,12 +56,8 @@ class RDC(nn.Module):
         self.decoder = decoder
         cin, pad = 2 * hidden_dim, kernel_size // 2
         for name, mult in GATES[decoder].items():
-            feats = mult * hidden_dim
-            if conv_impl == "shift" or (conv_impl == "auto" and cin * feats <= 64):
-                conv = ShiftConv(cin, feats, kernel_size, pad, use_bias, dtype)
-            else:
-                conv = TorchConv(cin, feats, kernel_size, pad, dtype, use_bias=use_bias)
-            setattr(self, name, conv)
+            setattr(self, name, TorchConv(cin, mult * hidden_dim, kernel_size, pad, dtype,
+                                          use_bias=use_bias))
 
     def forward(self, x_cur, h_pre, c_pre=None):
         hw = x_cur.shape[1:3]

@@ -14,7 +14,9 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..models.rdc import GATES
+from ..models import model_class
+from ..models.ghost import UNetRNNGhost
+from ..models.rdc import GATES, _UNetRNNBase
 
 # flax leaf -> torch leaf for batch-norm parameters and statistics
 _BN_LEAVES = {"scale": "weight", "bias": "bias",
@@ -53,21 +55,16 @@ _ATTR_TO_GHOST = (
     (re.compile(r"^(score_block\d)\.shortcut_pw\."), r"\1.0.shortcut.2."),
     (re.compile(r"^(score_block\d)\.shortcut_pw_bn\.bn\."), r"\1.0.shortcut.3."),
 )
-_RENAMES = {
-    "UNetRNN": _ATTR_TO_CRDN + _CENTER,
-    "UNetRNNPAttention": _ATTR_TO_CRDN + _CENTER,
-    "UNetRNNCAttention": _ATTR_TO_CRDN + _CENTER,
-    "UNetRNNAttention": _ATTR_TO_CRDN + _CENTER,
-    "UNetRM3": _ATTR_TO_CRDN,
-    "UNetRM7": _ATTR_TO_CRDN,
-    "UNetRNNGhost": _ATTR_TO_GHOST + _ATTR_TO_CRDN + _CENTER,
-}
 
-# The reference's RDC cell builds all four gate convs; its forward uses the
-# chosen decoder's only (reference finished/archs1.py:145-210). The port, as
-# the JAX package, builds the live ones (models.rdc.GATES); imports drop the
-# rest (convert.py:93-97, :169-176).
-_DEFAULT_DECODER = {"UNetRNNGhost": "vanilla"}
+
+def _renames(arch: str):
+    """The rules that take `arch`'s attribute-style keys to the reference's,
+    from its class: none outside the CRDN family."""
+    cls = model_class(arch)
+    if not issubclass(cls, _UNetRNNBase):
+        return ()
+    rules = _ATTR_TO_CRDN + (_CENTER if cls.CENTER else ())
+    return _ATTR_TO_GHOST + rules if issubclass(cls, UNetRNNGhost) else rules
 
 
 def _rename(key: str, rules) -> str:
@@ -108,7 +105,7 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
 
     walk(variables["params"], ())
     walk(variables.get("batch_stats", {}), ())
-    rules = _RENAMES.get(arch, ())
+    rules = _renames(arch)
     return {_rename(k, rules): v for k, v in out.items()}
 
 
@@ -118,8 +115,12 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
     `python convert.py --export`, or by the reference trainer) as float32
     tensors, dropping DataParallel `module.` prefixes, `num_batches_tracked`
     counters and, for the CRDN family, the gate convs of the decoders other
-    than `decoder` (default: the arch's, GRU or Ghost's vanilla). The dropped
-    gate keys are added to `dropped` when a set is given."""
+    than `decoder` (default: the arch's, GRU or Ghost's vanilla). The
+    reference's RDC cell builds all four gate convs and its forward uses the
+    chosen decoder's only (reference finished/archs1.py:145-210); the port,
+    as the JAX package, builds the live ones (models.rdc.GATES), and this
+    drops the rest (convert.py:93-97, :169-176). The dropped gate keys are
+    added to `dropped` when a set is given."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     out = {}
     for key, value in sd.items():
@@ -128,8 +129,9 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
         if key.endswith("num_batches_tracked"):
             continue
         out[key] = torch.as_tensor(value, dtype=torch.float32)
-    if arch in _RENAMES:
-        decoder = decoder or _DEFAULT_DECODER.get(arch, "GRU")
+    cls = model_class(arch)
+    if issubclass(cls, _UNetRNNBase):
+        decoder = decoder or cls.DECODER
         gates = {g for d, names in GATES.items() if d != decoder for g in names}
         dead = {k for k in out if k.startswith("RDC.") and k.split(".")[1] in gates}
         for key in dead:

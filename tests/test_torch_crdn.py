@@ -23,7 +23,6 @@ from pytorch_nested_unet_tpu.utils.torch_convert import converters_for_arch
 from pytorch_nested_unet_tpu_torch.models import create_model
 from pytorch_nested_unet_tpu_torch.models.rdc import GATES, RDC
 from pytorch_nested_unet_tpu_torch.ops.layers import TorchConv
-from pytorch_nested_unet_tpu_torch.ops.small_conv import ShiftConv
 from pytorch_nested_unet_tpu_torch.utils.convert import (load_reference_pth,
                                                          state_dict_from_jax)
 
@@ -99,18 +98,20 @@ def test_eval_forward_matches_jax(arch, hw, kw):
 @pytest.mark.parametrize("conv_impl,hidden", [("auto", 1), ("auto", 4), ("mxu", 1),
                                               ("shift", 4)])
 def test_rdc_builds_the_jax_gates(decoder, conv_impl, hidden):
-    """Only the chosen decoder's gates, each a ShiftConv where the JAX package
-    builds one ('shift', or 'auto' with in * out channels <= 64)."""
+    """Only the chosen decoder's gates, each a TorchConv whatever conv_impl
+    (the JAX package's ShiftConv, chosen by 'shift' or by 'auto' with in * out
+    channels <= 64, is the same conv); an unknown conv_impl raises."""
     cell = RDC(hidden, decoder=decoder, conv_impl=conv_impl)
     names = [n for n, _ in cell.named_children()]
     assert names == list(GATES[decoder])
     for name, mult in GATES[decoder].items():
         conv = getattr(cell, name)
-        shift = conv_impl == "shift" or (conv_impl == "auto" and 2 * hidden * mult * hidden <= 64)
-        assert isinstance(conv, ShiftConv) == shift and isinstance(conv, TorchConv)
+        assert isinstance(conv, TorchConv)
         assert tuple(conv.weight.shape) == (mult * hidden, 2 * hidden, 3, 3)
     with pytest.raises(NotImplementedError):
         RDC(1, decoder="LSTM2")
+    with pytest.raises(NotImplementedError):
+        RDC(1, conv_impl="winograd")
 
 
 @pytest.mark.parametrize("arch,count,hw", [("UNetRNN", 1_193_224, 32),

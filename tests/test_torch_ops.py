@@ -165,15 +165,14 @@ def test_torch_conv_stride_dilation_groups_bias(k, stride, pad, dil, groups, bia
 
 
 def test_shift_conv_is_the_jax_shift_conv():
+    """The JAX package's ShiftConv (conv_impl 'shift') is the port's TorchConv."""
     from pytorch_nested_unet_tpu.ops import small_conv as jsc
-    from pytorch_nested_unet_tpu_torch.ops import small_conv as tsc
 
     x = np.random.default_rng(7).standard_normal((2, 6, 7, 2)).astype(np.float32)
     for bias in (True, False):
         jm = jsc.ShiftConv(4, 3, padding=1, use_bias=bias)
         variables = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))
-        tm = _load_conv(tsc.ShiftConv(2, 4, 3, 1, use_bias=bias), variables)
-        assert isinstance(tm, tlayers.TorchConv)
+        tm = _load_conv(tlayers.TorchConv(2, 4, 3, 1, use_bias=bias), variables)
         with torch.inference_mode():
             out = tm(torch.from_numpy(x))
         np.testing.assert_allclose(out.numpy(), np.asarray(jm.apply(variables, jnp.asarray(x))),
