@@ -52,8 +52,16 @@
    the three attention variants, each at full width, 96x96, batch 2, bf16:
    one train step and one served batch with their K1-K3 and K4 launches
    counted;
-11. a JSON line of the kernels (launches over every path above), then the
-   last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+11. the CLI path (`cli_phase`): the reference protocol through the port's
+   image-folder CLIs at full width (NestedUNet wDS, batch 16, 96x96, bf16):
+   a DSB2018-sized synthetic folder (670 PNG pairs, written by the port's
+   encoder) and its decode rate, `train.main` for 2 epochs, `--resume` to a
+   3rd, `--pipeline host` for 1, `val.main` (IoU against Predictor's) and
+   `infer.main` on images of other sizes (full-res 0/255 masks, probability
+   masks against Predictor's), with exact launch counts;
+12. a JSON line of the kernels (launches over every path above; `cli`: the
+   CLI path's own), then the last line
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -208,8 +216,8 @@ def kernel_phase(df, dev):
     node_names = {n[0] for n in NODES}
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        agg = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0}
+        agg = {"max_abs_err": 0.0, "nodes_max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0}
         cases = [(n, (BATCH, s, s), cps, co) for n, s, cps, co in NODES] + RAGGED
         for name, (b, h, w), cps, co in cases:
             cin = sum(cps)
@@ -247,6 +255,7 @@ def kernel_phase(df, dev):
                   f"{plain_ms:.4f} ms | library {lib_ms:.4f} ms | bound {bound:.4g} ms "
                   f"({by}){grid}", flush=True)
             if name in node_names:  # the serving path's work: one forward
+                agg["nodes_max_abs_err"] = max(agg["nodes_max_abs_err"], err)
                 agg["ms"] += ms
                 agg["plain_ms"] += plain_ms
                 agg["library_ms"] += lib_ms
@@ -1044,6 +1053,233 @@ def arch_sweep_phase(bn, df, card):
     return total
 
 
+# cli_phase: a DSB2018-sized synthetic folder (670 images, as stage1_train),
+# its seed-41 split (536 train, 134 val), 8 more images of other sizes to serve
+CLI_IMAGES, CLI_EPOCHS = 670, 2
+CLI_SERVE_SIZES = [(120, 100), (100, 120), (80, 130), (150, 90), (96, 96), (64, 64),
+                   (101, 77), (200, 160)]
+
+
+def _tee_stdout(fn):
+    """Run fn() with its standard output both shown and kept; returns
+    (result, text)."""
+    import contextlib
+    import io
+
+    class Tee(io.StringIO):
+        def write(self, s):
+            sys.__stdout__.write(s)
+            return super().write(s)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    return result, buf.getvalue()
+
+
+def cli_phase(bn, df, card):
+    """The reference protocol through the port's CLIs on an image folder, at
+    full width (NestedUNet wDS, batch 16, 96x96, bf16): write the folder with
+    the port's encoder, time `load_all`'s decode, then `train.main` for 2
+    epochs, `--resume` to a 3rd, `--pipeline host` for 1 on a fresh name,
+    `val.main` and `infer.main` on the capsule, each checked and with its
+    launches counted against what the split implies. Returns the bf16 launch
+    counts of the path."""
+    import shutil
+
+    from pytorch_nested_unet_tpu_torch import infer, train, val
+    from pytorch_nested_unet_tpu_torch.data import image_io
+    from pytorch_nested_unet_tpu_torch.data.datasets import (
+        SegmentationFolderDataset, list_image_ids, split_ids)
+    from pytorch_nested_unet_tpu_torch.infer import Predictor
+    from pytorch_nested_unet_tpu_torch.utils.config import load_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
+                        "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    jpeg = image_io.has_jpeg()
+    codecs = "PNG (zlib) + JPEG (libjpeg)" if jpeg else "PNG (zlib) only, no JPEG"
+    print(f"cli: image library built in {time.perf_counter() - t0:.1f} s: {codecs}", flush=True)
+
+    # 1. the dataset, written with the port's own encoder
+    data_dir = os.path.join(root, "inputs")
+    base = os.path.join(data_dir, "dsb2018_96")
+    os.makedirs(os.path.join(base, "images"))
+    os.makedirs(os.path.join(base, "masks", "0"))
+    images, masks = synthetic_set(CLI_IMAGES, seed=7)
+    ids = [f"{i:04d}" for i in range(CLI_IMAGES)]
+    t0 = time.perf_counter()
+    for i, img_id in enumerate(ids):
+        image_io.write_png(os.path.join(base, "images", img_id + ".png"), images[i])
+        image_io.write_png(os.path.join(base, "masks", "0", img_id + ".png"), masks[i, ..., 0])
+    write_s = time.perf_counter() - t0
+    serve_dir = os.path.join(root, "serve")
+    os.makedirs(serve_dir)
+    extra, _ = synthetic_set(len(CLI_SERVE_SIZES), seed=8)
+    serve_paths = []
+    for i, hw in enumerate(CLI_SERVE_SIZES):
+        serve_paths.append(os.path.join(serve_dir, f"s{i}.png"))
+        image_io.write_png(serve_paths[-1], image_io.resize(extra[i], hw))
+    everything = SegmentationFolderDataset(ids, os.path.join(base, "images"),
+                                           os.path.join(base, "masks"), ".png", ".png", 1)
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got_x, got_y, _ = everything.load_all((SIZE, SIZE))
+        rates.append(CLI_IMAGES / (time.perf_counter() - t0))
+    if not (np.array_equal(got_x, images) and np.array_equal(got_y, masks)):
+        raise AssertionError("cli: the decoded folder differs from the arrays written")
+    paths = [everything.image_path(i) for i in ids]
+    one = []  # the image files alone, on one thread and on every core
+    for threads in (1, 0):
+        t0 = time.perf_counter()
+        image_io.load_batch(paths, (SIZE, SIZE), 3, num_threads=threads)
+        one.append(CLI_IMAGES / (time.perf_counter() - t0))
+    print(f"cli: wrote {CLI_IMAGES} image + mask PNG pairs at {SIZE}x{SIZE} in {write_s:.2f} s; "
+          f"load_all decodes them (images and masks, {os.cpu_count()} host cores) at "
+          f"{sorted(rates)[1]:.0f} img/s (median of 3: {[round(r) for r in rates]}), bit "
+          f"for bit what was written; the 670 image files alone: {one[0]:.0f} files/s on one "
+          f"thread, {one[1]:.0f} on {os.cpu_count()} | card: {card}", flush=True)
+
+    n_val = -(-CLI_IMAGES // 5)  # ceil(0.2 n), the seed-41 split's val set
+    steps, val_batches = (CLI_IMAGES - n_val) // BATCH, -(-n_val // BATCH)
+    out_dir = os.path.join(root, "models")
+    argv = ["--dataset", "dsb2018_96", "--data_dir", data_dir, "--output_dir", out_dir,
+            "--arch", "NestedUNet", "--deep_supervision", "true", "--precision", "bf16",
+            "--device", "cuda"]
+    name = "dsb2018_96_NestedUNet_wDS"
+    model_dir = os.path.join(out_dir, name)
+    total = {k: 0 for k in launch_counts(bn, df)}
+
+    def counted(what, fn, epochs=0, val_k4_batches=0):
+        reset_counts(bn, df)
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts(bn, df)
+        want = {k: BN_PER_STEP * steps * epochs for k in bn.LAUNCHES}
+        want["multipart_conv3x3"] = 10 * ((steps + val_batches) * epochs + val_k4_batches)
+        if counts != want:
+            raise AssertionError(f"cli {what}: launches {counts}, expected {want} ({epochs} "
+                                 f"epoch(s) of {steps} steps and {val_batches} val batches, "
+                                 f"{val_k4_batches} more batches served)")
+        for k in total:
+            total[k] += counts[k]
+        return result, wall, counts
+
+    def epoch_line(what, r, wall, counts):
+        print(f"cli {what}: {len(r['train_s'])} epoch(s) in {wall:.2f} s of wall (set-up "
+              f"included); per epoch train {[round(t, 3) for t in r['train_s']]} s "
+              f"({[round(steps * BATCH / t, 1) for t in r['train_s']]} img/s), val "
+              f"{[round(t, 3) for t in r['val_s']]} s, epoch wall "
+              f"{[round(a + b, 3) for a, b in zip(r['train_s'], r['val_s'])]} s; val_iou "
+              f"{[round(v, 4) for v in r['log']['val_iou']]} | launches {counts} | card: "
+              f"{card}", flush=True)
+
+    def log_rows():
+        with open(os.path.join(model_dir, "log.csv")) as f:
+            return list(csv.reader(f))
+
+    # 2. train
+    r, wall, counts = counted("train", lambda: train.main(argv + ["--epochs", str(CLI_EPOCHS)]),
+                              CLI_EPOCHS)
+    epoch_line("train (device pipeline)", r, wall, counts)
+    want_cfg = train.parse_args(argv + ["--epochs", str(CLI_EPOCHS)])
+    for k in train.NPY_FLAGS:
+        del want_cfg[k]
+    want_cfg["name"] = name
+    if load_config(model_dir) != want_cfg:
+        raise AssertionError(f"cli: config.yml reads back as {load_config(model_dir)}, "
+                             f"not {want_cfg}")
+    rows = log_rows()
+    if rows[0] != LOG_COLUMNS or len(rows) != 1 + CLI_EPOCHS:
+        raise AssertionError(f"cli: log.csv {rows}")
+    for f in ("model.pth", "last.pth"):
+        if not os.path.isfile(os.path.join(model_dir, f)):
+            raise AssertionError(f"cli: no {f} in {model_dir}")
+
+    # 3. resume, under the profiler: the device-busy share of a CLI epoch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r, wall, counts = counted("resume", lambda: train.main(
+            argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume", "true"]), 1)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    epoch_s = r["train_s"][0] + r["val_s"][0]
+    epoch_line("resume to epoch 3", r, wall, counts)
+    print(f"cli resume profile (profiler on): device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / (1e3 * epoch_s):.1f}% of the epoch's {epoch_s:.3f} s "
+          f"({100 * busy_ms / (1e3 * wall):.1f}% of the whole run's {wall:.2f} s)", flush=True)
+    new_rows = log_rows()
+    if new_rows[:1 + CLI_EPOCHS] != rows or len(new_rows) != 2 + CLI_EPOCHS:
+        raise AssertionError(f"cli resume: log.csv {new_rows}, earlier rows {rows}")
+
+    # 4. the host pipeline: the same launches as one device-pipeline epoch
+    r, wall, counts = counted("host pipeline", lambda: train.main(
+        argv + ["--epochs", "1", "--pipeline", "host", "--name", "host_pipeline"]), 1)
+    epoch_line("train (host pipeline)", r, wall, counts)
+
+    # 5. val, against Predictor on the same images decoded independently
+    out_ext = ".jpg" if jpeg else ".png"
+    save_dir = os.path.join(root, "outputs")
+    iou, wall, counts = counted("val", lambda: val.main(
+        ["--name", name, "--data_dir", data_dir, "--output_dir", out_dir, "--save_dir",
+         save_dir, "--out_ext", out_ext, "--device", "cuda"]), 0, val_batches)
+    _, val_ids = split_ids(list_image_ids(os.path.join(base, "images"), ".png"), 0.2, 41)
+    vx, vy, _ = SegmentationFolderDataset(val_ids, os.path.join(base, "images"),
+                                          os.path.join(base, "masks"), ".png", ".png",
+                                          1).load_all((SIZE, SIZE))
+    pth = os.path.join(model_dir, "model.pth")
+    pred = Predictor("NestedUNet", 1, 3, deep_supervision=True, precision="bf16",
+                     batch_size=BATCH, weights=pth, device="cuda")
+    num = den = 0.0
+    for s in range(0, len(vx), BATCH):
+        p = pred.predict_u8(vx[s:s + BATCH]) > 0.5
+        t = vy[s:s + BATCH].astype(np.float32) / 255.0 > 0.5
+        num += len(p) * ((p & t).sum() + 1e-5) / ((p | t).sum() + 1e-5)
+        den += len(p)
+    written = sorted(os.listdir(os.path.join(save_dir, name, "0")))
+    print(f"cli val: IoU {iou:.8f} vs {num / den:.8f} from Predictor on the same images "
+          f"(atol 1e-6); {len(written)} {out_ext} masks ({codecs}); {wall:.2f} s | launches "
+          f"{counts} | card: {card}", flush=True)
+    if abs(iou - num / den) > 1e-6 or written != sorted(i + out_ext for i in val_ids):
+        raise AssertionError(f"cli val: IoU {iou} vs {num / den}, {len(written)} masks")
+
+    # 6. infer on images of other sizes: full-res binary masks, then probabilities
+    inf_args = ["--name", name, "--input_dir", serve_dir, "--output_dir", out_dir,
+                "--device", "cuda"]
+    thr_dir, prob_dir = os.path.join(root, "infer_thr"), os.path.join(root, "infer_prob")
+    (s, text), wall, counts = counted("infer", lambda: _tee_stdout(lambda: infer.main(
+        inf_args + ["--save_dir", thr_dir, "--full_res", "true", "--threshold", "0.5"])),
+        0, 1)
+    if "img/s end-to-end" not in text or s["written"] != len(serve_paths):
+        raise AssertionError(f"cli infer: summary {s}, printed {text!r}")
+    for path, hw in zip(serve_paths, CLI_SERVE_SIZES):
+        m = image_io.load_image(os.path.join(thr_dir, name, "0", os.path.basename(path)), 1)
+        if m.shape != hw or not set(np.unique(m)) <= {0, 255}:
+            raise AssertionError(f"cli infer {path}: mask {m.shape} (want {hw}) with values "
+                                 f"{np.unique(m)[:8]}")
+    (s, _), _, more = counted("infer", lambda: _tee_stdout(lambda: infer.main(
+        inf_args + ["--save_dir", prob_dir])), 0, 1)
+    want = (pred.predict_u8(image_io.load_batch(serve_paths, (SIZE, SIZE))) * 255).astype(
+        np.uint8)
+    got = np.stack([image_io.load_image(os.path.join(prob_dir, name, "0",
+                                                     os.path.basename(p)), 1)
+                    for p in serve_paths])
+    lsb = int(np.abs(got.astype(int) - want[..., 0].astype(int)).max())
+    print(f"cli infer: {len(serve_paths)} images of {len(set(CLI_SERVE_SIZES))} sizes, "
+          f"full-res masks of the originals' sizes, only 0/255 at --threshold 0.5; "
+          f"probability masks within {lsb} LSB of uint8(255 Predictor probs) (max 1) | "
+          f"launches {counts} + {more} | card: {card}", flush=True)
+    if lsb > 1:
+        raise AssertionError(f"cli infer: probability masks {lsb} LSB from Predictor's")
+    print(f"cli path launches (bf16): {total}", flush=True)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1093,41 +1329,50 @@ def main():
     unetrnn_train = runs[-1]
     runs.append({"bf16": arch_sweep_phase(bn, df, card)})
     cpu_step_phase("UNetRNN", False, zero_bn_fed_biases=True, conv_gap=True)
+    cli = cli_phase(bn, df, card)
+    runs.append({"bf16": cli})
     # launches of each kernel per dtype over every path driven above
     launches = {name: {k: sum(r[name][k] for r in runs if name in r)
                        for k in launch_counts(bn, df)} for name in DTYPE_NAME.values()}
 
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for dtype, agg in k4.items():
         name = DTYPE_NAME[dtype]
-        kernels.append({
+        entry = {
             "name": f"multipart_conv3x3[{name}]", "route": "cuda",
             "source": "pytorch_nested_unet_tpu_torch/ops/csrc/decoder_fusion.cu",
             "replaces": "pytorch_nested_unet_tpu/ops/decoder_fusion.py:209",
             "launches": launches[name]["multipart_conv3x3"],
-            "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
-            "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
-            "bound_by": agg["bound_by"], "library_ms": agg["library_ms"]})
+            **{key: agg[key] for key in timed}}
+        if dtype == torch.bfloat16:  # the CLI path runs bf16, at the 10 nodes' shapes
+            entry["cli"] = {"launches": cli["multipart_conv3x3"],
+                            **{key: agg[key] for key in timed},
+                            "max_abs_err": agg["nodes_max_abs_err"]}
+        kernels.append(entry)
     bn_names = {"K1": ("bn_stats", "pytorch_nested_unet_tpu/ops/fused_bn.py:145"),
                 "K2": ("bn_bwd_reduce", "pytorch_nested_unet_tpu/ops/fused_bn.py:260"),
                 "K3": ("bn_bwd_dx", "pytorch_nested_unet_tpu/ops/fused_bn.py:284")}
-    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for (k, dtype, path), agg in bnk.items():
         if path != "NestedUNet":
             continue
         fn, replaces = bn_names[k]
-        kernels.append({
+        entry = {
             "name": f"{fn}[{DTYPE_NAME[dtype]}]", "route": "cuda",
             "source": "pytorch_nested_unet_tpu_torch/ops/csrc/fused_bn.cu",
             "replaces": replaces, "launches": launches[DTYPE_NAME[dtype]][fn],
             **{key: agg[key] for key in timed},
             "unetrnn_step": {"launches": unetrnn_train[DTYPE_NAME[dtype]][fn],
-                             **{key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}}})
+                             **{key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}}}
+        if dtype == torch.bfloat16:  # the CLI path: NestedUNet's training-step shapes
+            entry["cli"] = {"launches": cli[fn], **{key: agg[key] for key in timed}}
+        kernels.append(entry)
     print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 NestedUNet "
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
-          "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit); "
+          "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
+          "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase); "
           "max_abs_err: over the path's own shapes; launches: over every path driven "
-          "(NestedUNet and UNetRNN serving and training, the arch sweep); card:")
+          "(NestedUNet and UNetRNN serving and training, the arch sweep, the CLIs); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

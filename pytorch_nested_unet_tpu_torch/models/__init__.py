@@ -9,6 +9,7 @@ variants); the rest of the zoo is queued family by family in ROADMAP.md
 import inspect
 import json
 
+import torch
 import torch.nn as nn
 
 from .dual_attention import UNetRNNAttention, UNetRNNCAttention, UNetRNNPAttention
@@ -20,6 +21,8 @@ from .unet import UNet
 _REGISTRY = {cls.__name__: cls for cls in (
     UNet, NestedUNet, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
     UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention)}
+# --precision: the conv compute dtype (parameters are always float32)
+PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 # constructor arguments that create_model and the entry points set themselves
 _SET_BY_CALLER = ("num_classes", "input_channels", "deep_supervision", "dtype", "generator")
 

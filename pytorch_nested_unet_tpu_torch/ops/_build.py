@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
 Each `csrc/<name>.cu` is one shared library with a plain C interface (no
-PyTorch headers, so it builds in seconds). Libraries go to `_build/` in the
-package, named by a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing is built when the
-package is imported: a kernel's wrapper calls `load()` when it first launches.
+PyTorch headers, so it builds in seconds), compiled by nvcc. Host-only C++
+sources (the image codec, data/csrc/image_io.cpp) are compiled by g++ through
+`load_host`. Libraries go to `_build/` in the package, named by a hash of the
+source and flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is. Nothing is built when the package is imported: a kernel's wrapper
+calls `load()` when it first launches, the image codec when it is first used.
 """
 
 import ctypes
@@ -19,6 +21,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
                          "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off", "-pthread")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -35,10 +39,15 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built on this host")
 
 
+def _out_path(src: str, flags) -> str:
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return _out_path(os.path.join(CSRC, name + ".cu"), NVCC_FLAGS)
 
 
 def build_all(names: Iterable[str] = None) -> Dict[str, str]:
@@ -81,3 +90,36 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(_lib_path(name))
     return lib
+
+
+def load_host(src: str, flags=()) -> ctypes.CDLL:
+    """The library g++ builds from the C++ source `src` with `flags` (defines
+    and -l libraries), built first if needed; a failed build raises with the
+    compiler's output."""
+    flags = (*GXX_FLAGS, *flags)
+    out = _out_path(src, flags)
+    lib = _LIBS.get(out)
+    if lib is not None:
+        return lib
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        defines = [f for f in flags if not f.startswith("-l")]
+        libs = [f for f in flags if f.startswith("-l")]
+        proc = subprocess.run(["g++", *defines, "-o", tmp, src, *libs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {os.path.basename(src)} (exit "
+                               f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    lib = _LIBS[out] = ctypes.CDLL(out)
+    return lib
+
+
+def gxx_finds_header(header: str) -> bool:
+    """Whether g++ finds `<header>` on its include path (after <cstdio>,
+    which C headers such as jpeglib.h need first)."""
+    proc = subprocess.run(["g++", "-E", "-x", "c++", "-", "-o", os.devnull],
+                          input=f"#include <cstdio>\n#include <{header}>\n",
+                          capture_output=True, text=True)
+    return proc.returncode == 0

@@ -1,33 +1,54 @@
-"""Training entry point of the port (counterpart of the epoch loop of train.py
-at the repo root, :474-765).
+"""Training entry point of the port (counterpart of train.py at the repo root).
+
+From an image folder, as the reference protocol runs it:
+
+    python -m pytorch_nested_unet_tpu_torch.train --dataset dsb2018_96 \
+        --arch NestedUNet --deep_supervision true [--data_dir inputs] \
+        [--output_dir models] [--epochs 100] [-b 16] [--input_w 96 --input_h 96] \
+        [--precision bf16] [--pipeline device|host|auto] [--resume true] \
+        [--init_from CAPSULE] [--device cuda]
+
+reads <data_dir>/<dataset>/ in the generic (images/, masks/<c>/) or ISIC
+(--dataset_layout isic) layout, trains on the seed-41 80/20 split (or on
+train/ and validates on test/ when train/ exists), and writes the capsule
+models/<dataset>_<arch>_{w,wo}DS/: config.yml before training, then per epoch
+a row of log.csv, model.pth whenever the validation IoU improves, and
+last.pth. `--resume true` continues from last.pth (epoch + 1, the earlier
+log rows kept; the shuffle and augmentation generators are re-seeded from
+--seed, as the JAX package does, so a resumed run is not bit-identical to an
+uninterrupted one). `--init_from` starts from another capsule's model.pth
+with a fresh optimizer. SIGTERM or SIGINT finishes the epoch, writes
+last.pth and exits 0.
+
+From arrays already at the training size (`fit`):
 
     python -m pytorch_nested_unet_tpu_torch.train \
         --train_images tr_x.npy --train_masks tr_y.npy \
-        --val_images va_x.npy --val_masks va_y.npy \
-        --arch NestedUNet --deep_supervision true [--epochs 100] [-b 16] \
-        [--precision bf16] [--augment full] [--device cuda]
-    ... --arch UNetRNN --arch_kwargs '{"decoder": "LSTM"}'
+        --val_images va_x.npy --val_masks va_y.npy [--arch ...] ...
+
+Images are (N,H,W,3) uint8 and masks (N,H,W,num_classes) uint8.
 
 `--arch` takes any registered arch (the UNet and CRDN families, see
 `models.arch_names()`); `--arch_kwargs` is a JSON object of its constructor
-options (feature_scale, decoder, nb_filter, ...), checked against them.
-
-Images are (N,H,W,3) uint8 and masks (N,H,W,num_classes) uint8 `.npy` files,
-already at the training size; both sets live on the device for the whole run.
-Each epoch sets the learning rate from the schedule, trains on shuffled
-drop_last batches, validates on every image (the short last batch padded and
-weighted), steps ReduceLROnPlateau with the validation loss, appends a row to
-`<output_dir>/<name>/log.csv` with the JAX trainer's columns, and writes
-`model.pth` in the reference key layout whenever the validation IoU improves.
-That file loads into `infer.Predictor(weights=...)` and into the JAX package's
-`converters_for_arch(arch)[0]`, for every registered arch. The seed-41 split
-of an image folder, image decoding, `config.yml`, resume, meshes, remat and
-profiling wait for later slices (ROADMAP.md queue 1).
+options, checked against them. `--pipeline device` (default) keeps the uint8
+set on the device and gathers each batch there; `host` decodes each batch from
+the files on a background thread. Each epoch sets the learning rate from the
+schedule, trains on shuffled drop_last batches, validates on every image (the
+short last batch padded and weighted) and steps ReduceLROnPlateau with the
+validation loss. model.pth loads into `infer.Predictor(weights=...)` and into
+the JAX package (`convert.py --pth`). The JAX CLI's --mesh and
+--spatial_partition, --remat, --fused_bn(_mode) (the port's BN always runs
+its CUDA kernels), --profile, --checkpoint_backend, --platform,
+--pretrained_backbone, --refine and --artifact are not ported (ROADMAP.md
+queue 1); argparse rejects them.
 """
 
 import argparse
 import csv
+import inspect
 import os
+import signal
+import sys
 import time
 from typing import Mapping, Optional
 
@@ -35,18 +56,22 @@ import numpy as np
 import torch
 
 from .data.augment import parse_augment_spec
-from .infer import _str2bool
-from .data.pipeline import epoch_batches
+from .data.datasets import DATASET_CLASSES, dirs_for, list_image_ids, split_ids
+from .data.pipeline import DeviceDataStore, HostPrefetchLoader, epoch_batches, resolve_pipeline
 from .losses import LOSS_NAMES
-from .models import arch_names, create_model, parse_arch_kwargs
-from .training.loop import make_epoch_evaluator, make_epoch_runner
+from .models import PRECISIONS, arch_names, create_model, parse_arch_kwargs
+from .training import checkpoint
+from .training.loop import (make_epoch_evaluator, make_epoch_runner, make_eval_step,
+                            make_train_step, stack_metrics)
 from .training.optim import (LRSchedule, build_optimizer, nonfinite_count,
                              params_all_finite, set_learning_rate)
+from .utils.config import save_config, str2bool
+from .utils.convert import load_reference_pth
 from .utils.device import resolve_device
 from .utils.meters import AverageMeter
 
-PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 SCHEDULERS = ("CosineAnnealingLR", "ReduceLROnPlateau", "MultiStepLR", "ConstantLR")
+NPY_FLAGS = ("train_images", "train_masks", "val_images", "val_masks")
 
 
 def _check_set(images, masks, what):
@@ -58,6 +83,161 @@ def _check_set(images, masks, what):
                          f"N,H,W, got {images.dtype} {images.shape} and "
                          f"{masks.dtype} {masks.shape}")
     return images, masks
+
+
+def _log_cols(log_acc: bool):
+    if log_acc:  # column layout of trainISIC_wAcc.py:331-368
+        return ["epoch", "lr", "loss", "iou", "acc", "val_loss", "val_iou", "val_acc"]
+    return ["epoch", "lr", "loss", "iou", "val_loss", "val_iou"]
+
+
+def _write_log(log_path, log, cols):
+    """log.csv with floats at 10 significant digits: pandas' default parser
+    (the JAX package's --resume reads the log with it) reads longer decimal
+    strings up to an ulp away from Python's float(), which csv readers
+    (its plot.py, the port's --resume) use; at 10 digits both read the same
+    value."""
+    with open(log_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        for row in zip(*(log[k] for k in cols)):
+            w.writerow([v if isinstance(v, int) else f"{v:.10g}" for v in row])
+
+
+def _valid_weights(valid_list, batch_size):
+    return np.stack([(np.arange(batch_size) < v).astype(np.float32) for v in valid_list])
+
+
+class _DeviceFeed:
+    """Epochs over uint8 sets on the device: each batch is gathered there."""
+
+    def __init__(self, model, opt, loss, deep_supervision, augment, train_store, val_store,
+                 batch_size, dev):
+        self.run_epoch = make_epoch_runner(model, opt, loss, deep_supervision, augment=augment)
+        self.eval_epoch = make_epoch_evaluator(model, loss, deep_supervision)
+        self.train_store, self.val_store = train_store, val_store
+        self.batch_size, self.dev = batch_size, dev
+
+    def train(self, data_rng, generator):
+        batches = np.stack([idx for idx, _ in epoch_batches(
+            len(self.train_store), self.batch_size, data_rng, shuffle=True, drop_last=True)])
+        return self.run_epoch(self.train_store.images, self.train_store.masks,
+                              torch.from_numpy(batches).to(self.dev), generator)
+
+    def val(self, data_rng):
+        idx_list, valid_list = zip(*epoch_batches(len(self.val_store), self.batch_size,
+                                                  data_rng, shuffle=False, drop_last=False))
+        metrics = self.eval_epoch(
+            self.val_store.images, self.val_store.masks,
+            torch.from_numpy(np.stack(idx_list)).to(self.dev),
+            torch.from_numpy(_valid_weights(valid_list, self.batch_size)).to(self.dev))
+        return metrics, valid_list
+
+
+class _HostFeed:
+    """Epochs over batches decoded from the files by HostPrefetchLoaders."""
+
+    def __init__(self, model, opt, loss, deep_supervision, augment, train_loader,
+                 val_loader, batch_size, dev):
+        self.step = make_train_step(model, opt, loss, deep_supervision, augment)
+        self.eval_step = make_eval_step(model, loss, deep_supervision)
+        self.train_loader, self.val_loader = train_loader, val_loader
+        self.batch_size, self.dev = batch_size, dev
+
+    def train(self, data_rng, generator):
+        # the loader draws the epoch's order from the same data_rng
+        return stack_metrics([self.step(torch.from_numpy(imgs).to(self.dev),
+                                      torch.from_numpy(msks).to(self.dev), generator)
+                            for imgs, msks, _ in self.train_loader])
+
+    def val(self, data_rng):
+        per_step, valid_list = [], []
+        for imgs, msks, valid in self.val_loader:
+            w = torch.from_numpy(_valid_weights([valid], self.batch_size)[0]).to(self.dev)
+            per_step.append(self.eval_step(torch.from_numpy(imgs).to(self.dev),
+                                           torch.from_numpy(msks).to(self.dev), w))
+            valid_list.append(valid)
+        return stack_metrics(per_step), valid_list
+
+
+def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols,
+            data_rng, generator, early_stopping=-1, skip_nonfinite=0, start_epoch=0,
+            best_iou=0.0, trigger=0, stop_requested=lambda: False) -> dict:
+    """The epoch loop shared by `fit` and the folder CLI: train, validate,
+    step the plateau schedule, append to log.csv, write model.pth on a better
+    validation IoU and last.pth after every epoch."""
+    log_path = os.path.join(model_dir, "log.csv")
+    train_s, val_s = [], []
+    guard = bool(skip_nonfinite)
+    for epoch in range(start_epoch, epochs):
+        lr_now = sched.epoch_lr(epoch)
+        set_learning_rate(opt, lr_now)
+
+        # ---- train ----
+        t0 = time.perf_counter()
+        metrics = {k: v.cpu().numpy() for k, v in feed.train(data_rng, generator).items()}
+        train_s.append(time.perf_counter() - t0)
+        tr = {k: AverageMeter() for k in ("loss", "iou", "acc")}
+        bad_steps = 0
+        for s in range(len(metrics["loss"])):
+            if guard and not np.isfinite(metrics["loss"][s]):
+                bad_steps += 1  # update skipped on the device; keep it out of the meters
+                continue
+            for k in tr:
+                tr[k].update(metrics[k][s], batch_size)
+        if tr["loss"].count == 0 or not np.isfinite(tr["loss"].avg):
+            skipped = nonfinite_count(opt)
+            detail = f" after {skipped} skipped update(s)" if skipped else ""
+            raise RuntimeError(f"non-finite training loss at epoch {epoch}{detail}; "
+                               "aborting without saving")
+        if bad_steps:
+            print(f"failure detection: {bad_steps} step(s) with non-finite loss this "
+                  f"epoch; {nonfinite_count(opt)} update(s) skipped since start")
+        if guard and not params_all_finite(model.parameters()):
+            raise RuntimeError(f"non-finite parameters at epoch {epoch}: the "
+                               f"--skip_nonfinite tolerance was exhausted "
+                               f"({nonfinite_count(opt)} update(s) skipped); aborting "
+                               "without saving")
+
+        # ---- validate ----
+        t1 = time.perf_counter()
+        vm, valid_list = feed.val(data_rng)
+        vm = {k: v.cpu().numpy() for k, v in vm.items()}
+        val_s.append(time.perf_counter() - t1)
+        va = {k: AverageMeter() for k in ("loss", "iou", "acc")}
+        for s, valid in enumerate(valid_list):
+            for k in va:
+                va[k].update(vm[k][s], valid)
+        sched.plateau_step(va["loss"].avg)
+
+        print(f"epoch [{epoch}/{epochs}] loss {tr['loss'].avg:.4f} - iou {tr['iou'].avg:.4f} "
+              f"- val_loss {va['loss'].avg:.4f} - val_iou {va['iou'].avg:.4f} "
+              f"({train_s[-1] + val_s[-1]:.1f}s, "
+              f"{tr['loss'].count / max(train_s[-1], 1e-9):.1f} img/s train)", flush=True)
+        row = {"epoch": epoch, "lr": lr_now, "loss": tr["loss"].avg, "iou": tr["iou"].avg,
+               "acc": tr["acc"].avg, "val_loss": va["loss"].avg, "val_iou": va["iou"].avg,
+               "val_acc": va["acc"].avg}
+        for k in cols:
+            log[k].append(row[k])
+        _write_log(log_path, log, cols)
+
+        trigger += 1
+        if va["iou"].avg > best_iou:
+            checkpoint.save_model(model_dir, model)
+            print("=> saved best model")
+            best_iou = va["iou"].avg
+            trigger = 0
+        checkpoint.save_training_state(model_dir, model, opt, epoch, best_iou, trigger)
+        if 0 <= early_stopping <= trigger:
+            print("=> early stopping")
+            break
+        if stop_requested():
+            print(f"=> stopped by a signal at epoch {epoch}; continue with --resume true")
+            break
+
+    print(f"best val iou: {best_iou:.4f}")
+    return {"best_iou": best_iou, "log": log, "model_dir": model_dir, "model": model,
+            "train_s": train_s, "val_s": val_s}
 
 
 def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
@@ -98,108 +278,177 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     os.makedirs(model_dir, exist_ok=True)
     model = create_model(arch, num_classes, input_channels, deep_supervision,
                          dtype=PRECISIONS[precision],
-                         generator=torch.Generator().manual_seed(seed),
-                         **arch_kwargs)
+                         generator=torch.Generator().manual_seed(seed), **arch_kwargs)
     model = model.to(dev).train()
     opt = build_optimizer(model.parameters(), optimizer, lr, momentum, weight_decay, nesterov,
                           skip_nonfinite, accum_steps)
     sched = LRSchedule(scheduler, lr, epochs, min_lr, factor, patience, milestones, gamma)
-    run_epoch = make_epoch_runner(model, opt, loss, deep_supervision, augment=ops)
-    eval_epoch = make_epoch_evaluator(model, loss, deep_supervision)
+    feed = _DeviceFeed(model, opt, loss, deep_supervision, ops,
+                       DeviceDataStore(tr_x, tr_y, dev), DeviceDataStore(va_x, va_y, dev),
+                       batch_size, dev)
+    cols = _log_cols(log_acc)
+    return _epochs(model, opt, sched, feed, model_dir=model_dir, epochs=epochs,
+                   batch_size=batch_size, log={k: [] for k in cols}, cols=cols,
+                   data_rng=np.random.default_rng(seed),
+                   generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                   early_stopping=early_stopping, skip_nonfinite=skip_nonfinite)
 
-    tr_x, tr_y = torch.from_numpy(tr_x).to(dev), torch.from_numpy(tr_y).to(dev)
-    va_x, va_y = torch.from_numpy(va_x).to(dev), torch.from_numpy(va_y).to(dev)
-    data_rng = np.random.default_rng(seed)
-    generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    cols = ["epoch", "lr", "loss", "iou", "val_loss", "val_iou"]
-    if log_acc:  # column layout of trainISIC_wAcc.py:331-368
-        cols = ["epoch", "lr", "loss", "iou", "acc", "val_loss", "val_iou", "val_acc"]
+def build_datasets(config):
+    """(train, val) datasets: the physical train/ + test/ dirs when train/
+    exists (reference train_ISIC.py:268-280), else the seed-41 80/20 split of
+    one pool (reference trains.py:252-255)."""
+    base = os.path.join(config["data_dir"], config["dataset"])
+    ds_cls = DATASET_CLASSES[config["dataset_layout"]]
+
+    def mk(ids, img_dir, mask_dir):
+        return ds_cls(ids, img_dir, mask_dir, config["img_ext"], config["mask_ext"],
+                      config["num_classes"])
+
+    if os.path.isdir(os.path.join(base, "train")):
+        tr_img, tr_mask = dirs_for(os.path.join(base, "train"), config["dataset_layout"])
+        va_img, va_mask = dirs_for(os.path.join(base, "test"), config["dataset_layout"])
+        train_ids = list_image_ids(tr_img, config["img_ext"])
+        if not train_ids:
+            sys.exit(f"no images found under {tr_img} (*{config['img_ext']})")
+        return (mk(train_ids, tr_img, tr_mask),
+                mk(list_image_ids(va_img, config["img_ext"]), va_img, va_mask))
+    img_dir, mask_dir = dirs_for(base, config["dataset_layout"])
+    img_ids = list_image_ids(img_dir, config["img_ext"])
+    if not img_ids:
+        sys.exit(f"no images found under {img_dir} (*{config['img_ext']})")
+    train_ids, val_ids = split_ids(img_ids, 0.2, 41)
+    return mk(train_ids, img_dir, mask_dir), mk(val_ids, img_dir, mask_dir)
+
+
+def _init_from(model, config):
+    """--init_from: load another capsule's model.pth, exiting on a mismatch."""
+    src = config["init_from"]
+    if not os.path.isdir(src):
+        src = os.path.join(config["output_dir"], src)
+    pth = os.path.join(src, "model.pth")
+    if not os.path.isfile(pth):
+        sys.exit(f"--init_from: no model.pth under {src}")
+    sd = load_reference_pth(pth, config["arch"], getattr(model, "decoder", None))
+    own = model.state_dict()
+    missing, unexpected = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+    if missing or unexpected:
+        sys.exit(f"--init_from: {src} does not match arch {config['arch']} (missing "
+                 f"{missing[:3]}, unexpected {unexpected[:3]})")
+    wrong = [f"{k}: capsule {tuple(sd[k].shape)} vs model {tuple(own[k].shape)}"
+             for k in own if tuple(sd[k].shape) != tuple(own[k].shape)]
+    if wrong:
+        sys.exit(f"--init_from: {src} does not match arch {config['arch']} "
+                 f"(num_classes/input_channels/arch_kwargs differ): " + "; ".join(wrong[:3]))
+    model.load_state_dict(sd, strict=True)
+    print(f"initialized weights from {src} (fresh optimizer state)")
+
+
+def _read_log(log_path, cols, rows):
+    """The first `rows` rows of a log.csv, as the epoch loop keeps them."""
     log = {k: [] for k in cols}
+    with open(log_path, newline="") as f:
+        for i, rec in enumerate(csv.DictReader(f)):
+            if i >= rows:
+                break
+            for k in cols:
+                log[k].append(int(rec[k]) if k == "epoch" else float(rec[k]))
+    return log
+
+
+def train_folder(config: dict) -> dict:
+    """The folder CLI's run (train.py:328-765 of the JAX package): see the
+    module docstring. `config` is parse_args' dict."""
+    if config["name"] is None:
+        tag = "wDS" if config["deep_supervision"] else "woDS"
+        config["name"] = f"{config['dataset']}_{config['arch']}_{tag}"
+    model_dir = os.path.join(config["output_dir"], config["name"])
+    os.makedirs(model_dir, exist_ok=True)
+    print("-" * 20)
+    for k in sorted(config):
+        print(f"{k}: {config[k]}")
+    print("-" * 20)
+    save_config(config, model_dir)
+
+    dev = resolve_device(config["device"])
+    size_hw = (config["input_h"], config["input_w"])
+    bs = config["batch_size"]
+    model = checkpoint.build_from_config(
+        config, generator=torch.Generator().manual_seed(config["seed"]))
+    train_ds, val_ds = build_datasets(config)
+    print(f"train {len(train_ds)} / val {len(val_ds)} images")
+    if len(train_ds) < bs:
+        sys.exit(f"batch_size {bs} exceeds the {len(train_ds)}-image training set (drop_last)")
+    if len(val_ds) == 0:
+        sys.exit("the validation set is empty")
+    print(f"arch {config['arch']}: {sum(p.numel() for p in model.parameters()):,} params")
+    if config["init_from"]:
+        _init_from(model, config)
+    model = model.to(dev).train()
+
+    opt = build_optimizer(model.parameters(), config["optimizer"], config["lr"],
+                          config["momentum"], config["weight_decay"], config["nesterov"],
+                          config["skip_nonfinite"], config["accum_steps"])
+    sched = LRSchedule(config["scheduler"], config["lr"], config["epochs"], config["min_lr"],
+                       config["factor"], config["patience"],
+                       [int(e) for e in str(config["milestones"]).split(",")], config["gamma"])
+    start_epoch, best_iou, trigger = 0, 0.0, 0
+    if config["resume"]:
+        try:
+            restored = checkpoint.load_training_state(model_dir, model, opt)
+        except ValueError as e:
+            sys.exit(f"--resume: {e}")
+        if restored:
+            start_epoch, best_iou, trigger = restored
+            start_epoch += 1
+            print(f"resumed from epoch {start_epoch - 1} (best iou {best_iou:.4f})")
+    cols = _log_cols(config["log_acc"])
     log_path = os.path.join(model_dir, "log.csv")
-    best_iou, trigger = 0.0, 0
-    train_s, val_s = [], []
-    guard = bool(skip_nonfinite)
+    log = {k: [] for k in cols}
+    if config["resume"] and os.path.exists(log_path):
+        log = _read_log(log_path, cols, start_epoch)
 
-    for epoch in range(epochs):
-        lr_now = sched.epoch_lr(epoch)
-        set_learning_rate(opt, lr_now)
-
-        # ---- train ----
+    # re-seeded from --seed on resume as well (the JAX CLI does the same)
+    data_rng = np.random.default_rng(config["seed"])
+    generator = torch.Generator(device=dev).manual_seed(config["seed"] + 1)
+    ops = parse_augment_spec(config["augment"])
+    if resolve_pipeline(config, len(train_ds) + len(val_ds), dev) == "host":
+        feed = _HostFeed(model, opt, config["loss"], config["deep_supervision"], ops,
+                         HostPrefetchLoader(train_ds, bs, size_hw, True, True, rng=data_rng),
+                         HostPrefetchLoader(val_ds, bs, size_hw, False, False, rng=data_rng),
+                         bs, dev)
+    else:
         t0 = time.perf_counter()
-        batches = np.stack([idx for idx, _ in epoch_batches(
-            len(tr_x), batch_size, data_rng, shuffle=True, drop_last=True)])
-        metrics = run_epoch(tr_x, tr_y, torch.from_numpy(batches).to(dev), generator)
-        metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
-        train_s.append(time.perf_counter() - t0)
-        tr = {k: AverageMeter() for k in ("loss", "iou", "acc")}
-        bad_steps = 0
-        for s in range(len(batches)):
-            if guard and not np.isfinite(metrics["loss"][s]):
-                bad_steps += 1  # update skipped on the device; keep it out of the meters
-                continue
-            for k in tr:
-                tr[k].update(metrics[k][s], batch_size)
-        if tr["loss"].count == 0 or not np.isfinite(tr["loss"].avg):
-            skipped = nonfinite_count(opt)
-            detail = f" after {skipped} skipped update(s)" if skipped else ""
-            raise RuntimeError(f"non-finite training loss at epoch {epoch}{detail}; "
-                               "aborting without saving")
-        if bad_steps:
-            print(f"failure detection: {bad_steps} step(s) with non-finite loss this "
-                  f"epoch; {nonfinite_count(opt)} update(s) skipped since start")
-        if guard and not params_all_finite(model.parameters()):
-            raise RuntimeError(f"non-finite parameters at epoch {epoch}: the "
-                               f"--skip_nonfinite tolerance was exhausted "
-                               f"({nonfinite_count(opt)} update(s) skipped); aborting "
-                               "without saving")
+        stores = [DeviceDataStore(*ds.load_all(size_hw)[:2], dev) for ds in (train_ds, val_ds)]
+        n = len(train_ds) + len(val_ds)
+        print(f"decoded {n} images at {size_hw[0]}x{size_hw[1]} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        feed = _DeviceFeed(model, opt, config["loss"], config["deep_supervision"], ops,
+                           stores[0], stores[1], bs, dev)
 
-        # ---- validate ----
-        t1 = time.perf_counter()
-        idx_list, valid_list = zip(*epoch_batches(len(va_x), batch_size, data_rng,
-                                                  shuffle=False, drop_last=False))
-        valid_w = np.stack([(np.arange(batch_size) < v).astype(np.float32)
-                            for v in valid_list])
-        vm = eval_epoch(va_x, va_y, torch.from_numpy(np.stack(idx_list)).to(dev),
-                        torch.from_numpy(valid_w).to(dev))
-        vm = {k: v.cpu().numpy() for k, v in vm.items()}
-        val_s.append(time.perf_counter() - t1)
-        va = {k: AverageMeter() for k in ("loss", "iou", "acc")}
-        for s, valid in enumerate(valid_list):
-            for k in va:
-                va[k].update(vm[k][s], valid)
-        sched.plateau_step(va["loss"].avg)
+    # finish the epoch, write last.pth and exit 0 on SIGTERM / SIGINT
+    stop = {"flag": False}
 
-        print(f"epoch [{epoch}/{epochs}] loss {tr['loss'].avg:.4f} - iou {tr['iou'].avg:.4f} "
-              f"- val_loss {va['loss'].avg:.4f} - val_iou {va['iou'].avg:.4f} "
-              f"({train_s[-1] + val_s[-1]:.1f}s, "
-              f"{tr['loss'].count / max(train_s[-1], 1e-9):.1f} img/s train)", flush=True)
-        row = {"epoch": epoch, "lr": lr_now, "loss": tr["loss"].avg, "iou": tr["iou"].avg,
-               "acc": tr["acc"].avg, "val_loss": va["loss"].avg, "val_iou": va["iou"].avg,
-               "val_acc": va["acc"].avg}
-        for k in cols:
-            log[k].append(row[k])
-        with open(log_path, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(cols)
-            w.writerows(zip(*(log[k] for k in cols)))
+    def _on_signal(signum, frame):
+        print(f"signal {signum}: finishing the epoch, writing last.pth, then exiting")
+        stop["flag"] = True
 
-        trigger += 1
-        if va["iou"].avg > best_iou:
-            # the reference key layout, float32, on the CPU
-            torch.save({k: v.detach().to("cpu", torch.float32)
-                        for k, v in model.state_dict().items()},
-                       os.path.join(model_dir, "model.pth"))
-            print("=> saved best model")
-            best_iou = va["iou"].avg
-            trigger = 0
-        if 0 <= early_stopping <= trigger:
-            print("=> early stopping")
-            break
-
-    print(f"best val iou: {best_iou:.4f}")
-    return {"best_iou": best_iou, "log": log, "model_dir": model_dir, "model": model,
-            "train_s": train_s, "val_s": val_s}
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, _on_signal)
+        except ValueError:  # not the main thread
+            pass
+    try:
+        return _epochs(model, opt, sched, feed, model_dir=model_dir, epochs=config["epochs"],
+                       batch_size=bs, log=log, cols=cols, data_rng=data_rng,
+                       generator=generator, early_stopping=config["early_stopping"],
+                       skip_nonfinite=config["skip_nonfinite"], start_epoch=start_epoch,
+                       best_iou=best_iou, trigger=trigger,
+                       stop_requested=lambda: stop["flag"])
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
 
 
 def _augment_spec(v):
@@ -209,27 +458,29 @@ def _augment_spec(v):
 
 def parse_args(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--train_images", required=True, help="(N,H,W,3) uint8 .npy")
-    p.add_argument("--train_masks", required=True, help="(N,H,W,num_classes) uint8 .npy")
-    p.add_argument("--val_images", required=True)
-    p.add_argument("--val_masks", required=True)
-    p.add_argument("--name", default=None, help="run name (default: <arch>_{w,wo}DS)")
-    p.add_argument("--output_dir", default="models")
+    p.add_argument("--name", default=None,
+                   help="run name (default: <dataset>_<arch>_{w,wo}DS; from arrays "
+                        "<arch>_{w,wo}DS)")
     p.add_argument("--epochs", default=100, type=int)
     p.add_argument("-b", "--batch_size", default=16, type=int)
     p.add_argument("--arch", "-a", default="NestedUNet", choices=arch_names())
     p.add_argument("--arch_kwargs", default=None,
                    help="JSON object of the arch's constructor options, e.g. "
                         "'{\"decoder\": \"LSTM\", \"feature_scale\": 8}'")
-    p.add_argument("--deep_supervision", default=False, type=_str2bool)
+    p.add_argument("--deep_supervision", default=False, type=str2bool)
     p.add_argument("--input_channels", default=3, type=int)
     p.add_argument("--num_classes", default=1, type=int)
+    p.add_argument("--input_w", default=96, type=int)
+    p.add_argument("--input_h", default=96, type=int)
     p.add_argument("--loss", default="BCEDiceLoss", choices=LOSS_NAMES)
+    p.add_argument("--dataset", default="dsb2018_96")
+    p.add_argument("--img_ext", default=".png")
+    p.add_argument("--mask_ext", default=".png")
     p.add_argument("--optimizer", default="SGD", choices=["Adam", "SGD"])
     p.add_argument("--lr", "--learning_rate", default=1e-3, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight_decay", default=1e-4, type=float)
-    p.add_argument("--nesterov", default=False, type=_str2bool)
+    p.add_argument("--nesterov", default=False, type=str2bool)
     p.add_argument("--scheduler", default="CosineAnnealingLR", choices=SCHEDULERS)
     p.add_argument("--min_lr", default=1e-5, type=float)
     p.add_argument("--factor", default=0.1, type=float)
@@ -237,30 +488,50 @@ def parse_args(argv=None) -> dict:
     p.add_argument("--milestones", default="1,2", type=str)
     p.add_argument("--gamma", default=2 / 3, type=float)
     p.add_argument("--early_stopping", default=-1, type=int)
+    p.add_argument("--num_workers", default=4, type=int,
+                   help="kept for flag parity; the pipelines have no worker processes")
+    p.add_argument("--data_dir", default="inputs")
+    p.add_argument("--output_dir", default="models")
     p.add_argument("--precision", default="bf16", choices=sorted(PRECISIONS),
                    help="conv compute dtype (parameters always float32)")
     p.add_argument("--seed", default=41, type=int)
+    p.add_argument("--resume", default=False, type=str2bool,
+                   help="continue from models/<name>/last.pth")
+    p.add_argument("--dataset_layout", default="generic", choices=sorted(DATASET_CLASSES))
     p.add_argument("--augment", default="full", type=_augment_spec,
                    help="'full', 'none' or a comma list of rot90,flip,hsv,brightness,contrast")
-    p.add_argument("--log_acc", default=False, type=_str2bool)
+    p.add_argument("--log_acc", default=False, type=str2bool)
+    p.add_argument("--pipeline", default="device", choices=["device", "host", "auto"],
+                   help="'device' keeps the uint8 set on the device, 'host' decodes each "
+                        "batch on a background thread, 'auto' picks by the set's size "
+                        "against device memory")
     p.add_argument("--skip_nonfinite", default=0, type=int)
     p.add_argument("--accum_steps", default=1, type=int)
+    p.add_argument("--init_from", default=None, metavar="CAPSULE",
+                   help="start from models/<CAPSULE>/model.pth (a name under --output_dir "
+                        "or a directory), with a fresh optimizer")
     p.add_argument("--device", default="cuda")
+    for flag in NPY_FLAGS:
+        p.add_argument(f"--{flag}", default=None,
+                       help="train from .npy arrays instead of a folder (all four flags)")
     return vars(p.parse_args(argv))
 
 
 def main(argv=None) -> dict:
     config = parse_args(argv)
+    npy = [config.pop(k) for k in NPY_FLAGS]
+    if not any(npy):
+        return train_folder(config)
+    if not all(npy):
+        sys.exit(f"training from arrays needs all of --{', --'.join(NPY_FLAGS)}")
     if config["name"] is None:
         config["name"] = f"{config['arch']}_{'wDS' if config['deep_supervision'] else 'woDS'}"
     print("-" * 20)
     for k in sorted(config):
         print(f"{k}: {config[k]}")
     print("-" * 20)
-    data = {k: np.load(config.pop(k)) for k in
-            ("train_images", "train_masks", "val_images", "val_masks")}
-    return fit(data["train_images"], data["train_masks"], data["val_images"],
-               data["val_masks"], **config)
+    fit_args = {k: v for k, v in config.items() if k in inspect.signature(fit).parameters}
+    return fit(*(np.load(path) for path in npy), **fit_args)
 
 
 if __name__ == "__main__":

@@ -94,7 +94,8 @@ def make_predict_fn(model: torch.nn.Module):
     return predict
 
 
-def _stack(per_step):
+def stack_metrics(per_step):
+    """[{name: scalar tensor}] of an epoch's steps -> {name: (steps,) tensor}."""
     return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
 
@@ -111,7 +112,7 @@ def make_epoch_runner(model, optimizer, loss_name: str, deep_supervision: bool,
     def run_epoch(images_u8, masks_u8, batch_idx, generator):
         per_step = [step(images_u8.index_select(0, idx), masks_u8.index_select(0, idx),
                          generator) for idx in batch_idx]
-        return _stack(per_step)
+        return stack_metrics(per_step)
 
     return run_epoch
 
@@ -124,6 +125,6 @@ def make_epoch_evaluator(model, loss_name: str, deep_supervision: bool):
     def eval_epoch(images_u8, masks_u8, batch_idx, weights):
         per_step = [eval_step(images_u8.index_select(0, idx), masks_u8.index_select(0, idx), w)
                     for idx, w in zip(batch_idx, weights)]
-        return _stack(per_step)
+        return stack_metrics(per_step)
 
     return eval_epoch

@@ -55,6 +55,35 @@ class Optimizer:
     def param_groups(self):
         return self.inner.param_groups
 
+    def layout(self) -> dict:
+        """What fixes the structure of the state: the update rule and which
+        wrappers are on (optax's chain; resuming across a change raises)."""
+        return {"optimizer": type(self.inner).__name__,
+                "skip_nonfinite": bool(self.skip_nonfinite),
+                "accum_steps": self.accum_steps > 1}
+
+    def state_dict(self) -> dict:
+        return {"layout": self.layout(), "inner": self.inner.state_dict(),
+                "notfinite_run": self.notfinite_run, "total_notfinite": self.total_notfinite,
+                "acc": self._acc, "mini_step": self._mini_step}
+
+    def load_state_dict(self, state: dict):
+        """Restore a state_dict() of an optimizer with the same layout; the
+        hyperparameters stay this optimizer's (the JAX package rebuilds its
+        chain from the flags and restores only its state)."""
+        if state["layout"] != self.layout():
+            raise ValueError(f"optimizer state layout {state['layout']} differs from this "
+                             f"optimizer's {self.layout()}")
+        hyper = [{k: v for k, v in g.items() if k != "params"} for g in self.inner.param_groups]
+        self.inner.load_state_dict(state["inner"])
+        for group, h in zip(self.inner.param_groups, hyper):
+            group.update(h)
+        self.notfinite_run = int(state["notfinite_run"])
+        self.total_notfinite = int(state["total_notfinite"])
+        self._acc = (None if state["acc"] is None
+                     else [a.to(p.device) for a, p in zip(state["acc"], self.params)])
+        self._mini_step = int(state["mini_step"])
+
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
 

@@ -431,3 +431,36 @@ def test_unet_runs_k4_at_its_four_decoder_nodes(cuda):
     assert df.LAUNCHES - before[1] == 4
     assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
         "bn_stats": 18, "bn_bwd_reduce": 18, "bn_bwd_dx": 18}
+
+
+def test_folder_cli_trains_an_epoch_with_the_expected_launches(cuda, tmp_path):
+    """The image library builds on the card's host and round-trips a 96x96
+    PNG; train.main runs 1 epoch on a 40-image folder (seed-41 split: 32
+    train, 8 val), launching each BN kernel 30 times per step (2 steps) and
+    K4 10 times per forward (2 steps and 1 padded val batch)."""
+    from pytorch_nested_unet_tpu_torch import train
+    from pytorch_nested_unet_tpu_torch.data import image_io
+
+    rng = np.random.default_rng(0)
+    base = tmp_path / "inputs" / "folder"
+    (base / "images").mkdir(parents=True)
+    (base / "masks" / "0").mkdir(parents=True)
+    for i in range(40):
+        img = rng.integers(0, 256, (96, 96, 3), dtype=np.uint8)
+        mask = (rng.random((96, 96)) > 0.5).astype(np.uint8) * 255
+        image_io.write_png(str(base / "images" / f"{i:02d}.png"), img)
+        image_io.write_png(str(base / "masks" / "0" / f"{i:02d}.png"), mask)
+        if i == 0:
+            np.testing.assert_array_equal(image_io.load_image(str(base / "images" / "00.png")),
+                                          img)
+    before = (dict(bn.LAUNCHES), df.LAUNCHES)
+    r = train.main(["--dataset", "folder", "--data_dir", str(tmp_path / "inputs"),
+                    "--output_dir", str(tmp_path / "models"), "--epochs", "1",
+                    "--deep_supervision", "true", "--arch_kwargs",
+                    '{"nb_filter": [4, 8, 16, 32, 64]}', "--device", "cuda"])
+    assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
+        "bn_stats": 60, "bn_bwd_reduce": 60, "bn_bwd_dx": 60}
+    assert df.LAUNCHES - before[1] == 30
+    assert len(r["log"]["loss"]) == 1 and np.isfinite(r["log"]["loss"][0])
+    for f in ("config.yml", "log.csv", "model.pth", "last.pth"):
+        assert (tmp_path / "models" / "folder_NestedUNet_wDS" / f).is_file()

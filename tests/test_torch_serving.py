@@ -77,22 +77,27 @@ def test_main_reads_and_writes_npy(tmp_path, capsys):
     assert "img/s" in capsys.readouterr().out
 
 
+# what the port may not import: JAX and the JAX package, and the data
+# libraries the card's machine may lack (the JAX data path's cv2, sklearn,
+# yaml, pandas; PIL)
+BLOCKED = ("jax", "optax", "flax", "cv2", "sklearn", "yaml", "pandas", "PIL")
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['optax'] = None\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
         "import pkgutil, importlib\n"
         "import pytorch_nested_unet_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [n for n, m in sys.modules.items() if m is not None and (\n"
-        "       n == 'pytorch_nested_unet_tpu'\n"
-        "       or n.startswith('pytorch_nested_unet_tpu.') or n.startswith('flax')\n"
-        "       or n.startswith('optax'))]\n"
+        "       n == 'pytorch_nested_unet_tpu' or n.startswith('pytorch_nested_unet_tpu.')\n"
+        f"       or n.split('.')[0] in {BLOCKED!r})]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith(pkg.__name__)]))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 22  # every module of both slices was imported
+    assert int(r.stdout.strip()) >= 39  # every module of the slices so far was imported
