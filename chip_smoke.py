@@ -23,10 +23,11 @@
 5. K1-K3 kernel phase: one bn_stats and one bn_bwd_reduce call must each run
    one CUDA kernel (torch.profiler, level 0, both dtypes); then the
    training-mode BN kernels against their plain versions at the (C, rows)
-   shapes of the NestedUNet and UNetRNN training steps (full width, batch
-   16, 96x96), at the other CRDN archs' shapes (C = 2, 8, 72, 256, 512) and
-   at ragged shapes, both dtypes, with bounds and library yardsticks, per
-   shape and summed over each step's instances (30 and 15); times are device
+   shapes of the NestedUNet, UNetRNN and VGG16RNN training steps (full
+   width, batch 16, 96x96), at the other CRDN archs' shapes (C = 2, 8, 72,
+   256, 512) and at ragged shapes, both dtypes, with bounds and library
+   yardsticks, per shape and summed over each step's instances (30, 15 and
+   18); times are device
    time replayed from a CUDA graph (a call from Python also pays the host's
    launch gaps, printed beside it as "call"); then each kernel's step
    sequence per step, its instances replayed from one graph;
@@ -48,10 +49,17 @@
    gap on the same input is measured and its effect on the CPU's gradients
    counted in their bounds;
 10. arch sweep (run between UNetRNN's phases 7 and 8): UNet, UNetRM3,
-   UNetRM7, UNetRNN with the LSTM and vanilla decoders, UNetRNNGhost and
-   the three attention variants, each at full width, 96x96, batch 2, bf16:
-   one train step and one served batch with their K1-K3 and K4 launches
-   counted;
+   UNetRM7, UNetRNN with the LSTM and vanilla decoders, UNetRNNGhost, the
+   three attention variants, VGG16RNN with the GRU and vanilla decoders,
+   ResNet{18,34,101,152}RNN, ResNet50UNet and ResNet50FCN, each at full
+   width, 96x96, batch 2, bf16: one train step and one served batch with
+   their K1-K3 and K4 launches counted;
+10b. the CRDN backbones: phases 4, 7 and 8 for VGG16RNN (LSTM, full width):
+   no kernel launched in eval, 18 launches of each BN kernel per train step
+   and no K4, the card-vs-CPU step as UNetRNN's (BN-fed conv biases at 0,
+   the conv gap counted) with the CPU's movement under the card's own conv
+   outputs counted too; phases 4 and 7 for ResNet50RNN (LSTM): 5 launches
+   of each BN kernel per step (its score blocks; the trunk's BN is plain);
 11. the CLI path (`cli_phase`): the reference protocol through the port's
    image-folder CLIs at full width (NestedUNet wDS, batch 16, 96x96, bf16):
    a DSB2018-sized synthetic folder (670 PNG pairs, written by the port's
@@ -59,6 +67,11 @@
    3rd, `--pipeline host` for 1, `val.main` (IoU against Predictor's) and
    `infer.main` on images of other sizes (full-res 0/255 masks, probability
    masks against Predictor's), with exact launch counts;
+11b. `--pretrained_backbone` (`pretrained_phase`): a torchvision-format
+   ResNet-50 state dict written from a seed, `train.main --arch ResNet50RNN
+   --pretrained_backbone` for 1 bf16 epoch on the CLI path's folder, the
+   tensor count it prints, 5 x 33 launches of each BN kernel, and the
+   capsule served by `infer.main`;
 12. a JSON line of the kernels (launches over every path above; `cli`: the
    CLI path's own), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -122,6 +135,16 @@ CRDN_FILTERS = (16, 32, 64, 128, 256)
 UNETRNN_BN = ([(f"enc{lvl}", c, SIZE >> lvl, 2) for lvl, c in enumerate(CRDN_FILTERS)]
               + [(f"score{lvl}", 1, SIZE >> lvl, 1) for lvl in range(5)])
 UNETRNN_BN_PER_STEP = sum(n for *_, n in UNETRNN_BN)  # 15
+# VGG16RNN's train step (full width, LSTM, batch 16, 96x96): its 13 encoder
+# units (64, 128, 256, 512, 512 channels; 2, 2, 3, 3, 3 per stage) and a 5x5
+# score block's BN at C = num_classes = 1 per stage: 18 per step
+VGG16RNN_BN = ([(f"enc{lvl}", c, SIZE >> lvl, n)
+                for lvl, (c, n) in enumerate(((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)))]
+               + [(f"score{lvl}", 1, SIZE >> lvl, 1) for lvl in range(5)])
+VGG16RNN_BN_PER_STEP = sum(n for *_, n in VGG16RNN_BN)  # 18
+# ResNet50RNN's K1-K3 run at its 5 score blocks only (its trunk's 53 BN
+# layers are plain F.batch_norm, as in the JAX package)
+RESNET_RNN_BN_PER_STEP = 5
 # BN shapes of the other new archs that neither step above has: num_classes
 # 2 at level 0, RM7's level 0 and its 3x3 and 1x1 levels, RM3's level 1
 CRDN_EXTRA_BN = [("nc2", 2, SIZE), ("rm7_l0", 8, SIZE), ("rm3_l1", 72, SIZE >> 1),
@@ -132,7 +155,10 @@ CRDN_EXTRA_BN = [("nc2", 2, SIZE), ("rm7_l0", 8, SIZE), ("rm3_l1", 72, SIZE >> 1
 ARCH_SWEEP = [("UNet", {}, 18, 4), ("UNetRM3", {}, 9, 0), ("UNetRM7", {}, 21, 0),
               ("UNetRNN", {"decoder": "LSTM"}, 15, 0), ("UNetRNN", {"decoder": "vanilla"}, 15, 0),
               ("UNetRNNGhost", {}, 10, 0), ("UNetRNNPAttention", {}, 15, 0),
-              ("UNetRNNCAttention", {}, 15, 0), ("UNetRNNAttention", {}, 15, 0)]
+              ("UNetRNNCAttention", {}, 15, 0), ("UNetRNNAttention", {}, 15, 0),
+              ("VGG16RNN", {"decoder": "GRU"}, 18, 0), ("VGG16RNN", {"decoder": "vanilla"}, 18, 0),
+              ("ResNet18RNN", {}, 5, 0), ("ResNet34RNN", {}, 5, 0), ("ResNet101RNN", {}, 5, 0),
+              ("ResNet152RNN", {}, 5, 0), ("ResNet50UNet", {}, 0, 0), ("ResNet50FCN", {}, 0, 0)]
 LOG_COLUMNS = ["epoch", "lr", "loss", "iou", "val_loss", "val_iou"]
 
 
@@ -541,16 +567,17 @@ def bn_step_sequence(bn, dev, dtype, gen, flush, step, label):
 # The BN steps whose instances bn_kernel_phase sums: path -> [(C, H = W,
 # instances per step)] at batch 16
 BN_STEPS = {"NestedUNet": [(c, SIZE >> lvl, n) for lvl, c, _, n in BN_LEVELS],
-            "UNetRNN": [(c, hw, n) for _, c, hw, n in UNETRNN_BN]}
+            "UNetRNN": [(c, hw, n) for _, c, hw, n in UNETRNN_BN],
+            "VGG16RNN": [(c, hw, n) for _, c, hw, n in VGG16RNN_BN]}
 
 
 def bn_kernel_phase(bn, dev):
-    """K1-K3 against their plain versions at NestedUNet's and UNetRNN's
-    training-step shapes, the other new archs' shapes and ragged shapes;
-    returns {(kernel, dtype, path): summary} with times summed over the BN
-    instances of one training step of `path` (30 for NestedUNet, 15 for
-    UNetRNN). Each dtype ends with each path's step sequence
-    (`bn_step_sequence`)."""
+    """K1-K3 against their plain versions at NestedUNet's, UNetRNN's and
+    VGG16RNN's training-step shapes, the other new archs' shapes and ragged
+    shapes; returns {(kernel, dtype, path): summary} with times summed over
+    the BN instances of one training step of `path` (30 for NestedUNet, 15
+    for UNetRNN, 18 for VGG16RNN). Each dtype ends with each path's step
+    sequence (`bn_step_sequence`)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     nbb = torch.ops.aten.native_batch_norm_backward
@@ -569,6 +596,12 @@ def bn_kernel_phase(bn, dev):
                  for lvl, c, rows, n in BN_LEVELS]
         cases += [(f"rnn_{name}", c, BATCH * hw * hw, {"UNetRNN": n}, (BATCH, hw, hw))
                   for name, c, hw, n in UNETRNN_BN]
+        for name, c, hw, n in VGG16RNN_BN:  # a shape UNetRNN's step has too is run once
+            same = [case for case in cases if case[1:3] == (c, BATCH * hw * hw)]
+            if same:
+                same[0][3]["VGG16RNN"] = n
+            else:
+                cases.append((f"vgg_{name}", c, BATCH * hw * hw, {"VGG16RNN": n}, (BATCH, hw, hw)))
         cases += [(name, c, BATCH * hw * hw, {}, (BATCH, hw, hw)) for name, c, hw in CRDN_EXTRA_BN]
         cases += [("ragged", c, rows, {}, (1, rows, 1)) for c, rows in BN_RAGGED]
         for name, c, rows, counts, nhw in cases:
@@ -846,7 +879,7 @@ def train_phase(bn, df, card, arch="NestedUNet", deep_supervision=True,
 
 
 def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=False,
-                   conv_gap=False):
+                   conv_gap=False, card_convs=False):
     """One full-width fp32 train step (batch 2, augment none) on the card and on
     the CPU from the same weights: the loss within 1e-5, the running statistics
     within atol = rtol = 1e-5, and every gradient within 1e-4 relative L2 norm
@@ -861,12 +894,12 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
     gradient of zero (the BN's mean subtraction cancels it), so every device
     computes rounding noise for it.
 
-    zero_bn_fed_biases sets the biases of the convs of every (conv, BN)
-    sequence to 0 first, which changes nothing in exact arithmetic. At their
-    init they can dominate the first BN's input: its largest mean^2 / var,
-    printed, is the factor by which var = E[x^2] - mean^2 magnifies one
-    rounding of a BN sum, so above ~1e3 the comparison holds the card to the
-    CPU's summation order rather than to the step.
+    zero_bn_fed_biases sets the bias of every conv that feeds a BN+ReLU
+    (its sibling just before it) to 0 first, which changes nothing in exact
+    arithmetic. At their init they can dominate the first BN's input: its
+    largest mean^2 / var, printed, is the factor by which var = E[x^2] -
+    mean^2 magnifies one rounding of a BN sum, so above ~1e3 the comparison
+    holds the card to the CPU's summation order rather than to the step.
 
     conv_gap measures, for each conv, how far its output on the card is from
     its output on the CPU on the same input (the CPU's train-mode forward on
@@ -875,6 +908,18 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
     and a gradient's movement under it also counts towards its bound: the
     card's convolutions differ from the CPU's by that much before anything
     else does.
+
+    card_convs runs the CPU step once more with every conv, forward and
+    backward, computed by the card on the CPU step's own tensors (the CPU
+    computing the rest), and a gradient's movement under it also counts
+    towards its bound: what the card's convolutions (cuDNN, not the port's
+    code) alone move. Where a ReLU input lies within the card's conv
+    rounding of 0 (VGG16RNN at full width: one BN output of its stage 4),
+    the card's own rounding flips it, which a CPU run with Gaussian noise of
+    the same size need not; and where a weight gradient sums cancelling
+    terms (a score block's 5x5 conv to 1 channel, whose output gradient a
+    train-mode BN has centred), the card's conv backward adds in another
+    order.
     """
     from pytorch_nested_unet_tpu_torch.data.augment import eval_transform
     from pytorch_nested_unet_tpu_torch.models import create_model
@@ -890,10 +935,12 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
                          generator=torch.Generator().manual_seed(5))
         if zero:
             with torch.no_grad():
-                for seq in m.modules():
-                    if isinstance(seq, torch.nn.Sequential) and len(seq) > 1 \
-                            and isinstance(seq[1], FusedBatchNormReLU):
-                        seq[0].bias.zero_()
+                for mod in m.modules():
+                    kids = list(mod.children())
+                    for conv, bn in zip(kids, kids[1:]):
+                        if isinstance(bn, FusedBatchNormReLU) \
+                                and getattr(conv, "bias", None) is not None:
+                            conv.bias.zero_()
         return m
 
     def convs(m):
@@ -937,7 +984,7 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
     ratios = [first_bn_ratio(False)] + ([first_bn_ratio(True)] if zero_bn_fed_biases else [])
     gap = measure_conv_gap() if conv_gap else {}
 
-    def run(dev, perturb=0.0, noise=False):
+    def run(dev, perturb=0.0, noise=False, on_card=False):
         m = build(zero_bn_fed_biases)
         g = torch.Generator().manual_seed(6)
         if perturb:
@@ -948,13 +995,19 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
             for n, mod in convs(m).items():
                 mod.register_forward_hook(lambda _, args, out, s=gap[n][0]: out + s * torch.randn(
                     out.shape, generator=g).to(out.dtype))
+        if on_card:  # every conv, forward and backward, as the card computes it
+            for n, mod in convs(m).items():
+                twin = copy.deepcopy(mod).cuda()
+                mod.forward = lambda x, mod=mod, twin=twin: ConvOnCard.apply(
+                    x, mod.weight, mod.bias, twin)
         m = m.to(dev)
         step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
                                "BCEDiceLoss", deep_supervision, augment="none")
         t0 = time.perf_counter()
         loss = float(step(imgs.to(dev), masks.to(dev), torch.Generator(device=dev))["loss"])
         what = " (weights moved by 1e-7)" if perturb else \
-            " (conv outputs moved by their card-vs-CPU gap)" if noise else ""
+            " (conv outputs moved by their card-vs-CPU gap)" if noise else \
+            " (every conv computed by the card)" if on_card else ""
         print(f"card vs CPU {arch}: {dev}{what} step {time.perf_counter() - t0:.2f} s, loss "
               f"{loss:.7f}", flush=True)
         return (loss, {n: p.grad.cpu() for n, p in m.named_parameters()},
@@ -978,6 +1031,10 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
               f"over {len(gap)} convs: median {np.median(list(share.values())):.3g}, largest "
               f"{share[far]:.3g} ({far}); " + ", ".join(
                   f"{n} {a:.3g}/{b:.3g}" for n, (a, b) in gap.items()), flush=True)
+    if card_convs:
+        by_card = rel(run("cpu", on_card=True)[1], cpu[1])
+        moves += f" and under the card's convs {np.median(list(by_card.values())):.3g}"
+        floor = {n: max(floor[n], by_card[n]) for n in floor}
     bound = {n: max(1e-4, 4 * floor[n]) for n in floor}
     worst = max(card_rel, key=lambda n: card_rel[n] / bound[n])
     loss_err = abs(cuda[0] - cpu[0])
@@ -1000,6 +1057,34 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
           f"(atol = rtol = 1e-5)", flush=True)
     if loss_err > 1e-5 or card_rel[worst] > bound[worst] or not stat_ok:
         raise AssertionError(f"card vs CPU {arch} train step outside its bounds")
+
+
+class ConvOnCard(torch.autograd.Function):
+    """A conv of the CPU's step computed by its copy on the card, forward and
+    backward, on the CPU step's own tensors: apply(x, weight, bias, twin)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, twin):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.twin = twin
+        params = {"weight": weight.cuda()} if bias is None else {
+            "weight": weight.cuda(), "bias": bias.cuda()}
+        with torch.no_grad():
+            return torch.func.functional_call(twin, params, (x.cuda(),)).cpu()
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, bias = ctx.saved_tensors
+        ins = [t.detach().cuda().requires_grad_(True) for t in (x, weight)]
+        params = {"weight": ins[1]}
+        if bias is not None:
+            ins.append(bias.detach().cuda().requires_grad_(True))
+            params["bias"] = ins[2]
+        with torch.enable_grad():
+            y = torch.func.functional_call(ctx.twin, params, (ins[0],))
+            grads = torch.autograd.grad(y, ins, grad.cuda())
+        grads = [g.cpu() for g in grads] + [None] * (3 - len(ins))
+        return (*grads, None)
 
 
 def arch_sweep_phase(bn, df, card):
@@ -1055,7 +1140,9 @@ def arch_sweep_phase(bn, df, card):
 
 # cli_phase: a DSB2018-sized synthetic folder (670 images, as stage1_train),
 # its seed-41 split (536 train, 134 val), 8 more images of other sizes to serve
+CLI_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke", "cli")
 CLI_IMAGES, CLI_EPOCHS = 670, 2
+CLI_STEPS = (CLI_IMAGES - -(-CLI_IMAGES // 5)) // BATCH  # 33 drop_last steps of 16
 CLI_SERVE_SIZES = [(120, 100), (100, 120), (80, 130), (150, 90), (96, 96), (64, 64),
                    (101, 77), (200, 160)]
 
@@ -1094,8 +1181,7 @@ def cli_phase(bn, df, card):
     from pytorch_nested_unet_tpu_torch.infer import Predictor
     from pytorch_nested_unet_tpu_torch.utils.config import load_config
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
-                        "cli")
+    root = CLI_ROOT
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     jpeg = image_io.has_jpeg()
@@ -1280,6 +1366,99 @@ def cli_phase(bn, df, card):
     return total
 
 
+def torchvision_resnet50_sd(seed):
+    """A torchvision-format ResNet-50 state dict (torchvision's names and
+    shapes, its `fc` head and BN counters included) drawn from a numpy seed:
+    conv weights N(0, 2 / fan_in) (torchvision's init), BN weights U(0.5,
+    1.5), biases and running means N(0, 0.1^2), running variances U(0.5,
+    1.5)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(name, a):
+        sd[name] = torch.from_numpy(np.asarray(a, np.float32))
+
+    def conv(name, o, i, k):
+        put(f"{name}.weight", rng.standard_normal((o, i, k, k)) * (2.0 / (i * k * k)) ** 0.5)
+
+    def norm(name, c):
+        put(f"{name}.weight", rng.uniform(0.5, 1.5, c))
+        put(f"{name}.bias", rng.standard_normal(c) * 0.1)
+        put(f"{name}.running_mean", rng.standard_normal(c) * 0.1)
+        put(f"{name}.running_var", rng.uniform(0.5, 1.5, c))
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    conv("conv1", 64, 3, 7)
+    norm("bn1", 64)
+    inplanes = 64
+    for stage, (planes, n) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3))):
+        for i in range(n):
+            base = f"layer{stage + 1}.{i}"
+            for k, (cin, cout, ks) in enumerate(((inplanes, planes, 1), (planes, planes, 3),
+                                                 (planes, planes * 4, 1)), 1):
+                conv(f"{base}.conv{k}", cout, cin, ks)
+                norm(f"{base}.bn{k}", cout)
+            if i == 0:
+                conv(f"{base}.downsample.0", planes * 4, inplanes, 1)
+                norm(f"{base}.downsample.1", planes * 4)
+            inplanes = planes * 4
+    put("fc.weight", rng.standard_normal((1000, 2048)) * 0.01)
+    put("fc.bias", np.zeros(1000))
+    return sd
+
+
+def pretrained_phase(bn, df, card):
+    """`train.main --arch ResNet50RNN --pretrained_backbone` on cli_phase's
+    folder (which must exist): a torchvision-format ResNet-50 state dict
+    written from a seed, 1 bf16 epoch (33 steps + 9 val batches), the
+    printed tensor count (265: 53 convs, 53 BN layers' 4 tensors each), the
+    flag in config.yml, 5 launches of each BN kernel per step and no K4,
+    then the capsule served by `infer.main` (no kernel launched). Returns
+    the launches."""
+    from pytorch_nested_unet_tpu_torch import infer, train
+    from pytorch_nested_unet_tpu_torch.utils.config import load_config
+
+    data_dir, serve_dir = os.path.join(CLI_ROOT, "inputs"), os.path.join(CLI_ROOT, "serve")
+    if not os.path.isdir(os.path.join(data_dir, "dsb2018_96")):
+        raise AssertionError(f"pretrained: no cli_phase folder under {data_dir}")
+    sd = torchvision_resnet50_sd(seed=9)
+    trunk = sum(1 for k in sd if not k.startswith("fc.") and "num_batches" not in k)
+    pth = os.path.join(CLI_ROOT, "resnet50_torchvision.pth")
+    torch.save(sd, pth)
+    out_dir, name = os.path.join(CLI_ROOT, "models"), "dsb2018_96_ResNet50RNN_pretrained"
+    reset_counts(bn, df)
+    t0 = time.perf_counter()
+    r, text = _tee_stdout(lambda: train.main(
+        ["--dataset", "dsb2018_96", "--data_dir", data_dir, "--output_dir", out_dir,
+         "--name", name, "--arch", "ResNet50RNN", "--precision", "bf16", "--epochs", "1",
+         "--pretrained_backbone", pth, "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(bn, df)
+    want = {**{k: RESNET_RNN_BN_PER_STEP * CLI_STEPS for k in bn.LAUNCHES},
+            "multipart_conv3x3": 0}
+    said = f"pretrained backbone: {trunk} tensors -> the model root"
+    if said not in text or counts != want:
+        raise AssertionError(f"pretrained: printed {said!r}: {said in text}; launches {counts}, "
+                             f"expected {want}")
+    cfg = load_config(os.path.join(out_dir, name))
+    if cfg["pretrained_backbone"] != pth or not np.isfinite(r["log"]["val_loss"]).all():
+        raise AssertionError(f"pretrained: config {cfg.get('pretrained_backbone')}, log {r['log']}")
+    reset_counts(bn, df)
+    s, _ = _tee_stdout(lambda: infer.main(
+        ["--name", name, "--input_dir", serve_dir, "--output_dir", out_dir, "--save_dir",
+         os.path.join(CLI_ROOT, "infer_pretrained"), "--device", "cuda"]))
+    served = launch_counts(bn, df)
+    if s["written"] != len(CLI_SERVE_SIZES) or any(served.values()):
+        raise AssertionError(f"pretrained: infer wrote {s['written']}, launches {served}")
+    print(f"pretrained: train.main --arch ResNet50RNN --pretrained_backbone ({trunk} tensors of "
+          f"a torchvision-format ResNet-50) 1 bf16 epoch of {CLI_STEPS} steps in {wall:.2f} s "
+          f"(train {r['train_s'][0]:.3f} s, val {r['val_s'][0]:.3f} s, val_iou "
+          f"{r['log']['val_iou'][0]:.4f}); infer.main served {s['written']} images | launches "
+          f"{counts} + {served} | card: {card}", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1329,8 +1508,15 @@ def main():
     unetrnn_train = runs[-1]
     runs.append({"bf16": arch_sweep_phase(bn, df, card)})
     cpu_step_phase("UNetRNN", False, zero_bn_fed_biases=True, conv_gap=True)
+    runs.append(path_phase(bn, df, card, "VGG16RNN", False, k4_per_batch=0))
+    runs.append(train_phase(bn, df, card, "VGG16RNN", False, VGG16RNN_BN_PER_STEP, 0))
+    vgg_train = runs[-1]
+    cpu_step_phase("VGG16RNN", False, zero_bn_fed_biases=True, conv_gap=True, card_convs=True)
+    runs.append(path_phase(bn, df, card, "ResNet50RNN", False, k4_per_batch=0))
+    runs.append(train_phase(bn, df, card, "ResNet50RNN", False, RESNET_RNN_BN_PER_STEP, 0))
     cli = cli_phase(bn, df, card)
     runs.append({"bf16": cli})
+    runs.append({"bf16": pretrained_phase(bn, df, card)})
     # launches of each kernel per dtype over every path driven above
     launches = {name: {k: sum(r[name][k] for r in runs if name in r)
                        for k in launch_counts(bn, df)} for name in DTYPE_NAME.values()}
@@ -1363,16 +1549,20 @@ def main():
             "replaces": replaces, "launches": launches[DTYPE_NAME[dtype]][fn],
             **{key: agg[key] for key in timed},
             "unetrnn_step": {"launches": unetrnn_train[DTYPE_NAME[dtype]][fn],
-                             **{key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}}}
+                             **{key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}},
+            "vgg16rnn_step": {"launches": vgg_train[DTYPE_NAME[dtype]][fn],
+                              **{key: bnk[(k, dtype, "VGG16RNN")][key] for key in timed}}}
         if dtype == torch.bfloat16:  # the CLI path: NestedUNet's training-step shapes
             entry["cli"] = {"launches": cli[fn], **{key: agg[key] for key in timed}}
         kernels.append(entry)
     print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 NestedUNet "
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
+          "vgg16rnn_step: the 18 of a VGG16RNN step, its launches those of VGG16RNN's fit; "
           "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase); "
           "max_abs_err: over the path's own shapes; launches: over every path driven "
-          "(NestedUNet and UNetRNN serving and training, the arch sweep, the CLIs); card:")
+          "(NestedUNet, UNetRNN, VGG16RNN and ResNet50RNN serving and training, the arch "
+          "sweep, the CLIs, --pretrained_backbone); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

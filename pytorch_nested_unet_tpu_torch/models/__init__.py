@@ -1,9 +1,10 @@
 """Model registry (counterpart of models/__init__.py).
 
-The port registers the UNet family (UNet, NestedUNet) and the CRDN family
+The port registers the UNet family (UNet, NestedUNet), the CRDN family
 (UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost and the three UNetRNN attention
-variants); the rest of the zoo is queued family by family in ROADMAP.md
-(queue 1).
+variants) and its backbones (VGG16RNN, ResNet{18,34,50,101,152}RNN,
+ResNet50UNet, ResNet50FCN): 17 of the JAX package's 25 archs. The rest of
+the zoo is queued family by family in ROADMAP.md (queue 1).
 """
 
 import inspect
@@ -12,6 +13,8 @@ import json
 import torch
 import torch.nn as nn
 
+from .crdn_backbones import (ResNet18RNN, ResNet34RNN, ResNet50FCN, ResNet50RNN,
+                             ResNet50UNet, ResNet101RNN, ResNet152RNN, VGG16RNN)
 from .dual_attention import UNetRNNAttention, UNetRNNCAttention, UNetRNNPAttention
 from .ghost import UNetRNNGhost
 from .nested_unet import NestedUNet
@@ -20,7 +23,8 @@ from .unet import UNet
 
 _REGISTRY = {cls.__name__: cls for cls in (
     UNet, NestedUNet, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
-    UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention)}
+    UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, VGG16RNN, ResNet18RNN,
+    ResNet34RNN, ResNet50RNN, ResNet101RNN, ResNet152RNN, ResNet50UNet, ResNet50FCN)}
 # --precision: the conv compute dtype (parameters are always float32)
 PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 # constructor arguments that create_model and the entry points set themselves

@@ -9,6 +9,9 @@ align-corners bilinear interpolation to each level's size (2x between the
 levels, 1 -> 3 and 3 -> 6 at RM7's deepest ones) and merged with the level's
 map by a ConvLSTM, ConvGRU or vanilla-RNN cell. The 15 (RM3: 9, RM7: 21)
 train-mode BN layers run K1-K3 on the card; there is no multipart conv.
+The CRDN backbones (models/crdn_backbones.py: VGG16RNN and
+ResNet{18,34,50,101,152}RNN) decode their score maps with the same `RDC`
+and `rdc_decode`.
 
 State-dict keys are the reference's: `conv1.conv1.0.weight` (the conv) and
 `conv1.conv1.1.running_var` (its BN), `score_block1.0` / `.1`, the 5th
@@ -78,7 +81,9 @@ class RDC(nn.Module):
 
 def rdc_decode(rdc: RDC, scores: Sequence[torch.Tensor]) -> torch.Tensor:
     """Run the shared cell over the score maps, coarsest first, from a zero
-    carry the size of the coarsest map; return the last carry."""
+    carry the size of the coarsest map; return the last carry. The decoder
+    of UNetRNN and its variants, UNetRM3 / RM7, VGG16RNN and the
+    ResNet*RNN backbones."""
     h = torch.zeros_like(scores[0])
     if rdc.decoder == "LSTM":
         c = torch.zeros_like(h)

@@ -1,11 +1,12 @@
-"""`nn.Conv2d` and `nn.BatchNorm2d` over NHWC tensors (counterparts of
-ops/layers.py::TorchConv and ::BatchNorm).
+"""`nn.Conv2d`, `nn.ConvTranspose2d`, `nn.BatchNorm2d` and `nn.Dropout2d`
+over NHWC tensors (counterparts of ops/layers.py::TorchConv,
+::TorchConvTranspose and ::BatchNorm, and of flax's channel dropout).
 
 Parameters are float32 under torch's names (`weight`, `bias`; a conv weight
-in OIHW), so reference checkpoints load as they are. `dtype` is the compute
-dtype: a conv casts its input and weight to it and adds the bias in it after
-the convolution, as flax does; BatchNorm computes in float32 and casts its
-output to it.
+in OIHW, a transposed conv's in [in, out, kh, kw]), so reference checkpoints
+load as they are. `dtype` is the compute dtype: a conv casts its input and
+weight to it and adds the bias in it after the convolution, as flax does;
+BatchNorm computes in float32 and casts its output to it.
 """
 
 from typing import Optional, Tuple, Union
@@ -51,6 +52,58 @@ class TorchConv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y.contiguous()
+
+
+class TorchConvTranspose(nn.Module):
+    """conv_transpose2d: the weight is [in, out, kh, kw], the bias [out];
+    the output is (in - 1) * stride - 2 * padding + kernel + output_padding
+    per axis. `init_convs_` draws both from U(+-1/sqrt(out * kh * kw)), as
+    torch and the JAX package's `torch_transpose_kernel_init` do."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 2,
+                 stride: IntPair = 2, padding: IntPair = 0, output_padding: IntPair = 0,
+                 dtype: Optional[torch.dtype] = None, use_bias: bool = True):
+        super().__init__()
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.output_padding = _pair(output_padding)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *_pair(kernel_size)))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+                               stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding).permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y.contiguous()
+
+
+class ChannelDropout(nn.Module):
+    """`nn.Dropout2d` on NHWC: in train mode each (sample, channel) is zeroed
+    with probability `p` over all of H and W and the rest scaled by 1 / (1 -
+    p) (flax `nn.Dropout(p, broadcast_dims=(1, 2))`); identity in eval. The
+    masks come from a generator per device, seeded on first use from
+    `generator` (default: seed 0), so a model built from a seed drops the
+    same channels on every run."""
+
+    def __init__(self, p: float = 0.5, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self._seeds = generator if generator is not None else torch.Generator().manual_seed(0)
+        self._generators = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        gen = self._generators.get(x.device)
+        if gen is None:
+            seed = int(torch.randint(0, 2**62, (1,), generator=self._seeds))
+            gen = self._generators[x.device] = torch.Generator(x.device).manual_seed(seed)
+        keep = torch.rand(x.shape[0], 1, 1, x.shape[3], generator=gen, device=x.device) >= self.p
+        return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
 class BatchNorm(nn.Module):

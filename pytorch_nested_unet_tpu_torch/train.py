@@ -6,7 +6,7 @@ From an image folder, as the reference protocol runs it:
         --arch NestedUNet --deep_supervision true [--data_dir inputs] \
         [--output_dir models] [--epochs 100] [-b 16] [--input_w 96 --input_h 96] \
         [--precision bf16] [--pipeline device|host|auto] [--resume true] \
-        [--init_from CAPSULE] [--device cuda]
+        [--init_from CAPSULE] [--pretrained_backbone PTH] [--device cuda]
 
 reads <data_dir>/<dataset>/ in the generic (images/, masks/<c>/) or ISIC
 (--dataset_layout isic) layout, trains on the seed-41 80/20 split (or on
@@ -17,8 +17,10 @@ last.pth. `--resume true` continues from last.pth (epoch + 1, the earlier
 log rows kept; the shuffle and augmentation generators are re-seeded from
 --seed, as the JAX package does, so a resumed run is not bit-identical to an
 uninterrupted one). `--init_from` starts from another capsule's model.pth
-with a fresh optimizer. SIGTERM or SIGINT finishes the epoch, writes
-last.pth and exits 0.
+with a fresh optimizer; `--pretrained_backbone` then pours a
+torchvision-format ResNet state dict into the model's ResNet trunk (the
+ResNet backbones; utils/pretrained.py). SIGTERM or SIGINT finishes the
+epoch, writes last.pth and exits 0.
 
 From arrays already at the training size (`fit`):
 
@@ -28,19 +30,18 @@ From arrays already at the training size (`fit`):
 
 Images are (N,H,W,3) uint8 and masks (N,H,W,num_classes) uint8.
 
-`--arch` takes any registered arch (the UNet and CRDN families, see
-`models.arch_names()`); `--arch_kwargs` is a JSON object of its constructor
-options, checked against them. `--pipeline device` (default) keeps the uint8
-set on the device and gathers each batch there; `host` decodes each batch from
-the files on a background thread. Each epoch sets the learning rate from the
+`--arch` takes any registered arch (the UNet and CRDN families and the CRDN
+backbones, see `models.arch_names()`); `--arch_kwargs` is a JSON object of
+its constructor options, checked against them. `--pipeline device` (default)
+keeps the uint8 set on the device and gathers each batch there; `host`
+decodes each batch from the files on a background thread. Each epoch sets the learning rate from the
 schedule, trains on shuffled drop_last batches, validates on every image (the
 short last batch padded and weighted) and steps ReduceLROnPlateau with the
 validation loss. model.pth loads into `infer.Predictor(weights=...)` and into
 the JAX package (`convert.py --pth`). The JAX CLI's --mesh and
 --spatial_partition, --remat, --fused_bn(_mode) (the port's BN always runs
-its CUDA kernels), --profile, --checkpoint_backend, --platform,
---pretrained_backbone, --refine and --artifact are not ported (ROADMAP.md
-queue 1); argparse rejects them.
+its CUDA kernels), --profile, --checkpoint_backend, --platform, --refine and
+--artifact are not ported (ROADMAP.md queue 1); argparse rejects them.
 """
 
 import argparse
@@ -69,6 +70,7 @@ from .utils.config import save_config, str2bool
 from .utils.convert import load_reference_pth
 from .utils.device import resolve_device
 from .utils.meters import AverageMeter
+from .utils.pretrained import find_trunk_scopes, graft_trunk, load_pretrained_backbone
 
 SCHEDULERS = ("CosineAnnealingLR", "ReduceLROnPlateau", "MultiStepLR", "ConstantLR")
 NPY_FLAGS = ("train_images", "train_masks", "val_images", "val_masks")
@@ -250,14 +252,16 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
         milestones="1,2", gamma: float = 2 / 3, early_stopping: int = -1,
         precision: str = "bf16", seed: int = 41, augment="full", log_acc: bool = False,
         skip_nonfinite: int = 0, accum_steps: int = 1, device="cuda",
-        arch_kwargs: Optional[Mapping] = None) -> dict:
+        arch_kwargs: Optional[Mapping] = None,
+        pretrained_backbone: Optional[str] = None) -> dict:
     """Train `arch` from a random init drawn from `seed` on the uint8 arrays
     and return a summary: `best_iou`, `log` (the log.csv columns),
     `model_dir`, `model`, and per epoch the host seconds of its training and
     validation parts (`train_s`, `val_s`), each ending in the read of that
     part's metrics. arch_kwargs (a mapping or a JSON object string) go to the
     model constructor (e.g. nb_filter, decoder); an option the arch does not
-    have raises ValueError.
+    have raises ValueError. pretrained_backbone: a torchvision-format ResNet
+    `.pth` poured into the model's ResNet trunk after the init.
     """
     arch_kwargs = parse_arch_kwargs(arch, arch_kwargs)
     if precision not in PRECISIONS:
@@ -279,6 +283,8 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     model = create_model(arch, num_classes, input_channels, deep_supervision,
                          dtype=PRECISIONS[precision],
                          generator=torch.Generator().manual_seed(seed), **arch_kwargs)
+    if pretrained_backbone:
+        _pretrained_backbone(model, pretrained_backbone, arch)
     model = model.to(dev).train()
     opt = build_optimizer(model.parameters(), optimizer, lr, momentum, weight_decay, nesterov,
                           skip_nonfinite, accum_steps)
@@ -344,6 +350,24 @@ def _init_from(model, config):
     print(f"initialized weights from {src} (fresh optimizer state)")
 
 
+def _pretrained_backbone(model, path, arch):
+    """--pretrained_backbone: pour a torchvision ResNet state dict into every
+    ResNet trunk of `model` (JAX train.py:435-449), exiting when the arch has
+    none or the trunk does not fit."""
+    scopes = find_trunk_scopes(model)
+    if not scopes:
+        sys.exit(f"--pretrained_backbone: arch {arch} has no ResNet trunk (encoder/feats "
+                 "scope) to initialize")
+    trunk = load_pretrained_backbone(path)
+    for scope in scopes:
+        try:
+            sd, n = graft_trunk(model, trunk, scope)
+        except (KeyError, ValueError) as e:
+            sys.exit(f"--pretrained_backbone: {e}")
+        model.load_state_dict(sd, strict=True)
+        print(f"pretrained backbone: {n} tensors -> {scope or 'the model root'}")
+
+
 def _read_log(log_path, cols, rows):
     """The first `rows` rows of a log.csv, as the epoch loop keeps them."""
     log = {k: [] for k in cols}
@@ -384,6 +408,8 @@ def train_folder(config: dict) -> dict:
     print(f"arch {config['arch']}: {sum(p.numel() for p in model.parameters()):,} params")
     if config["init_from"]:
         _init_from(model, config)
+    if config["pretrained_backbone"]:
+        _pretrained_backbone(model, config["pretrained_backbone"], config["arch"])
     model = model.to(dev).train()
 
     opt = build_optimizer(model.parameters(), config["optimizer"], config["lr"],
@@ -510,6 +536,9 @@ def parse_args(argv=None) -> dict:
     p.add_argument("--init_from", default=None, metavar="CAPSULE",
                    help="start from models/<CAPSULE>/model.pth (a name under --output_dir "
                         "or a directory), with a fresh optimizer")
+    p.add_argument("--pretrained_backbone", default=None, metavar="PTH",
+                   help="torchvision-format ResNet .pth poured into the model's ResNet "
+                        "trunk (the ResNet backbone archs) after --init_from")
     p.add_argument("--device", default="cuda")
     for flag in NPY_FLAGS:
         p.add_argument(f"--{flag}", default=None,

@@ -1,11 +1,15 @@
 """Carry weights into the port: from the JAX package's variables, or from a
 reference-layout `model.pth` (counterpart of utils/torch_convert.py's
-exporters and convert.py's import of the NestedUNet, UNet and CRDN families).
+exporters and convert.py's import of the NestedUNet, UNet and CRDN families
+and the CRDN backbones).
 
 Keys are the reference's: `conv0_0.conv1.weight`, `conv0_1.bn1.running_var`
 and `final4.bias` for the UNet family; `conv1.conv1.0.weight`,
 `center.conv2.1.running_mean`, `score_block5.1.weight`, `RDC.gru_conv.bias`
-for the CRDN family; conv weights OIHW float32.
+for the CRDN family; `layer3.2.bn2.weight`, `conv_block2.4.weight`,
+`conv5_score_block.1.running_var`, `up_concat4.up.weight`,
+`classifier.5.running_mean` for the backbones; conv weights OIHW float32,
+transposed-conv weights [in, out, kh, kw].
 """
 
 import re
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models import model_class
+from ..models.crdn_backbones import ResNetFCN, ResNetRNN, ResNetUNet, VGG16RNN, _ResNetTrunk
 from ..models.ghost import UNetRNNGhost
 from ..models.rdc import GATES, _UNetRNNBase
 
@@ -57,10 +62,62 @@ _ATTR_TO_GHOST = (
 )
 
 
+# The CRDN backbones (utils/torch_convert.py:134-231). The JAX package
+# flattens a residual stage's blocks to `encoder/layer{L}_{i}`, names the
+# residual's conv and BN `downsample_conv` / `downsample_bn`, puts plain
+# BatchNorm parameters one scope deeper (`bn1/bn/scale`), and names VGG16RNN's
+# units `conv_block{b}_{i}`, each a (conv, bn) pair; the reference keys
+# through torchvision-style Sequentials: `layer{L}.{i}.downsample.{0,1}`,
+# VGG's stage Sequentials (a MaxPool before stages 2-5, a ReLU after each BN)
+# and the FCN classifier's 9-element Sequential.
+_RESNET_TRUNK = (
+    (re.compile(r"^encoder\.conv1\."), "conv1."),
+    (re.compile(r"^encoder\.bn1\.bn\."), "bn1."),
+    (re.compile(r"^encoder\.layer(\d)_(\d+)\.downsample_conv\."), r"layer\1.\2.downsample.0."),
+    (re.compile(r"^encoder\.layer(\d)_(\d+)\.downsample_bn\.bn\."), r"layer\1.\2.downsample.1."),
+    (re.compile(r"^encoder\.layer(\d)_(\d+)\.bn(\d)\.bn\."), r"layer\1.\2.bn\3."),
+    (re.compile(r"^encoder\.layer(\d)_(\d+)\.conv(\d)\."), r"layer\1.\2.conv\3."),
+)
+_RESNET_SCORE = (
+    (re.compile(r"^(conv\d_score_block)\.conv\."), r"\1.0."),
+    (re.compile(r"^(conv\d_score_block)\.bn\."), r"\1.1."),
+)
+_VGG = (
+    (re.compile(r"^conv_block1_0\.conv\."), "conv_block1.0."),
+    (re.compile(r"^conv_block1_0\.bn\."), "conv_block1.1."),
+    (re.compile(r"^conv_block1_1\.conv\."), "conv_block1.3."),
+    (re.compile(r"^conv_block1_1\.bn\."), "conv_block1.4."),
+    (re.compile(r"^conv_block([2-5])_0\.conv\."), r"conv_block\1.1."),
+    (re.compile(r"^conv_block([2-5])_0\.bn\."), r"conv_block\1.2."),
+    (re.compile(r"^conv_block([2-5])_1\.conv\."), r"conv_block\1.4."),
+    (re.compile(r"^conv_block([2-5])_1\.bn\."), r"conv_block\1.5."),
+    (re.compile(r"^conv_block([3-5])_2\.conv\."), r"conv_block\1.7."),
+    (re.compile(r"^conv_block([3-5])_2\.bn\."), r"conv_block\1.8."),
+    (re.compile(r"^(score_block\d)\.conv\."), r"\1.0."),
+    (re.compile(r"^(score_block\d)\.bn\."), r"\1.1."),
+)
+_RESNET_UNET = ((re.compile(r"^(up_concat\d)\.conv\.conv([12])\."), r"\1.conv.conv\2.0."),)
+_FCN = (
+    (re.compile(r"^classifier_conv1\."), "classifier.0."),
+    (re.compile(r"^classifier_bn1\.bn\."), "classifier.1."),
+    (re.compile(r"^classifier_conv2\."), "classifier.4."),
+    (re.compile(r"^classifier_bn2\.bn\."), "classifier.5."),
+    (re.compile(r"^classifier_conv3\."), "classifier.8."),
+)
+_BACKBONE_RENAMES = ((VGG16RNN, _VGG), (ResNetRNN, _RESNET_SCORE + _RESNET_TRUNK),
+                     (ResNetUNet, _RESNET_UNET + _RESNET_TRUNK),
+                     (ResNetFCN, _FCN + _RESNET_TRUNK))
+# RNN-decoded archs: the reference builds every decoder's RDC gates
+_RNN_ARCHS = (_UNetRNNBase, VGG16RNN, ResNetRNN)
+
+
 def _renames(arch: str):
     """The rules that take `arch`'s attribute-style keys to the reference's,
-    from its class: none outside the CRDN family."""
+    from its class: none outside the CRDN family and its backbones."""
     cls = model_class(arch)
+    for family, rules in _BACKBONE_RENAMES:
+        if issubclass(cls, family):
+            return rules
     if not issubclass(cls, _UNetRNNBase):
         return ()
     rules = _ATTR_TO_CRDN + (_CENTER if cls.CENTER else ())
@@ -114,13 +171,17 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
     """Read a reference-layout `model.pth` (e.g. one written by
     `python convert.py --export`, or by the reference trainer) as float32
     tensors, dropping DataParallel `module.` prefixes, `num_batches_tracked`
-    counters and, for the CRDN family, the gate convs of the decoders other
-    than `decoder` (default: the arch's, GRU or Ghost's vanilla). The
-    reference's RDC cell builds all four gate convs and its forward uses the
-    chosen decoder's only (reference finished/archs1.py:145-210); the port,
-    as the JAX package, builds the live ones (models.rdc.GATES), and this
-    drops the rest (convert.py:93-97, :169-176). The dropped gate keys are
-    added to `dropped` when a set is given."""
+    counters, the parameters the reference builds but never runs, and for
+    the RNN-decoded archs the gate convs of the decoders other than
+    `decoder` (default: the arch's: GRU, Ghost's vanilla, the backbones'
+    LSTM). The reference's RDC cell builds all four gate convs and its
+    forward uses the chosen decoder's only (reference
+    finished/archs1.py:145-210); the port, as the JAX package, builds the
+    live ones (models.rdc.GATES), and this drops the rest (convert.py:93-97,
+    :169-176). The ResNet backbones' unused `fc` head (CRDN.py:440, :696,
+    :802) and VGG16RNN's unused `score` conv (CRDN.py:353) go the same way
+    (utils/torch_convert.py:230-231). The dropped keys are added to
+    `dropped` when a set is given."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     out = {}
     for key, value in sd.items():
@@ -130,12 +191,17 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
             continue
         out[key] = torch.as_tensor(value, dtype=torch.float32)
     cls = model_class(arch)
-    if issubclass(cls, _UNetRNNBase):
+    dead = set()
+    if issubclass(cls, _RNN_ARCHS):
         decoder = decoder or cls.DECODER
         gates = {g for d, names in GATES.items() if d != decoder for g in names}
         dead = {k for k in out if k.startswith("RDC.") and k.split(".")[1] in gates}
-        for key in dead:
-            del out[key]
-        if dropped is not None:
-            dropped.update(dead)
+    head = ("fc." if issubclass(cls, _ResNetTrunk) else "score." if issubclass(cls, VGG16RNN)
+            else None)
+    if head:
+        dead |= {k for k in out if k.startswith(head)}
+    for key in dead:
+        del out[key]
+    if dropped is not None:
+        dropped.update(dead)
     return out

@@ -30,7 +30,7 @@ KW = '{"nb_filter": [4, 8, 16, 32, 64]}'
 NAME = "synth_NestedUNet_wDS"
 # flags of the JAX CLI the port does not have (ROADMAP.md queue 1)
 JAX_ONLY = {"mesh", "spatial_partition", "remat", "fused_bn", "fused_bn_mode", "profile",
-            "checkpoint_backend", "platform", "pretrained_backbone"}
+            "checkpoint_backend", "platform"}
 
 
 def _write_set(root, n=14, size=32):

@@ -23,7 +23,8 @@ from pytorch_nested_unet_tpu.utils.torch_convert import converters_for_arch
 from pytorch_nested_unet_tpu_torch import infer as tinfer
 from pytorch_nested_unet_tpu_torch import train as ttrain
 from pytorch_nested_unet_tpu_torch.infer import Predictor
-from pytorch_nested_unet_tpu_torch.models import arch_names, create_model, parse_arch_kwargs
+from pytorch_nested_unet_tpu_torch.models import (arch_names, arch_options, model_class,
+                                                  parse_arch_kwargs)
 from pytorch_nested_unet_tpu_torch.ops import fused_bn as tbn
 from test_torch_crdn import FS, check_train_step_against_jax
 
@@ -103,13 +104,19 @@ def test_unknown_arch_kwarg_raises(tmp_path):
 
 
 def test_every_registered_arch_serves_through_predictor():
-    """Predictor(arch=...) builds and serves each registered arch (narrow)."""
+    """Predictor(arch=...) builds and serves each of the 17 registered archs:
+    narrow where the arch has a width option, the CRDN backbones at full
+    width (ResNet50FCN at 48x48: its valid 3x3 classifier conv needs down5
+    of 3x3)."""
     rng = np.random.default_rng(4)
+    assert len(arch_names()) == 17
     for arch in arch_names():
-        kw = {"nb_filter": (4, 8, 16, 32, 64)} if "UNet" == arch[-4:] else {"feature_scale": 16}
-        hw = 64 if arch == "UNetRM7" else 16  # RM7 pools 6 times
+        options = arch_options(arch)
+        kw = ({"nb_filter": (4, 8, 16, 32, 64)} if "nb_filter" in options
+              else {"feature_scale": 16} if "feature_scale" in options else {})
+        hw = {"UNetRM7": 64, "ResNet50FCN": 48}.get(arch, 16)  # RM7 pools 6 times
         images = rng.integers(0, 256, (3, hw, hw, 3), dtype=np.uint8)
         pred = Predictor(arch, batch_size=2, device="cpu", arch_kwargs=kw)
         probs = pred.predict_u8(images)
         assert probs.shape == (3, hw, hw, 1) and np.isfinite(probs).all(), arch
-        assert type(pred.model) is type(create_model(arch, **kw))
+        assert type(pred.model) is model_class(arch)
