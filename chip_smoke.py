@@ -51,7 +51,8 @@
 10. arch sweep (run between UNetRNN's phases 7 and 8): UNet, UNetRM3,
    UNetRM7, UNetRNN with the LSTM and vanilla decoders, UNetRNNGhost, the
    three attention variants, VGG16RNN with the GRU and vanilla decoders,
-   ResNet{18,34,101,152}RNN, ResNet50UNet and ResNet50FCN, each at full
+   ResNet{18,34,101,152}RNN, ResNet50UNet, ResNet50FCN (and the
+   archs of 11c), each at full
    width, 96x96, batch 2, bf16: one train step and one served batch with
    their K1-K3 and K4 launches counted;
 10b. the CRDN backbones: phases 4, 7 and 8 for VGG16RNN (LSTM, full width):
@@ -72,6 +73,13 @@
    --pretrained_backbone` for 1 bf16 epoch on the CLI path's folder, the
    tensor count it prints, 5 x 33 launches of each BN kernel, and the
    capsule served by `infer.main`;
+11c. the attention U-Nets and CA-Net (no kernel on their paths, so
+   every K1-K4 count stays 0): phases 4 and 7 for AttU_Net (full width);
+   R2U_Net, R2AttU_Net and CA-Net (1 class, dropout on; its default and its
+   concatenation_residual gates) join the arch sweep; `canet_cli_phase`
+   runs `train_canet.main` for 1 bf16 epoch on a 64-pair ISIC-layout PNG
+   folder at 256x256 (the device-busy share, config.yml, the log) and
+   `val.main` on its capsule;
 12. a JSON line of the kernels (launches over every path above; `cli`: the
    CLI path's own), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -158,7 +166,10 @@ ARCH_SWEEP = [("UNet", {}, 18, 4), ("UNetRM3", {}, 9, 0), ("UNetRM7", {}, 21, 0)
               ("UNetRNNCAttention", {}, 15, 0), ("UNetRNNAttention", {}, 15, 0),
               ("VGG16RNN", {"decoder": "GRU"}, 18, 0), ("VGG16RNN", {"decoder": "vanilla"}, 18, 0),
               ("ResNet18RNN", {}, 5, 0), ("ResNet34RNN", {}, 5, 0), ("ResNet101RNN", {}, 5, 0),
-              ("ResNet152RNN", {}, 5, 0), ("ResNet50UNet", {}, 0, 0), ("ResNet50FCN", {}, 0, 0)]
+              ("ResNet152RNN", {}, 5, 0), ("ResNet50UNet", {}, 0, 0), ("ResNet50FCN", {}, 0, 0),
+              ("R2U_Net", {}, 0, 0), ("R2AttU_Net", {}, 0, 0),
+              ("Comprehensive_Atten_Unet", {}, 0, 0),
+              ("Comprehensive_Atten_Unet", {"nonlocal_mode": "concatenation_residual"}, 0, 0)]
 LOG_COLUMNS = ["epoch", "lr", "loss", "iou", "val_loss", "val_iou"]
 
 
@@ -1459,6 +1470,99 @@ def pretrained_phase(bn, df, card):
     return counts
 
 
+# canet_cli_phase: an ISIC-sized-image folder (64 PNG pairs at 256x256 in the
+# ISIC layout, 52 train / 12 test), trained by the CA-Net preset at its own
+# 256x256 and batch 2
+CANET_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
+                          "canet")
+CANET_TRAIN, CANET_TEST, CANET_SIZE, CANET_BATCH = 52, 12, 256, 2
+
+
+def canet_cli_phase(bn, df, card):
+    """`train_canet.main` (the CA-Net preset: Comprehensive_Atten_Unet, 1
+    class, drop_rate 0.5, batch 2, 256x256, ISIC layout, augment none) for 1
+    bf16 epoch on a seeded ISIC-layout folder it writes, under the profiler
+    (the epoch's device-busy share), then `val.main` on the capsule; checks
+    config.yml's arch and batch size, the log, val's IoU against the log's,
+    and that no kernel launched (no BN of CA-Net runs K1-K3, it has no
+    decoder-fusion node). Returns the launches."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_nested_unet_tpu_torch import train_canet, val
+    from pytorch_nested_unet_tpu_torch.data import image_io
+    from pytorch_nested_unet_tpu_torch.utils.config import load_config
+
+    shutil.rmtree(CANET_ROOT, ignore_errors=True)
+    data_dir = os.path.join(CANET_ROOT, "inputs")
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:CANET_SIZE, 0:CANET_SIZE]
+    for split, n in (("train", CANET_TRAIN), ("test", CANET_TEST)):
+        img_dir = os.path.join(data_dir, "ISIC", split, "image")
+        mask_dir = os.path.join(data_dir, "ISIC", split, "mask")
+        os.makedirs(img_dir)
+        os.makedirs(mask_dir)
+        for i in range(n):  # a lesion-like ellipse, darker than the skin around it
+            cy, cx = rng.integers(CANET_SIZE // 4, 3 * CANET_SIZE // 4, 2)
+            ry, rx = rng.integers(CANET_SIZE // 10, CANET_SIZE // 4, 2)
+            m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+            img = rng.normal([200, 160, 140], 15, (CANET_SIZE, CANET_SIZE, 3))
+            img[m] -= [90, 80, 60]
+            image_io.write_png(os.path.join(img_dir, f"ISIC_{split}{i:03d}.png"),
+                               np.clip(img, 0, 255).astype(np.uint8))
+            image_io.write_png(os.path.join(mask_dir, f"ISIC_{split}{i:03d}_segmentation.png"),
+                               m.astype(np.uint8) * 255)
+    out_dir, name = os.path.join(CANET_ROOT, "models"), "ISIC_Comprehensive_Atten_Unet_woDS"
+    # --img_ext .png: the card's machine has no libjpeg (ROADMAP.md), so the
+    # preset's .jpg images are written as PNG here
+    argv = ["--data_dir", data_dir, "--output_dir", out_dir, "--img_ext", ".png",
+            "--epochs", "1", "--precision", "bf16", "--device", "cuda"]
+    reset_counts(bn, df)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = train_canet.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts(bn, df)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    cfg = load_config(os.path.join(out_dir, name))
+    steps = CANET_TRAIN // CANET_BATCH
+    epoch_s = r["train_s"][0] + r["val_s"][0]
+    if (cfg["arch"], cfg["batch_size"], cfg["input_w"], cfg["dataset_layout"]) != (
+            "Comprehensive_Atten_Unet", CANET_BATCH, CANET_SIZE, "isic") \
+            or any(counts.values()) or len(r["log"]["loss"]) != 1 \
+            or not np.isfinite(r["log"]["val_loss"]).all():
+        raise AssertionError(f"canet cli: config {cfg['arch']} b{cfg['batch_size']} "
+                             f"{cfg['input_w']} {cfg['dataset_layout']}, launches {counts}, "
+                             f"log {r['log']}")
+    reset_counts(bn, df)
+    t0 = time.perf_counter()
+    iou, _ = _tee_stdout(lambda: val.main(
+        ["--name", name, "--data_dir", data_dir, "--output_dir", out_dir, "--save_dir",
+         os.path.join(CANET_ROOT, "val"), "--out_ext", ".png", "-b", str(CANET_BATCH),
+         "--device", "cuda"]))
+    val_wall = time.perf_counter() - t0
+    served = launch_counts(bn, df)
+    # val.main scores model.pth, the weights of the epoch's validation, at
+    # batch 2 as the epoch does; bf16 convs may pick other algorithms, and one
+    # pixel of the 12 images' union moves the IoU by ~1e-4
+    if any(served.values()) or abs(iou - r["log"]["val_iou"][0]) > 1e-2:
+        raise AssertionError(f"canet cli val: IoU {iou} vs the log's "
+                             f"{r['log']['val_iou'][0]}, launches {served}")
+    print(f"canet cli: train_canet.main 1 bf16 epoch of {steps} steps (batch {CANET_BATCH}, "
+          f"{CANET_SIZE}x{CANET_SIZE}, {CANET_TRAIN} train / {CANET_TEST} test PNG pairs) in "
+          f"{wall:.2f} s of wall (set-up included); epoch wall {epoch_s:.3f} s (train "
+          f"{r['train_s'][0]:.3f} s, {steps * CANET_BATCH / r['train_s'][0]:.1f} img/s; val "
+          f"{r['val_s'][0]:.3f} s); device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / (1e3 * epoch_s):.1f}% of the epoch (profiler on); loss "
+          f"{r['log']['loss'][0]:.4f}, val_iou {r['log']['val_iou'][0]:.4f}; val.main IoU "
+          f"{iou:.4f} in {val_wall:.2f} s | launches {counts} + {served} | card: {card}",
+          flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1517,6 +1621,9 @@ def main():
     cli = cli_phase(bn, df, card)
     runs.append({"bf16": cli})
     runs.append({"bf16": pretrained_phase(bn, df, card)})
+    runs.append(path_phase(bn, df, card, "AttU_Net", False, k4_per_batch=0))
+    runs.append(train_phase(bn, df, card, "AttU_Net", False, 0, 0))
+    runs.append({"bf16": canet_cli_phase(bn, df, card)})
     # launches of each kernel per dtype over every path driven above
     launches = {name: {k: sum(r[name][k] for r in runs if name in r)
                        for k in launch_counts(bn, df)} for name in DTYPE_NAME.values()}
@@ -1561,8 +1668,8 @@ def main():
           "vgg16rnn_step: the 18 of a VGG16RNN step, its launches those of VGG16RNN's fit; "
           "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase); "
           "max_abs_err: over the path's own shapes; launches: over every path driven "
-          "(NestedUNet, UNetRNN, VGG16RNN and ResNet50RNN serving and training, the arch "
-          "sweep, the CLIs, --pretrained_backbone); card:")
+          "(NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN and AttU_Net serving and training, "
+          "the arch sweep, the CLIs, --pretrained_backbone, train_canet); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

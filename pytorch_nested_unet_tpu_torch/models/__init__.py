@@ -3,8 +3,10 @@
 The port registers the UNet family (UNet, NestedUNet), the CRDN family
 (UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost and the three UNetRNN attention
 variants) and its backbones (VGG16RNN, ResNet{18,34,50,101,152}RNN,
-ResNet50UNet, ResNet50FCN): 17 of the JAX package's 25 archs. The rest of
-the zoo is queued family by family in ROADMAP.md (queue 1).
+ResNet50UNet, ResNet50FCN), the attention U-Nets (AttU_Net, R2U_Net,
+R2AttU_Net) and CA-Net (Comprehensive_Atten_Unet): 21 of the JAX package's
+25 archs. The rest of the zoo is queued family by family in ROADMAP.md
+(queue 1).
 """
 
 import inspect
@@ -13,6 +15,8 @@ import json
 import torch
 import torch.nn as nn
 
+from .attention_unet import AttU_Net, R2AttU_Net, R2U_Net
+from .canet import Comprehensive_Atten_Unet
 from .crdn_backbones import (ResNet18RNN, ResNet34RNN, ResNet50FCN, ResNet50RNN,
                              ResNet50UNet, ResNet101RNN, ResNet152RNN, VGG16RNN)
 from .dual_attention import UNetRNNAttention, UNetRNNCAttention, UNetRNNPAttention
@@ -24,7 +28,8 @@ from .unet import UNet
 _REGISTRY = {cls.__name__: cls for cls in (
     UNet, NestedUNet, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
     UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, VGG16RNN, ResNet18RNN,
-    ResNet34RNN, ResNet50RNN, ResNet101RNN, ResNet152RNN, ResNet50UNet, ResNet50FCN)}
+    ResNet34RNN, ResNet50RNN, ResNet101RNN, ResNet152RNN, ResNet50UNet, ResNet50FCN,
+    AttU_Net, R2U_Net, R2AttU_Net, Comprehensive_Atten_Unet)}
 # --precision: the conv compute dtype (parameters are always float32)
 PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 # constructor arguments that create_model and the entry points set themselves

@@ -1,6 +1,7 @@
 """Initializers matching PyTorch layer defaults (counterpart of ops/init.py).
 
-`nn.Conv2d` draws weight and bias from U(-1/sqrt(fan_in), 1/sqrt(fan_in)); here
+`nn.Conv2d` and `nn.Linear` draw weight and bias from U(-1/sqrt(fan_in),
+1/sqrt(fan_in)); here
 the draw comes from an explicit `torch.Generator`, so a model built from a seed
 is the same on every device.
 """
@@ -21,8 +22,9 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
 
 
 def torch_conv_init_(weight: torch.Tensor, bias, generator: torch.Generator):
-    """OIHW `weight` and its `bias`: both U(±1/sqrt(I*kh*kw))."""
-    fan_in = int(weight.shape[1] * weight.shape[2] * weight.shape[3])
+    """OIHW `weight` (or a linear's [out, in]) and its `bias`: both
+    U(±1/sqrt(I*kh*kw)) (U(±1/sqrt(in)))."""
+    fan_in = int(weight[0].numel())
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     uniform_(weight, bound, generator)
     if bias is not None:
@@ -30,11 +32,12 @@ def torch_conv_init_(weight: torch.Tensor, bias, generator: torch.Generator):
 
 
 def init_convs_(module: torch.nn.Module, generator: Optional[torch.Generator] = None):
-    """`torch_conv_init_` on every conv of `module` (each submodule with a 4-D
-    `weight`), in module order, from `generator` (default: seed 0)."""
+    """`torch_conv_init_` on every conv and linear of `module` (each submodule
+    with a 4-D or 2-D `weight`), in module order, from `generator` (default:
+    seed 0)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     for m in module.modules():
         w = getattr(m, "weight", None)
-        if isinstance(w, torch.Tensor) and w.dim() == 4:
+        if isinstance(w, torch.Tensor) and w.dim() in (2, 4):
             torch_conv_init_(w, m.bias, generator)

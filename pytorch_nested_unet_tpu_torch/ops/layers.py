@@ -1,6 +1,7 @@
-"""`nn.Conv2d`, `nn.ConvTranspose2d`, `nn.BatchNorm2d` and `nn.Dropout2d`
-over NHWC tensors (counterparts of ops/layers.py::TorchConv,
-::TorchConvTranspose and ::BatchNorm, and of flax's channel dropout).
+"""`nn.Conv2d`, `nn.ConvTranspose2d`, `nn.Linear`, `nn.BatchNorm2d`,
+`nn.Dropout2d` and `nn.Dropout` over NHWC tensors (counterparts of
+ops/layers.py::TorchConv, ::TorchConvTranspose, ::TorchDense and
+::BatchNorm, of flax's `nn.BatchNorm` and of flax's dropout).
 
 Parameters are float32 under torch's names (`weight`, `bias`; a conv weight
 in OIHW, a transposed conv's in [in, out, kh, kw]), so reference checkpoints
@@ -81,19 +82,39 @@ class TorchConvTranspose(nn.Module):
         return y.contiguous()
 
 
-class ChannelDropout(nn.Module):
-    """`nn.Dropout2d` on NHWC: in train mode each (sample, channel) is zeroed
-    with probability `p` over all of H and W and the rest scaled by 1 / (1 -
-    p) (flax `nn.Dropout(p, broadcast_dims=(1, 2))`); identity in eval. The
+class TorchDense(nn.Module):
+    """linear over the last axis: the weight is [out, in], the bias [out];
+    `init_convs_` draws both from U(+-1/sqrt(in)), as torch and the JAX
+    package's `torch_dense_kernel_init` do. Input, weight and bias are cast
+    to `dtype` (flax's Dense computes in its dtype)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Dropout(nn.Module):
+    """`nn.Dropout` over every element: in train mode each is zeroed with
+    probability `p` and the rest scaled by 1 / (1 - p); identity in eval. The
     masks come from a generator per device, seeded on first use from
     `generator` (default: seed 0), so a model built from a seed drops the
-    same channels on every run."""
+    same elements on every run."""
 
     def __init__(self, p: float = 0.5, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.p = p
         self._seeds = generator if generator is not None else torch.Generator().manual_seed(0)
         self._generators = {}
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
@@ -102,8 +123,18 @@ class ChannelDropout(nn.Module):
         if gen is None:
             seed = int(torch.randint(0, 2**62, (1,), generator=self._seeds))
             gen = self._generators[x.device] = torch.Generator(x.device).manual_seed(seed)
-        keep = torch.rand(x.shape[0], 1, 1, x.shape[3], generator=gen, device=x.device) >= self.p
+        keep = torch.rand(self.mask_shape(x), generator=gen, device=x.device) >= self.p
         return x * (keep.to(x.dtype) / (1.0 - self.p))
+
+
+class ChannelDropout(Dropout):
+    """`nn.Dropout2d` on NHWC: in train mode each (sample, channel) is zeroed
+    with probability `p` over all of H and W and the rest scaled by 1 / (1 -
+    p) (flax `nn.Dropout(p, broadcast_dims=(1, 2))`); identity in eval.
+    Seeded as `Dropout`."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return (x.shape[0], 1, 1, x.shape[3])
 
 
 class BatchNorm(nn.Module):
@@ -130,3 +161,38 @@ class BatchNorm(nn.Module):
                          self.running_var, self.weight, self.bias, self.training, 0.1,
                          self.eps)
         return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's own `nn.BatchNorm` over NHWC, in float32 (CA-Net's non-local
+    W_bn and SpatialAtten's conv1_bn): train mode normalizes with the batch
+    mean and the biased variance E[x^2] - E[x]^2 (clipped at 0) and moves the
+    running statistics by `momentum` towards them -- the *biased* variance,
+    which `F.batch_norm` cannot do (torch updates with the unbiased one).
+    `momentum` is torch's convention (new = (1 - momentum) * old + momentum *
+    batch; flax's momentum 0.9 is 0.1 here, its 0.99 is 0.01).
+    `zero_scale` starts the scale at 0 (a residual branch that starts as
+    identity). The output is float32; callers cast it."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 zero_scale: bool = False):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.zeros(num_features) if zero_scale
+                                   else torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if self.training:
+            mean = x.mean(dim=(0, 1, 2))
+            var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias

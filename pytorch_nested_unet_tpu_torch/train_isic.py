@@ -14,8 +14,14 @@ import sys
 from . import train
 
 
+# train's short flags, so a preset's long flag does not override them
+_SHORT = {"-b": "--batch_size", "-a": "--arch"}
+
+
 def _with_defaults(argv, defaults):
-    given = {a.split("=")[0] for a in argv if a.startswith("--")}
+    """argv plus each of `defaults`' flags (and its value) that argv does not
+    give itself."""
+    given = {_SHORT.get(f, f) for f in (a.split("=")[0] for a in argv if a.startswith("-"))}
     out = list(argv)
     for flag, value in defaults.items():
         if flag not in given:

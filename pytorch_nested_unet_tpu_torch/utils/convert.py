@@ -8,8 +8,11 @@ and `final4.bias` for the UNet family; `conv1.conv1.0.weight`,
 `center.conv2.1.running_mean`, `score_block5.1.weight`, `RDC.gru_conv.bias`
 for the CRDN family; `layer3.2.bn2.weight`, `conv_block2.4.weight`,
 `conv5_score_block.1.running_var`, `up_concat4.up.weight`,
-`classifier.5.running_mean` for the backbones; conv weights OIHW float32,
-transposed-conv weights [in, out, kh, kw].
+`classifier.5.running_mean` for the backbones; `Conv1.conv.1.weight`,
+`Att5.psi.0.bias`, `RRCNN2.RCNN.1.conv.0.weight` for the attention U-Nets;
+`nonlocal4_2.W.1.running_var`, `up4.fc1.weight`,
+`scale_att.cbam.SpatialGate.conv1.bn.weight` for CA-Net; conv weights OIHW
+float32, transposed-conv weights [in, out, kh, kw], linear weights [out, in].
 """
 
 import re
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from ..models import model_class
+from ..models.attention_unet import _EncDecUNet
+from ..models.canet import Comprehensive_Atten_Unet
 from ..models.crdn_backbones import ResNetFCN, ResNetRNN, ResNetUNet, VGG16RNN, _ResNetTrunk
 from ..models.ghost import UNetRNNGhost
 from ..models.rdc import GATES, _UNetRNNBase
@@ -104,7 +109,62 @@ _FCN = (
     (re.compile(r"^classifier_bn2\.bn\."), "classifier.5."),
     (re.compile(r"^classifier_conv3\."), "classifier.8."),
 )
-_BACKBONE_RENAMES = ((VGG16RNN, _VGG), (ResNetRNN, _RESNET_SCORE + _RESNET_TRUNK),
+# The attention U-Nets (utils/torch_convert.py:92-131): the reference keys
+# conv_block as `*.conv.{0,1,3,4}` (conv, BN, conv, BN), up_conv as
+# `*.up.{1,2}`, the gates as `*.{W_g,W_x,psi}.{0,1}` and an RRCNN block as
+# `*.Conv_1x1` and `*.RCNN.{0,1}.conv.{0,1}`; the JAX package names them by
+# attribute, its plain BatchNorm one scope deeper (`bn1/bn/scale`).
+_ATTR_TO_ATTN = (
+    (re.compile(r"\.rcnn1\.conv\."), ".RCNN.0.conv.0."),
+    (re.compile(r"\.rcnn1\.bn\.bn\."), ".RCNN.0.conv.1."),
+    (re.compile(r"\.rcnn2\.conv\."), ".RCNN.1.conv.0."),
+    (re.compile(r"\.rcnn2\.bn\.bn\."), ".RCNN.1.conv.1."),
+    (re.compile(r"^((?:Up_)?RRCNN\d)\.conv_1x1\."), r"\1.Conv_1x1."),
+    (re.compile(r"\.conv1\."), ".conv.0."),
+    (re.compile(r"\.bn1\.bn\."), ".conv.1."),
+    (re.compile(r"\.conv2\."), ".conv.3."),
+    (re.compile(r"\.bn2\.bn\."), ".conv.4."),
+    (re.compile(r"\.(W_g|W_x|psi)_conv\."), r".\1.0."),
+    (re.compile(r"\.(W_g|W_x|psi)_bn\.bn\."), r".\1.1."),
+    (re.compile(r"^(Up\d)\.conv\."), r"\1.up.1."),
+    (re.compile(r"^(Up\d)\.bn\.bn\."), r"\1.up.2."),
+)
+# CA-Net (utils/torch_convert.py:233-305): the reference's conv_block
+# Sequentials, the gates' `W` and `combine_gates` Sequentials, the non-local
+# block's wrapped g / phi / W, SE blocks with a `downchannel` Sequential,
+# `dsvN.dsv.0`, the CBAM tree `scale_att.cbam.{ChannelGate.mlp.{1,3},
+# SpatialGate.conv{1,2}.{conv,bn}}` and `final.0`. The JAX package's plain
+# BatchNorm sits one scope deeper (`.bn.`); its two flax BNs (non-local
+# W_bn, SpatialAtten conv1_bn) do not.
+_ATTR_TO_CANET = (
+    (re.compile(r"^scale_att\.channel_gate\.fc1\."), "scale_att.cbam.ChannelGate.mlp.1."),
+    (re.compile(r"^scale_att\.channel_gate\.fc2\."), "scale_att.cbam.ChannelGate.mlp.3."),
+    (re.compile(r"^scale_att\.spatial_gate\.conv1_conv\."),
+     "scale_att.cbam.SpatialGate.conv1.conv."),
+    (re.compile(r"^scale_att\.spatial_gate\.conv1_bn\."), "scale_att.cbam.SpatialGate.conv1.bn."),
+    (re.compile(r"^scale_att\.spatial_gate\.conv2_conv\."),
+     "scale_att.cbam.SpatialGate.conv2.conv."),
+    (re.compile(r"^scale_att\.bn3\.bn\."), "scale_att.bn3."),
+    (re.compile(r"^nonlocal4_2\.g\."), "nonlocal4_2.g.0."),
+    (re.compile(r"^nonlocal4_2\.phi\."), "nonlocal4_2.phi.0."),
+    (re.compile(r"^nonlocal4_2\.W_conv\."), "nonlocal4_2.W.0."),
+    (re.compile(r"^nonlocal4_2\.W_bn\."), "nonlocal4_2.W.1."),
+    (re.compile(r"^(attentionblock\d\.gate_block_\d)\.W_conv\."), r"\1.W.0."),
+    (re.compile(r"^(attentionblock\d\.gate_block_\d)\.W_bn\.bn\."), r"\1.W.1."),
+    (re.compile(r"^(attentionblock\d)\.combine_conv\."), r"\1.combine_gates.0."),
+    (re.compile(r"^(attentionblock\d)\.combine_bn\.bn\."), r"\1.combine_gates.1."),
+    (re.compile(r"^(up\d)\.bn(\d)\.bn\."), r"\1.bn\2."),
+    (re.compile(r"^(up\d)\.downchannel_conv\."), r"\1.downchannel.0."),
+    (re.compile(r"^(up\d)\.downchannel_bn\.bn\."), r"\1.downchannel.1."),
+    (re.compile(r"^(dsv\d)\.conv\."), r"\1.dsv.0."),
+    (re.compile(r"^final\."), "final.0."),
+    (re.compile(r"^((?:conv\d|center))\.conv1\."), r"\1.conv.0."),
+    (re.compile(r"^((?:conv\d|center))\.bn1\.bn\."), r"\1.conv.1."),
+    (re.compile(r"^((?:conv\d|center))\.conv2\."), r"\1.conv.3."),
+    (re.compile(r"^((?:conv\d|center))\.bn2\.bn\."), r"\1.conv.4."),
+)
+_FAMILY_RENAMES = ((_EncDecUNet, _ATTR_TO_ATTN), (Comprehensive_Atten_Unet, _ATTR_TO_CANET),
+                     (VGG16RNN, _VGG), (ResNetRNN, _RESNET_SCORE + _RESNET_TRUNK),
                      (ResNetUNet, _RESNET_UNET + _RESNET_TRUNK),
                      (ResNetFCN, _FCN + _RESNET_TRUNK))
 # RNN-decoded archs: the reference builds every decoder's RDC gates
@@ -113,9 +173,9 @@ _RNN_ARCHS = (_UNetRNNBase, VGG16RNN, ResNetRNN)
 
 def _renames(arch: str):
     """The rules that take `arch`'s attribute-style keys to the reference's,
-    from its class: none outside the CRDN family and its backbones."""
+    from its class: none for the UNet family."""
     cls = model_class(arch)
-    for family, rules in _BACKBONE_RENAMES:
+    for family, rules in _FAMILY_RENAMES:
         if issubclass(cls, family):
             return rules
     if not issubclass(cls, _UNetRNNBase):
@@ -136,7 +196,8 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
     emits.
 
     `<m>/conv/{kernel,bias}` become `<m>.{weight,bias}` (HWIO -> OIHW);
-    batch-norm `scale/bias/mean/var` become `weight/bias/running_mean/
+    `<m>/dense/{kernel,bias}` become `<m>.{weight,bias}` ([in, out] ->
+    [out, in]); batch-norm `scale/bias/mean/var` become `weight/bias/running_mean/
     running_var`; attention `gamma` stays `gamma`; then the arch's renames.
     """
     out: Dict[str, torch.Tensor] = {}
@@ -147,14 +208,15 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
                 walk(v, path + (k,))
                 continue
             arr = np.asarray(v, np.float32)
-            if path and path[-1] == "conv":
+            if path and path[-1] in ("conv", "dense"):
                 base = ".".join(path[:-1])
                 if k == "kernel":
-                    out[base + ".weight"] = torch.from_numpy(arr.transpose(3, 2, 0, 1).copy())
+                    out[base + ".weight"] = torch.from_numpy(arr.transpose(
+                        (3, 2, 0, 1) if path[-1] == "conv" else (1, 0)).copy())
                 elif k == "bias":
                     out[base + ".bias"] = torch.from_numpy(arr.copy())
                 else:
-                    raise KeyError(f"unrecognized conv leaf: {'/'.join(path + (k,))}")
+                    raise KeyError(f"unrecognized {path[-1]} leaf: {'/'.join(path + (k,))}")
             elif k in _BN_LEAVES or k == "gamma":
                 out[".".join(path) + "." + _BN_LEAVES.get(k, k)] = torch.from_numpy(arr.copy())
             else:

@@ -30,12 +30,15 @@ FS = 16
 
 
 def jax_variables(jm, shape, seed):
-    """The JAX model's variable tree from its abstract init (nothing is
-    compiled), filled from a numpy seed: conv kernels U(+-1/sqrt(fan_in)),
+    """The JAX model's variable tree from its abstract init on inputs of
+    `shape` (or of each shape of a tuple of shapes; nothing is compiled),
+    filled from a numpy seed: conv kernels U(+-1/sqrt(fan_in)),
     conv biases U(+-0.1), BN scales, biases and statistics off their init
     values, attention gammas nonzero (at their init of 0 attention is a
     no-op)."""
-    tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros(shape, jnp.float32))
+    shapes = shape if isinstance(shape[0], tuple) else (shape,)
+    tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                          *(jnp.zeros(s, jnp.float32) for s in shapes))
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -195,9 +198,16 @@ def train_batch(seed, b=2, hw=32):
 
 
 # conv biases that feed a BN: UnetConv2's and VGGBlock's convs, score blocks,
-# VGG16RNN's encoder units and the ResNet backbones' score blocks
+# VGG16RNN's encoder units and the ResNet backbones' score blocks; the
+# attention U-Nets' conv blocks, up-convs, gates and recurrent blocks; CA-Net's
+# conv blocks, its grid gates' W, their combine conv and the non-local W
 _BN_FED_BIAS = re.compile(r"^(conv\d+|conv\d_\d|center)/conv[12]/conv/bias$|"
-                          r"^(score_block\d|conv\d_score_block|conv_block\d_\d)/conv/conv/bias$")
+                          r"^(score_block\d|conv\d_score_block|conv_block\d_\d)/conv/conv/bias$|"
+                          r"^(Conv|Up_conv)\d/conv[12]/conv/bias$|^Up\d/conv/conv/bias$|"
+                          r"^Att\d/(W_g|W_x|psi)_conv/conv/bias$|"
+                          r"^(Up_)?RRCNN\d/rcnn[12]/conv/conv/bias$|"
+                          r"^attentionblock\d/(gate_block_\d/W|combine)_conv/conv/bias$|"
+                          r"^nonlocal4_2/W_conv/conv/bias$")
 
 
 def zero_bn_fed_biases(variables):

@@ -18,13 +18,15 @@ from pytorch_nested_unet_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_crdn import check_train_step_against_jax
 
 
-def _step_gradients(arch, kw, variables, imgs, masks, dtype, noise=0.0):
+def _step_gradients(arch, kw, variables, imgs, masks, dtype, noise=0.0,
+                    noisy=(TorchConv, TorchConvTranspose)):
     """The port's train-step gradients and running statistics (BCEDice,
     augment none) from `variables`, float64 where `dtype` says so: then every
     BN layer runs as F.batch_norm in float64 (the port's BN layers take their
     statistics in float32) and the loss too; the model's float32 output cast
-    is kept. `noise` > 0 adds to every conv's output Gaussian noise of that
-    fraction of the output's rms (seeded)."""
+    is kept. `noise` > 0 adds to the output of every module of a `noisy`
+    class (default: every conv) Gaussian noise of that fraction of the
+    output's rms (seeded)."""
     from pytorch_nested_unet_tpu_torch.data.augment import eval_transform
     from pytorch_nested_unet_tpu_torch.losses import _bce_elementwise, _soft_dice
 
@@ -42,7 +44,7 @@ def _step_gradients(arch, kw, variables, imgs, masks, dtype, noise=0.0):
     if noise:
         gen = torch.Generator().manual_seed(0)
         for conv in model.modules():
-            if isinstance(conv, (TorchConv, TorchConvTranspose)):
+            if isinstance(conv, noisy):
                 conv.register_forward_hook(lambda _, args, y: y + noise * y.detach().pow(2).mean(
                     ).sqrt() * torch.randn(y.shape, generator=gen, dtype=y.dtype))
     x, m = eval_transform(torch.from_numpy(imgs), torch.from_numpy(masks))
@@ -58,19 +60,19 @@ def _step_gradients(arch, kw, variables, imgs, masks, dtype, noise=0.0):
 CONV_ROUNDING = 1e-6
 
 
-def f32_movement(arch, kw):
+def f32_movement(arch, kw, noisy=(TorchConv, TorchConvTranspose)):
     """check_train_step_against_jax's `floor`: how far f32 rounding moves the
     port's step, the larger of two readings: its distance from the same step
-    in float64, and how far it moves when every conv output moves by
-    CONV_ROUNDING of its rms (another f32 implementation's convs round
-    otherwise). Per parameter, relative to the larger of the reference
+    in float64, and how far it moves when every conv output (every output
+    of a `noisy` module) moves by CONV_ROUNDING of its rms (another f32
+    implementation's convs round otherwise). Per parameter, relative to the larger of the reference
     gradient's norm and its module's weight gradient norm; per running
     statistic, elementwise."""
     def floor(variables, imgs, masks):
         g32, s32 = _step_gradients(arch, kw, variables, imgs, masks, torch.float32)
         readings = [_step_gradients(arch, kw, variables, imgs, masks, torch.float64),
                     _step_gradients(arch, kw, variables, imgs, masks, torch.float32,
-                                    CONV_ROUNDING)]
+                                    CONV_ROUNDING, noisy)]
 
         def rel(n, ref):
             return float((g32[n] - ref[n]).norm() / max(

@@ -96,7 +96,7 @@ def test_unknown_arch_kwarg_raises(tmp_path):
     with pytest.raises(ValueError, match="fast_pam"):
         parse_arch_kwargs("UNetRNNCAttention", '{"fast_pam": true}')
     with pytest.raises(SystemExit):  # argparse: not a registered arch
-        ttrain.parse_args(argv + ["--arch", "AttU_Net"])
+        ttrain.parse_args(argv + ["--arch", "DoubleUnet"])
     assert parse_arch_kwargs("UNet", '{"nb_filter": [4, 8, 16, 32, 64]}') == {
         "nb_filter": (4, 8, 16, 32, 64)}
     assert parse_arch_kwargs("UNetRNNAttention", {"fast_pam": True, "pam_grid": 64}) == {
@@ -104,15 +104,16 @@ def test_unknown_arch_kwarg_raises(tmp_path):
 
 
 def test_every_registered_arch_serves_through_predictor():
-    """Predictor(arch=...) builds and serves each of the 17 registered archs:
+    """Predictor(arch=...) builds and serves each of the 21 registered archs:
     narrow where the arch has a width option, the CRDN backbones at full
     width (ResNet50FCN at 48x48: its valid 3x3 classifier conv needs down5
     of 3x3)."""
     rng = np.random.default_rng(4)
-    assert len(arch_names()) == 17
+    assert len(arch_names()) == 21
     for arch in arch_names():
         options = arch_options(arch)
         kw = ({"nb_filter": (4, 8, 16, 32, 64)} if "nb_filter" in options
+              else {"filters": (4, 8, 16, 32, 64)} if "filters" in options
               else {"feature_scale": 16} if "feature_scale" in options else {})
         hw = {"UNetRM7": 64, "ResNet50FCN": 48}.get(arch, 16)  # RM7 pools 6 times
         images = rng.integers(0, 256, (3, hw, hw, 3), dtype=np.uint8)

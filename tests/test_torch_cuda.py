@@ -464,3 +464,26 @@ def test_folder_cli_trains_an_epoch_with_the_expected_launches(cuda, tmp_path):
     assert len(r["log"]["loss"]) == 1 and np.isfinite(r["log"]["loss"][0])
     for f in ("config.yml", "log.csv", "model.pth", "last.pth"):
         assert (tmp_path / "models" / "folder_NestedUNet_wDS" / f).is_file()
+
+
+@pytest.mark.parametrize("arch,kw", [("AttU_Net", {"filters": NARROW}),
+                                     ("Comprehensive_Atten_Unet", {"feature_scale": 16})])
+def test_attention_archs_serve_on_the_card_like_the_cpu(cuda, arch, kw):
+    """Narrow AttU_Net and CA-Net (its dropout on, as trained) served on the
+    card against the same weights on the CPU within 1e-4, and one bf16 train
+    step on the card: no kernel launched (plain BN, no decoder-fusion node)."""
+    images = np.random.default_rng(4).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+    gpu = Predictor(arch, device="cuda", batch_size=2, arch_kwargs=kw)
+    before = (dict(bn.LAUNCHES), df.LAUNCHES)
+    out = gpu.predict_u8(images)
+    sd = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    ref = Predictor(arch, device="cpu", batch_size=2, arch_kwargs=kw,
+                    weights=sd).predict_u8(images)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+    m = create_model(arch, dtype=torch.bfloat16, **kw).to(cuda)
+    step = make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-2), "BCEDiceLoss",
+                           False, augment="full")
+    imgs = torch.from_numpy(images[:2]).to(cuda)
+    loss = step(imgs, imgs[..., :1], torch.Generator(device=cuda))["loss"]
+    assert torch.isfinite(loss)
+    assert (dict(bn.LAUNCHES), df.LAUNCHES) == before

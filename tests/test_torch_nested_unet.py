@@ -97,4 +97,4 @@ def test_same_seed_same_weights_and_unknown_arch():
     b = create_model("NestedUNet", generator=torch.Generator().manual_seed(3))
     assert all(torch.equal(a.state_dict()[k], v) for k, v in b.state_dict().items())
     with pytest.raises(KeyError, match="ROADMAP"):
-        create_model("AttU_Net")
+        create_model("DoubleUnet")
