@@ -11,7 +11,9 @@ Serving a capsule on a directory of images:
     python -m pytorch_nested_unet_tpu_torch.infer --name dsb2018_96_NestedUNet_wDS \
         --input_dir new_images/ [--output_dir models] [--save_dir outputs] \
         [--img_ext .png] [-b 16] [--threshold 0.5] [--full_res true] \
-        [--out_ext .png|.jpg] [--precision bf16|fp32] [--device cuda]
+        [--out_ext .png|.jpg] [--precision bf16|fp32] [--device cuda] \
+        [--refine true [--refine_weights PTH] [--refine_L 900] [--refine_fast true] \
+         [--refine_tile_batch K]]
 
 loads models/<name>/{config.yml, model.pth} (in the capsule's precision
 unless --precision says otherwise), decodes and resizes one batch of images
@@ -19,7 +21,15 @@ at a time (an unreadable image is skipped with a warning), and writes one
 mask per image and class to <save_dir>/<name>/<c>/<id><out_ext>: the
 probability x255, resized back to the image's own size with --full_res true,
 thresholded to 0/255 (after that resize) with --threshold >= 0. It prints the
-steady-state p50/p95 ms per batch and img/s, the first batch apart.
+steady-state p50/p95 ms per batch and img/s, the first batch apart (the
+model's batches; refinement is not in them). `--refine true` refines each
+class mask with CascadePSP (refinement/refiner.py: the released weights
+from --refine_weights, .pth or .npz, or a random init) on the resized image
+before --full_res and --threshold: the global pass alone with --refine_fast
+true (the default), else the global pass and the tiled local pass, at a
+longer side of --refine_L, --refine_tile_batch tiles per forward. The
+refinement runs in float32 on the model's device whatever --precision
+says.
 
 Serving arrays:
 
@@ -29,9 +39,9 @@ Serving arrays:
         [--batch_size 16] [--device cuda]
 
 reads a (N,H,W,C) uint8 `.npy` and writes (N,H,W,num_classes) float32
-probabilities, for any registered arch (the UNet and CRDN families). The JAX
-CLI's --artifact (an exported model) and --refine (CascadePSP) are not ported
-(ROADMAP.md queue 1).
+probabilities, for any registered arch, refined as above with --refine true.
+The JAX CLI's --artifact (an exported model) is not ported (ROADMAP.md
+queue 1).
 """
 
 import argparse
@@ -46,6 +56,7 @@ import torch
 
 from .data import image_io
 from .models import PRECISIONS, arch_names, create_model, parse_arch_kwargs
+from .refinement import Refiner
 from .training.loop import make_predict_fn
 from .utils.config import str2bool
 from .utils.convert import load_reference_pth
@@ -79,7 +90,8 @@ class Predictor:
                              **parse_arch_kwargs(arch, arch_kwargs))
         if weights is not None:
             if isinstance(weights, (str, os.PathLike)):
-                weights = load_reference_pth(weights, arch, getattr(model, "decoder", None))
+                weights = load_reference_pth(weights, arch, getattr(model, "decoder", None),
+                                             init=model.state_dict())
             model.load_state_dict(weights, strict=True)
         self._serve(model)
 
@@ -145,6 +157,41 @@ class Predictor:
                 "first_batch_ms": lat[0] * 1e3}
 
 
+def refine_masks(refiner: Refiner, images: np.ndarray, probs: np.ndarray, classes,
+                 fast: bool, L: int) -> np.ndarray:
+    """Refine probs[j, ..., c] for every image j and class c in `classes`, in
+    place: CascadePSP on images[j] (uint8, HWC) and the mask uint8(prob x
+    255), the result / 255 (reference main.py:59-81). Returns probs."""
+    for j in range(len(probs)):
+        for c in classes:
+            refined = refiner.refine(images[j], (probs[j, :, :, c] * 255).astype(np.uint8),
+                                     fast=fast, L=L)
+            probs[j, :, :, c] = refined.astype(np.float32) / 255.0
+    return probs
+
+
+def add_refine_flags(p: argparse.ArgumentParser, fast_default: bool):
+    """--refine and its options, as the JAX CLIs take them."""
+    p.add_argument("--refine", default=False, type=str2bool,
+                   help="refine each mask with CascadePSP (refinement/refiner.py)")
+    p.add_argument("--refine_weights", default=None,
+                   help="CascadePSP weights (.pth state dict or .npz); random init if omitted")
+    p.add_argument("--refine_L", default=900, type=int,
+                   help="the refinement's working size (longer side)")
+    p.add_argument("--refine_fast", default=fast_default, type=str2bool,
+                   help="global pass only; false adds the tiled local pass")
+    p.add_argument("--refine_tile_batch", default=None, type=int,
+                   help="tiles per forward in the local pass")
+
+
+def make_refiner(args: dict, device) -> Optional[Refiner]:
+    """The Refiner that --refine asks for (float32, on `device`), or None."""
+    if not args["refine"]:
+        return None
+    return Refiner(model_path=args["refine_weights"], tile_batch=args["refine_tile_batch"],
+                   device=device)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--name", default=None, help="capsule name (models/<name>)")
@@ -173,6 +220,7 @@ def parse_args(argv=None):
     p.add_argument("-b", "--batch_size", default=16, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda")
+    add_refine_flags(p, fast_default=True)
     return p.parse_args(argv)
 
 
@@ -199,6 +247,7 @@ def serve_capsule(args) -> dict:
                 for c in range(config["num_classes"])]
     for d in out_dirs:
         os.makedirs(d, exist_ok=True)
+    refiner = make_refiner(vars(args), predictor.device)
 
     written = unreadable = 0
     for s in range(0, len(paths), args.batch_size):
@@ -212,6 +261,9 @@ def serve_capsule(args) -> dict:
         if not len(ok):
             continue
         probs = predictor.predict_u8(images[ok])
+        if refiner is not None:  # before --full_res and --threshold
+            refine_masks(refiner, images[ok], probs, range(config["num_classes"]),
+                         args.refine_fast, args.refine_L)
         for j, i in enumerate(ok):
             img_id = os.path.splitext(os.path.basename(chunk[i]))[0]
             for c, d in enumerate(out_dirs):
@@ -245,7 +297,12 @@ def main(argv=None) -> dict:
                           args.deep_supervision, args.precision or "fp32", args.batch_size,
                           weights=args.weights, seed=args.seed, device=args.device,
                           arch_kwargs=args.arch_kwargs)
-    probs = predictor.predict_u8(np.load(args.input))
+    images = np.load(args.input)
+    probs = predictor.predict_u8(images)
+    refiner = make_refiner(vars(args), predictor.device)
+    if refiner is not None:
+        refine_masks(refiner, images, probs, range(args.num_classes), args.refine_fast,
+                     args.refine_L)
     np.save(args.output, probs)
     s = predictor.summary()
     _print_summary(s, predictor, f"{len(probs)} images", args.output)

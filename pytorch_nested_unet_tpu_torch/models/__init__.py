@@ -4,9 +4,10 @@ The port registers the UNet family (UNet, NestedUNet), the CRDN family
 (UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost and the three UNetRNN attention
 variants) and its backbones (VGG16RNN, ResNet{18,34,50,101,152}RNN,
 ResNet50UNet, ResNet50FCN), the attention U-Nets (AttU_Net, R2U_Net,
-R2AttU_Net) and CA-Net (Comprehensive_Atten_Unet): 21 of the JAX package's
-25 archs. The rest of the zoo is queued family by family in ROADMAP.md
-(queue 1).
+R2AttU_Net), CA-Net (Comprehensive_Atten_Unet) and the PSP hybrids
+(UNetRNNPSP, UNetRNNCAttention_PSP: UNetRNN with CascadePSP refinement in
+the model): 23 of the JAX package's 25 archs. The rest of the zoo is queued
+family by family in ROADMAP.md (queue 1).
 """
 
 import inspect
@@ -22,6 +23,7 @@ from .crdn_backbones import (ResNet18RNN, ResNet34RNN, ResNet50FCN, ResNet50RNN,
 from .dual_attention import UNetRNNAttention, UNetRNNCAttention, UNetRNNPAttention
 from .ghost import UNetRNNGhost
 from .nested_unet import NestedUNet
+from .psp_hybrid import UNetRNNCAttention_PSP, UNetRNNPSP
 from .rdc import UNetRM3, UNetRM7, UNetRNN
 from .unet import UNet
 
@@ -29,7 +31,8 @@ _REGISTRY = {cls.__name__: cls for cls in (
     UNet, NestedUNet, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
     UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, VGG16RNN, ResNet18RNN,
     ResNet34RNN, ResNet50RNN, ResNet101RNN, ResNet152RNN, ResNet50UNet, ResNet50FCN,
-    AttU_Net, R2U_Net, R2AttU_Net, Comprehensive_Atten_Unet)}
+    AttU_Net, R2U_Net, R2AttU_Net, Comprehensive_Atten_Unet, UNetRNNPSP,
+    UNetRNNCAttention_PSP)}
 # --precision: the conv compute dtype (parameters are always float32)
 PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 # constructor arguments that create_model and the entry points set themselves

@@ -69,16 +69,18 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """ResNet bottleneck, expansion 4, the stride on the 3x3 conv (reference
-    CRDN.py:589-633)."""
+    CRDN.py:589-633); `dilation` dilates (and pads) that conv as CascadePSP's
+    trunk does (reference extractors.py:14-50)."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dilation: int = 1):
         super().__init__()
         self.conv1 = TorchConv(inplanes, planes, 1, 0, dtype, use_bias=False)
         self.bn1 = BatchNorm(planes, dtype=dtype)
-        self.conv2 = TorchConv(planes, planes, 3, 1, dtype, stride=stride, use_bias=False)
+        self.conv2 = TorchConv(planes, planes, 3, dilation, dtype, stride=stride,
+                               dilation=dilation, use_bias=False)
         self.bn2 = BatchNorm(planes, dtype=dtype)
         self.conv3 = TorchConv(planes, planes * 4, 1, 0, dtype, use_bias=False)
         self.bn3 = BatchNorm(planes * 4, dtype=dtype)

@@ -141,18 +141,29 @@ class _UNetRNNBase(nn.Module):
     def attend(self, scores: List[torch.Tensor]) -> List[torch.Tensor]:
         return scores
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is not None:
-            x = x.to(self.dtype)
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The encoder column's features, finest first: a UnetConv2 block,
+        then [2x2 max-pool, UnetConv2] per level (reference
+        archs_backup.py:299-311)."""
         feats = []
         for i in range(len(self.filters)):
             if i > 0:
                 x = max_pool2x2(x)
             x = getattr(self, self._block_name(i))(x)
             feats.append(x)
-        scores = [getattr(self, f"score_block{i + 1}")(feats[i])
-                  for i in reversed(range(len(feats)))]  # coarsest first
-        return rdc_decode(self.RDC, self.attend(scores)).to(torch.float32)
+        return feats
+
+    def score(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each level's score block, coarsest first (reference
+        archs_backup.py:313-321)."""
+        return [getattr(self, f"score_block{i + 1}")(feats[i])
+                for i in reversed(range(len(feats)))]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        scores = self.attend(self.score(self.encode(x)))
+        return rdc_decode(self.RDC, scores).to(torch.float32)
 
 
 class UNetRNN(_UNetRNNBase):

@@ -22,6 +22,37 @@ def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def avg_pool2d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
+    """`nn.AvgPool2d(window, stride)` on (B,H,W,C) over valid windows
+    (stride defaults to the window). The result is NHWC-contiguous."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), tuple(window), tuple(stride or window))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """`nn.AdaptiveAvgPool2d(out_hw)` on (B,H,W,C): output cell i of an axis
+    averages input rows floor(i * in / out) to ceil((i + 1) * in / out), the
+    bins of the JAX package (which sums them from an integral image, so the
+    two differ in the last bits). The PSP pooling sizes (1, 2, 3, 6)
+    (reference pspnet.py:8-26) and the area resize. The result is
+    NHWC-contiguous."""
+    out_hw = (int(out_hw[0]), int(out_hw[1]))
+    if tuple(x.shape[1:3]) == out_hw:
+        return x
+    y = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_hw)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def adaptive_max_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """`nn.AdaptiveMaxPool2d(out_hw)` on (B,H,W,C), the bins of
+    `adaptive_avg_pool`. The result is NHWC-contiguous."""
+    out_hw = (int(out_hw[0]), int(out_hw[1]))
+    if tuple(x.shape[1:3]) == out_hw:
+        return x
+    y = F.adaptive_max_pool2d(x.permute(0, 3, 1, 2), out_hw)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     """Mean over H and W of (B,H,W,C): (B,1,1,C), or (B,C) without keepdims."""
     return x.mean(dim=(1, 2), keepdim=keepdims)

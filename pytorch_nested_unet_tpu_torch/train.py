@@ -40,8 +40,11 @@ short last batch padded and weighted) and steps ReduceLROnPlateau with the
 validation loss. model.pth loads into `infer.Predictor(weights=...)` and into
 the JAX package (`convert.py --pth`). The JAX CLI's --mesh and
 --spatial_partition, --remat, --fused_bn(_mode) (the port's BN always runs
-its CUDA kernels), --profile, --checkpoint_backend, --platform, --refine and
+its CUDA kernels), --profile, --checkpoint_backend, --platform and
 --artifact are not ported (ROADMAP.md queue 1); argparse rejects them.
+Refinement is `val --refine` / `infer --refine`, or in the model with
+--arch UNetRNNPSP / UNetRNNCAttention_PSP (`--pretrained_backbone` then
+fills their refinement trunk, `psp.feats`).
 """
 
 import argparse
@@ -335,7 +338,8 @@ def _init_from(model, config):
     pth = os.path.join(src, "model.pth")
     if not os.path.isfile(pth):
         sys.exit(f"--init_from: no model.pth under {src}")
-    sd = load_reference_pth(pth, config["arch"], getattr(model, "decoder", None))
+    sd = load_reference_pth(pth, config["arch"], getattr(model, "decoder", None),
+                            init=model.state_dict())
     own = model.state_dict()
     missing, unexpected = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
     if missing or unexpected:
@@ -482,7 +486,9 @@ def _augment_spec(v):
     return v
 
 
-def parse_args(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
+    """The trainer's flags (the presets' `train_isic._with_defaults` reads
+    which of them an argv gives through this parser)."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--name", default=None,
                    help="run name (default: <dataset>_<arch>_{w,wo}DS; from arrays "
@@ -538,12 +544,17 @@ def parse_args(argv=None) -> dict:
                         "or a directory), with a fresh optimizer")
     p.add_argument("--pretrained_backbone", default=None, metavar="PTH",
                    help="torchvision-format ResNet .pth poured into the model's ResNet "
-                        "trunk (the ResNet backbone archs) after --init_from")
+                        "trunk (the ResNet backbone archs, the PSP hybrids' refinement trunk) "
+                        "after --init_from")
     p.add_argument("--device", default="cuda")
     for flag in NPY_FLAGS:
         p.add_argument(f"--{flag}", default=None,
                        help="train from .npy arrays instead of a folder (all four flags)")
-    return vars(p.parse_args(argv))
+    return p
+
+
+def parse_args(argv=None) -> dict:
+    return vars(build_parser().parse_args(argv))
 
 
 def main(argv=None) -> dict:

@@ -9,22 +9,24 @@ masks), .jpg images and .png masks, and augmentation reduced to resize +
 normalize. Any flag given overrides the preset.
 """
 
+import argparse
 import sys
 
 from . import train
 
 
-# train's short flags, so a preset's long flag does not override them
-_SHORT = {"-b": "--batch_size", "-a": "--arch"}
-
-
 def _with_defaults(argv, defaults):
-    """argv plus each of `defaults`' flags (and its value) that argv does not
-    give itself."""
-    given = {_SHORT.get(f, f) for f in (a.split("=")[0] for a in argv if a.startswith("-"))}
+    """argv plus each of `defaults`' flags (and its value) whose destination
+    argv does not set itself. What argv sets is read by the trainer's own
+    parser with every default suppressed, so each spelling counts: `-b4`,
+    `-b 4`, `--batch 4` (an abbreviation), `--batch_size=4`, `-aUNet`."""
+    parser = train.build_parser()
+    for action in parser._actions:
+        action.default = argparse.SUPPRESS
+    given = vars(parser.parse_args(argv))
     out = list(argv)
     for flag, value in defaults.items():
-        if flag not in given:
+        if parser._option_string_actions[flag].dest not in given:
             out += [flag, value]
     return out
 

@@ -44,8 +44,8 @@ def load_capsule(model_dir: str, precision=None):
     config = load_config(model_dir)
     model = build_from_config(config, precision)
     model.load_state_dict(load_reference_pth(os.path.join(model_dir, "model.pth"),
-                                             config["arch"], getattr(model, "decoder", None)),
-                          strict=True)
+                                             config["arch"], getattr(model, "decoder", None),
+                                             init=model.state_dict()), strict=True)
     return model.eval(), config
 
 

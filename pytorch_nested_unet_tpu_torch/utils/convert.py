@@ -11,8 +11,11 @@ for the CRDN family; `layer3.2.bn2.weight`, `conv_block2.4.weight`,
 `classifier.5.running_mean` for the backbones; `Conv1.conv.1.weight`,
 `Att5.psi.0.bias`, `RRCNN2.RCNN.1.conv.0.weight` for the attention U-Nets;
 `nonlocal4_2.W.1.running_var`, `up4.fc1.weight`,
-`scale_att.cbam.SpatialGate.conv1.bn.weight` for CA-Net; conv weights OIHW
-float32, transposed-conv weights [in, out, kh, kw], linear weights [out, in].
+`scale_att.cbam.SpatialGate.conv1.bn.weight` for CA-Net; the CRDN keys plus
+the released CascadePSP keys under `psp.` (`psp.feats.layer3.2.bn2.weight`,
+`psp.psp.stages.3.1.weight`, `psp.up_1.conv2.3.running_var`,
+`psp.final_28.0.bias`) for the PSP hybrids; conv weights OIHW float32,
+transposed-conv weights [in, out, kh, kw], linear weights [out, in].
 """
 
 import re
@@ -26,6 +29,7 @@ from ..models.attention_unet import _EncDecUNet
 from ..models.canet import Comprehensive_Atten_Unet
 from ..models.crdn_backbones import ResNetFCN, ResNetRNN, ResNetUNet, VGG16RNN, _ResNetTrunk
 from ..models.ghost import UNetRNNGhost
+from ..models.psp_hybrid import _PSPTail
 from ..models.rdc import GATES, _UNetRNNBase
 
 # flax leaf -> torch leaf for batch-norm parameters and statistics
@@ -163,6 +167,30 @@ _ATTR_TO_CANET = (
     (re.compile(r"^((?:conv\d|center))\.conv2\."), r"\1.conv.3."),
     (re.compile(r"^((?:conv\d|center))\.bn2\.bn\."), r"\1.conv.4."),
 )
+# The PSP hybrids' refinement network `psp` (refinement/refiner.py:181-215 of
+# the JAX package, `_flax_path_to_torch_key`): the JAX package names the
+# trunk's blocks `layer{L}_{i}` with `downsample_conv` / `downsample_bn`, the
+# pyramid's convs `stage{k}_conv`, the upsample Sequentials' members
+# `conv_{0,2,3,5}` / `conv2_{...}` and the heads' `final_28_{0,2}`, its plain
+# BatchNorm one scope deeper (`bn1/bn/scale`); the released checkpoint keys
+# them as `layer{L}.{i}.downsample.{0,1}`, `stages.{k}.1`, `conv.{i}` and
+# `final_28.{i}`.
+_PSP_HYBRID = (
+    (re.compile(r"^psp\.feats\.bn1\.bn\."), "psp.feats.bn1."),
+    (re.compile(r"^psp\.feats\.layer(\d)_(\d+)\.downsample_conv\."),
+     r"psp.feats.layer\1.\2.downsample.0."),
+    (re.compile(r"^psp\.feats\.layer(\d)_(\d+)\.downsample_bn\.bn\."),
+     r"psp.feats.layer\1.\2.downsample.1."),
+    (re.compile(r"^psp\.feats\.layer(\d)_(\d+)\.(bn\d)\.bn\."), r"psp.feats.layer\1.\2.\3."),
+    (re.compile(r"^psp\.feats\.layer(\d)_(\d+)\.(conv\d)\."), r"psp.feats.layer\1.\2.\3."),
+    (re.compile(r"^psp\.psp\.stage(\d)_conv\."), r"psp.psp.stages.\1.1."),
+    (re.compile(r"^psp\.(up_\d)\.(conv2?)_(\d)\.bn\."), r"psp.\1.\2.\3."),
+    (re.compile(r"^psp\.(up_\d)\.(conv2?)_(\d)\."), r"psp.\1.\2.\3."),
+    (re.compile(r"^psp\.(final_(?:28|56))_(\d)\."), r"psp.\1.\2."),
+)
+# what a reference checkpoint of a PSP hybrid lacks (root convert.py:102-112)
+_PSP_SYNTH_NOTE = ("refinement tensors the reference builds as a fresh random PSPNet inside "
+                  "every forward (archs_backup.py:1533-1537): this model's init, trainable")
 _FAMILY_RENAMES = ((_EncDecUNet, _ATTR_TO_ATTN), (Comprehensive_Atten_Unet, _ATTR_TO_CANET),
                      (VGG16RNN, _VGG), (ResNetRNN, _RESNET_SCORE + _RESNET_TRUNK),
                      (ResNetUNet, _RESNET_UNET + _RESNET_TRUNK),
@@ -181,6 +209,8 @@ def _renames(arch: str):
     if not issubclass(cls, _UNetRNNBase):
         return ()
     rules = _ATTR_TO_CRDN + (_CENTER if cls.CENTER else ())
+    if issubclass(cls, _PSPTail):
+        return _PSP_HYBRID + rules
     return _ATTR_TO_GHOST + rules if issubclass(cls, UNetRNNGhost) else rules
 
 
@@ -229,7 +259,9 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
 
 
 def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = None,
-                       dropped: Optional[set] = None) -> Dict[str, torch.Tensor]:
+                       dropped: Optional[set] = None,
+                       init: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Read a reference-layout `model.pth` (e.g. one written by
     `python convert.py --export`, or by the reference trainer) as float32
     tensors, dropping DataParallel `module.` prefixes, `num_batches_tracked`
@@ -243,7 +275,10 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
     :169-176). The ResNet backbones' unused `fc` head (CRDN.py:440, :696,
     :802) and VGG16RNN's unused `score` conv (CRDN.py:353) go the same way
     (utils/torch_convert.py:230-231). The dropped keys are added to
-    `dropped` when a set is given."""
+    `dropped` when a set is given. A PSP hybrid's reference checkpoint
+    carries no `psp.*` (the reference builds that network inside forward):
+    those tensors are taken from `init` (the model's own state dict), with a
+    note printed, as the root convert.py synthesizes them."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     out = {}
     for key, value in sd.items():
@@ -266,4 +301,10 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
         del out[key]
     if dropped is not None:
         dropped.update(dead)
+    if issubclass(cls, _PSPTail) and init is not None \
+            and not any(k.startswith("psp.") for k in out):
+        synth = {k: v.detach().to("cpu", torch.float32) for k, v in init.items()
+                 if k.startswith("psp.")}
+        out.update(synth)
+        print(f"synthesized {len(synth)} {_PSP_SYNTH_NOTE}")
     return out

@@ -19,7 +19,9 @@ model's state dict, so the import is a key-for-key copy:
 - `load_pretrained_backbone`: a `.pth` file -> the converted trunk.
 
 `train.py --pretrained_backbone PTH` applies them to every trunk of the
-model after `--init_from`.
+model after `--init_from`: the ResNet backbones' trunk at the root, the PSP
+hybrids' refinement trunk at `psp.feats` (its 6-channel stem gets zeros in
+the 3 segmentation channels).
 """
 
 import re

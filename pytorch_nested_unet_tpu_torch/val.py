@@ -3,7 +3,8 @@ reference val.py:31-113).
 
     python -m pytorch_nested_unet_tpu_torch.val --name dsb2018_96_NestedUNet_wDS \
         [--data_dir inputs] [--output_dir models] [--save_dir outputs] [-b 16] \
-        [--out_ext .jpg|.png] [--device cuda]
+        [--out_ext .jpg|.png] [--device cuda] [--refine true [--refine_weights PTH] \
+        [--refine_L 900] [--refine_fast false] [--refine_tile_batch K]]
 
 Loads the models/<name>/ capsule (config.yml + model.pth, in the capsule's
 precision), re-derives the seed-41 validation split of the capsule's dataset
@@ -11,8 +12,13 @@ precision), re-derives the seed-41 validation split of the capsule's dataset
 scores the hard IoU at 0.5 over the valid images of each batch, weighted by
 their count, writes outputs/<name>/<c>/<id>.jpg = uint8(prob * 255) and
 prints `IoU: x`. `--out_ext .png` writes the masks as PNGs instead, for a
-host whose image library was built without a JPEG codec. The JAX CLI's
---refine (CascadePSP) is not ported (ROADMAP.md queue 1).
+host whose image library was built without a JPEG codec. `--refine true`
+refines class 0 of each image with CascadePSP before scoring (the
+capability the reference stubs at train_ISIC_ca.py:183-189): the loader's
+image and uint8(prob x 255) through `Refiner.refine`, in float32 on the
+model's device, the full pipeline (global and tiled local pass) unless
+--refine_fast true; without --refine_weights the refinement net is a
+random init, and a warning says so.
 """
 
 import argparse
@@ -23,7 +29,7 @@ import numpy as np
 from .data import image_io
 from .data.datasets import DATASET_CLASSES, dirs_for, list_image_ids, split_ids
 from .data.pipeline import epoch_batches
-from .infer import Predictor
+from .infer import Predictor, add_refine_flags, make_refiner, refine_masks
 from .utils.meters import AverageMeter
 
 
@@ -37,6 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--out_ext", default=".jpg", choices=[".jpg", ".png"],
                    help="mask format: .jpg as the reference writes them, or lossless .png")
     p.add_argument("--device", default="cuda")
+    add_refine_flags(p, fast_default=False)
     return vars(p.parse_args(argv))
 
 
@@ -71,12 +78,19 @@ def main(argv=None) -> float:
                 for c in range(config["num_classes"])]
     for d in out_dirs:
         os.makedirs(d, exist_ok=True)
+    refiner = make_refiner(args, predictor.device)
+    if refiner is not None and args["refine_weights"] is None:
+        print("warning: --refine without --refine_weights uses a random-initialized "
+              "refinement net")
 
     meter = AverageMeter()
     for idx, valid in epoch_batches(len(ids), args["batch_size"], np.random.default_rng(0),
                                     shuffle=False, drop_last=False):
         idx = idx[:valid]  # Predictor pads the short batch itself
         probs = predictor.predict_u8(images[idx])
+        if refiner is not None:  # class 0 of each image, before scoring
+            refine_masks(refiner, images[idx], probs, [0], args["refine_fast"],
+                         args["refine_L"])
         # hard IoU at 0.5 (reference metrics.py:6-18) over the batch's valid images
         pred = probs > 0.5
         tgt = (masks[idx].astype(np.float32) / 255.0) > 0.5

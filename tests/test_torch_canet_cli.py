@@ -3,6 +3,8 @@ held against the JAX package's CLIs from the same weights, on the CPU at a
 narrow width (CA-Net feature_scale 16 with drop_rate 0, AttU_Net filters
 4..64), on a PNG folder in the ISIC layout at 32x32, batch 2."""
 
+import importlib
+
 import cv2
 import numpy as np
 import pandas as pd
@@ -116,6 +118,24 @@ def test_preset_yields_to_given_flags():
     assert (cfg["arch"], cfg["input_w"], cfg["batch_size"]) == ("AttU_Net", 64, 2)
     with pytest.raises(ValueError, match="no option"):
         parse_arch_kwargs("Comprehensive_Atten_Unet", '{"filters": [4]}')
+
+
+@pytest.mark.parametrize("given", [["-b4", "-aUNet"], ["--batch", "4", "-aUNet"],
+                                   ["--batch=4", "-a", "UNet"]])
+@pytest.mark.parametrize("preset", ["train_isic", "train_isic_wacc", "train_canet",
+                                    "train_isic_ca"])
+def test_presets_keep_every_spelling_of_a_given_flag(preset, given, monkeypatch):
+    """What a preset counts as given is what the trainer's own parser reads:
+    `-b4`, `--batch 4` (an abbreviation), `--batch=4` and `-aUNet` keep
+    batch 4 and UNet under all four presets, which still set the rest (the
+    ISIC layout; train_isic_wacc's --log_acc)."""
+    seen = []
+    monkeypatch.setattr(ptrain, "main", seen.append)
+    importlib.import_module(f"pytorch_nested_unet_tpu_torch.{preset}").main(given)
+    cfg = ptrain.parse_args(seen[0])
+    assert (cfg["batch_size"], cfg["arch"]) == (4, "UNet")
+    assert (cfg["dataset"], cfg["dataset_layout"], cfg["augment"]) == ("ISIC", "isic", "none")
+    assert cfg["log_acc"] == (preset == "train_isic_wacc")
 
 
 def test_attu_net_capsule_converts_to_jax(folder):

@@ -104,12 +104,12 @@ def test_unknown_arch_kwarg_raises(tmp_path):
 
 
 def test_every_registered_arch_serves_through_predictor():
-    """Predictor(arch=...) builds and serves each of the 21 registered archs:
+    """Predictor(arch=...) builds and serves each of the 23 registered archs:
     narrow where the arch has a width option, the CRDN backbones at full
     width (ResNet50FCN at 48x48: its valid 3x3 classifier conv needs down5
     of 3x3)."""
     rng = np.random.default_rng(4)
-    assert len(arch_names()) == 21
+    assert len(arch_names()) == 23
     for arch in arch_names():
         options = arch_options(arch)
         kw = ({"nb_filter": (4, 8, 16, 32, 64)} if "nb_filter" in options
