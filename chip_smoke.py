@@ -98,8 +98,24 @@
    epoch) on a 40 + 8 pair ISIC-layout folder, then `val.main` without
    and with `--refine` (fast, full) and `infer.main --refine`, seconds and
    IoU, launches counted;
+11f. `--remat` (`remat_phase`): full-width NestedUNet wDS, one fp32 train
+   step under --remat none, full and policy from the same weights, K1-K4
+   launches per step (30/30/30/10, 60/30/30/20, 30/30/30/10), the loss equal
+   to the plain step's, the gradients within 1e-4 and the running
+   statistics equal; then each mode's bf16 step p50 and peak device memory
+   at batch 16 and 256;
+11g. the last two archs, DoubleUnet and DeepLab (plain BN, no kernel: every
+   K1-K4 count stays 0): their parameter and running-statistic counts
+   against the JAX package's, phases 4 (with a TFLOP/s line on XLA's count
+   of the JAX forward) and 7 at full width, the card-vs-CPU fp32 step
+   (DoubleUnet's BN-fed conv biases at 0; DeepLab's dropouts at p = 0 on
+   both sides, the loss and statistics also held to 4x their CPU movement:
+   ASPP's pooled BN normalizes 2 values per channel at batch 2), and
+   `deeplab_cli_phase`: `train.main --arch DeepLab` for 1 bf16 epoch on
+   the CLI path's folder, `val.main` and `infer.main` on its capsule;
 12. a JSON line of the kernels (launches over every path above; `cli`: the
-   CLI path's own), then the last line
+   CLI path's own; `remat_step`: per fp32 step in each --remat mode), then
+   the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -402,11 +418,14 @@ def profile_batches(pred, request, precision):
               f"x{e.count // batches:<3d} {e.key[:110]}")
 
 
-def path_phase(bn, df, card, arch="NestedUNet", deep_supervision=True, k4_per_batch=10):
+def path_phase(bn, df, card, arch="NestedUNet", deep_supervision=True, k4_per_batch=10,
+               gflop=None):
     """Serve full-width `arch` through Predictor in fp32 and bf16: 8 requests of
     16 images, the launch counts read around each run (eval BN runs no K1-K3;
     K4 `k4_per_batch` times a batch), the fp32 probabilities held against the
-    CPU. Returns the launch counts per precision."""
+    CPU. `gflop`, when given, is a yardstick count of one batch's forward
+    (XLA's cost analysis of the JAX package's), printed as TFLOP/s at the
+    steady p50. Returns the launch counts per precision."""
     from pytorch_nested_unet_tpu_torch.infer import Predictor
 
     rng = np.random.default_rng(0)
@@ -433,10 +452,14 @@ def path_phase(bn, df, card, arch="NestedUNet", deep_supervision=True, k4_per_ba
                                  f"[{np.nanmin(y)}, {np.nanmax(y)}]")
         probs[precision] = y
         s = pred.summary()
+        rate = "" if gflop is None else (
+            f", {gflop / s['p50_ms']:.2f} TFLOP/s at p50 on XLA's count of the JAX forward "
+            f"({gflop} GFLOP per batch)")
         print(f"path {precision}: {label} batch {BATCH} {SIZE}x{SIZE}, "
               f"{s['batches']} batches: steady p50 {s['p50_ms']:.3f} ms, p95 "
               f"{s['p95_ms']:.3f} ms, {s['img_per_s']:.1f} img/s (first batch "
-              f"{s['first_batch_ms']:.1f} ms) | launches {counts} | card: {card}", flush=True)
+              f"{s['first_batch_ms']:.1f} ms){rate} | launches {counts} | card: {card}",
+              flush=True)
         profile_batches(pred, requests[0], f"{label} {precision}")
         if precision == "fp32":
             sd = {k: v.cpu() for k, v in pred.model.state_dict().items()}
@@ -909,7 +932,8 @@ def train_phase(bn, df, card, arch="NestedUNet", deep_supervision=True,
 
 
 def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=False,
-                   conv_gap=False, card_convs=False, step_floor=False):
+                   conv_gap=False, card_convs=False, step_floor=False, plain_bn=False,
+                   no_dropout=False):
     """One full-width fp32 train step (batch 2, augment none) on the card and on
     the CPU from the same weights: the loss within 1e-5, the running statistics
     within atol = rtol = 1e-5, and every gradient within 1e-4 relative L2 norm
@@ -958,26 +982,36 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
     network runs three passes, each feeding its outputs back as the next
     one's input, through BNs in train mode, and on the CPU a 1e-7 weight
     change moves its loss by 1.1e-3 and a running variance by 1.8e-2.
+
+    plain_bn counts the plain BatchNorm layers as BNs too (for the zeroed
+    biases and the first BN's ratio): the archs without a fused BN+ReLU.
+    no_dropout sets every element-wise Dropout to p = 0 on both sides (the
+    card's and the CPU's generators draw different masks).
     """
     from pytorch_nested_unet_tpu_torch.data.augment import eval_transform
     from pytorch_nested_unet_tpu_torch.models import create_model
     from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
+    from pytorch_nested_unet_tpu_torch.ops.layers import BatchNorm, Dropout
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
     from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
 
     imgs, masks = synthetic_set(2, seed=3)
     imgs, masks = torch.from_numpy(imgs), torch.from_numpy(masks)
+    bn_types = (FusedBatchNormReLU, BatchNorm) if plain_bn else FusedBatchNormReLU
 
     def build(zero):
         m = create_model(arch, 1, 3, deep_supervision,
                          generator=torch.Generator().manual_seed(5))
+        if no_dropout:
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0
         if zero:
             with torch.no_grad():
                 for mod in m.modules():
                     kids = list(mod.children())
                     for conv, bn in zip(kids, kids[1:]):
-                        if isinstance(bn, FusedBatchNormReLU) \
-                                and getattr(conv, "bias", None) is not None:
+                        if isinstance(bn, bn_types) and getattr(conv, "bias", None) is not None:
                             conv.bias.zero_()
         return m
 
@@ -988,7 +1022,7 @@ def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=
     def first_bn_ratio(zero):
         """The first BN layer's largest mean^2 / var on these inputs (CPU)."""
         m, got = build(zero), []
-        bn0 = next(b for b in m.modules() if isinstance(b, FusedBatchNormReLU))
+        bn0 = next(b for b in m.modules() if isinstance(b, bn_types))
         bn0.register_forward_pre_hook(lambda _, args: got.append(
             args[0].double().reshape(-1, args[0].shape[-1])))
         with torch.no_grad():
@@ -1830,6 +1864,182 @@ def refine_cli_phase(bn, df, card):
     return total
 
 
+# The last two archs at full width (DoubleUnet: layers (2, 2, 2, 2), 2
+# iterations; DeepLab: the dual ResNet-101 (3, 4, 23, 3)): (parameters,
+# running-statistic values) of the JAX package's init, and XLA's cost
+# analysis of the JAX forward at batch 16, 96x96, in GFLOP (a yardstick for
+# the TFLOP/s line, not a card number). Every BN of both is plain: no kernel.
+NEW_ARCHS = {"DoubleUnet": (45_951_616, 21_632, 64.1), "DeepLab": (115_727_530, 216_672, 140.5)}
+
+
+def new_arch_counts():
+    """Parameter and running-statistic counts of both archs (and DoubleUnet's
+    2 iteration weights with weighted_sum) against the JAX package's."""
+    from pytorch_nested_unet_tpu_torch.models import create_model
+
+    for arch, (params, buffers, _) in NEW_ARCHS.items():
+        m = create_model(arch)
+        got = (sum(p.numel() for p in m.parameters()), sum(b.numel() for b in m.buffers()))
+        if got != (params, buffers):
+            raise AssertionError(f"{arch}: {got} parameters / running-stat values, the JAX "
+                                 f"package has {(params, buffers)}")
+    ws = sum(p.numel() for p in create_model("DoubleUnet", weighted_sum=True).parameters())
+    if ws != NEW_ARCHS["DoubleUnet"][0] + 2:
+        raise AssertionError(f"DoubleUnet weighted_sum: {ws} parameters")
+    print(f"counts: DoubleUnet {NEW_ARCHS['DoubleUnet'][0]:,} parameters (+2 with "
+          f"weighted_sum), {NEW_ARCHS['DoubleUnet'][1]:,} running-stat values; DeepLab "
+          f"{NEW_ARCHS['DeepLab'][0]:,} and {NEW_ARCHS['DeepLab'][1]:,}: the JAX package's",
+          flush=True)
+
+
+def deeplab_cli_phase(bn, df, card):
+    """`train.main --arch DeepLab` for 1 bf16 epoch on cli_phase's folder
+    (which must exist; 33 steps of 16, train mode's [aux, pred]), its
+    model.pth under the port's own keys, then `val.main` and `infer.main`
+    on the capsule (eval's pred): no kernel launched anywhere. Returns the
+    launches."""
+    from pytorch_nested_unet_tpu_torch import infer, train, val
+    from pytorch_nested_unet_tpu_torch.models import create_model
+
+    data_dir, serve_dir = os.path.join(CLI_ROOT, "inputs"), os.path.join(CLI_ROOT, "serve")
+    if not os.path.isdir(os.path.join(data_dir, "dsb2018_96")):
+        raise AssertionError(f"deeplab cli: no cli_phase folder under {data_dir}")
+    out_dir, name = os.path.join(CLI_ROOT, "models"), "dsb2018_96_DeepLab_woDS"
+    total = {k: 0 for k in launch_counts(bn, df)}
+    walls = []
+    runs = [lambda: train.main(["--dataset", "dsb2018_96", "--data_dir", data_dir,
+                                "--output_dir", out_dir, "--arch", "DeepLab", "--precision",
+                                "bf16", "--epochs", "1", "--device", "cuda"]),
+            lambda: val.main(["--name", name, "--data_dir", data_dir, "--output_dir", out_dir,
+                              "--save_dir", os.path.join(CLI_ROOT, "val_deeplab"), "--out_ext",
+                              ".png", "--device", "cuda"]),
+            lambda: _tee_stdout(lambda: infer.main(
+                ["--name", name, "--input_dir", serve_dir, "--output_dir", out_dir,
+                 "--save_dir", os.path.join(CLI_ROOT, "infer_deeplab"), "--device",
+                 "cuda"]))[0]]
+    results = []
+    for run in runs:
+        reset_counts(bn, df)
+        t0 = time.perf_counter()
+        results.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for k, v in launch_counts(bn, df).items():
+            total[k] += v
+    r, iou, served = results
+    sd = torch.load(os.path.join(out_dir, name, "model.pth"), weights_only=True)
+    keys = set(create_model("DeepLab").state_dict())
+    if set(sd) != keys or any(total.values()) or not np.isfinite(r["log"]["val_loss"]).all() \
+            or not 0 <= iou <= 1 or served["written"] != len(CLI_SERVE_SIZES):
+        raise AssertionError(f"deeplab cli: model.pth keys match {set(sd) == keys}, launches "
+                             f"{total}, log {r['log']}, val IoU {iou}, infer wrote "
+                             f"{served['written']}")
+    print(f"deeplab cli: train.main --arch DeepLab 1 bf16 epoch of {CLI_STEPS} steps in "
+          f"{walls[0]:.2f} s (train {r['train_s'][0]:.3f} s = "
+          f"{CLI_STEPS * BATCH / r['train_s'][0]:.1f} img/s, val {r['val_s'][0]:.3f} s, val_iou "
+          f"{r['log']['val_iou'][0]:.4f}); model.pth: {len(sd)} tensors under the port's keys; "
+          f"val.main IoU {iou:.4f} in {walls[1]:.2f} s; infer.main {served['written']} images "
+          f"in {walls[2]:.2f} s | launches {total} | card: {card}", flush=True)
+    return total
+
+
+REMAT_MODES = ("none", "full", "policy")
+# full-width NestedUNet wDS, launches per train step of K1, K2, K3 and K4
+# under each --remat mode: "full" runs each block's forward again in backward
+# (K1 without the running statistics, K4 at the 10 decoder nodes); "policy"
+# makes only bn1's normalize + ReLU again
+REMAT_LAUNCHES = {"none": (30, 30, 30, 10), "full": (60, 30, 30, 20),
+                  "policy": (30, 30, 30, 10)}
+REMAT_BATCHES = (16, 256)
+
+
+def remat_phase(bn, df, card):
+    """NestedUNet wDS at full width, 96x96, under --remat none, full and
+    policy: one fp32 train step (batch 16, augment none, TF32 off) per mode
+    from the same weights on the same batch, its K1-K4 launches checked
+    against REMAT_LAUNCHES, the loss equal to the plain step's, every
+    gradient within 1e-4 relative L2 of the plain step's (the card-vs-CPU
+    gate; the norm as cpu_step_phase takes it) and the running statistics
+    equal; then each mode's bf16 step p50 (20 steps, augment full) and peak
+    device memory at batch 16 and 256. Returns {mode: launches of its fp32
+    step}."""
+    from pytorch_nested_unet_tpu_torch.models import create_model
+    from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
+    from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
+
+    x, y = synthetic_set(64, seed=10)
+    init = create_model("NestedUNet", 1, 3, True,
+                        generator=torch.Generator().manual_seed(11)).state_dict()
+
+    def build(mode, dtype=None):
+        m = create_model("NestedUNet", 1, 3, True, remat=mode, dtype=dtype)
+        m.load_state_dict(init)
+        m = m.cuda()
+        return m, make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
+                                  "BCEDiceLoss", True, "full" if dtype else "none")
+
+    batch = (torch.from_numpy(x[:BATCH]).cuda(), torch.from_numpy(y[:BATCH]).cuda())
+    launches, steps = {}, {}
+    for mode in REMAT_MODES:
+        m, step = build(mode)
+        reset_counts(bn, df)
+        loss = float(step(*batch, torch.Generator(device="cuda").manual_seed(0))["loss"])
+        torch.cuda.synchronize()
+        launches[mode] = launch_counts(bn, df)
+        want = dict(zip(launches[mode], REMAT_LAUNCHES[mode]))
+        if launches[mode] != want:
+            raise AssertionError(f"remat {mode}: launches {launches[mode]} per step, expected "
+                                 f"{want}")
+        steps[mode] = (loss, {n: p.grad.cpu() for n, p in m.named_parameters()},
+                       {n: b.cpu() for n, b in m.named_buffers()})
+        del m, step
+    loss0, grads0, stats0 = steps["none"]
+    for mode in ("full", "policy"):
+        loss, grads, stats = steps[mode]
+        rel = {n: float((g - grads0[n]).norm() / max(
+            grads0[n].norm(), grads0[n.rsplit(".", 1)[0] + ".weight"].norm()))
+            for n, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        same_stats = all(torch.equal(b, stats0[n]) for n, b in stats.items())
+        print(f"remat {mode} vs none, one fp32 step (batch {BATCH}, {SIZE}x{SIZE}): loss "
+              f"{loss:.7f} vs {loss0:.7f}; gradients: worst {worst} at {rel[worst]:.3g} "
+              f"relative L2 (gate 1e-4), median {np.median(list(rel.values())):.3g}; running "
+              f"stats equal: {same_stats} | launches per step {launches[mode]} | card: {card}",
+              flush=True)
+        if loss != loss0 or rel[worst] > 1e-4 or not same_stats:
+            raise AssertionError(f"remat {mode}: the step differs from the plain step")
+
+    rows = []
+    for b in REMAT_BATCHES:
+        reps = -(-b // len(x))
+        big = (torch.from_numpy(np.concatenate([x] * reps)[:b]).cuda(),
+               torch.from_numpy(np.concatenate([y] * reps)[:b]).cuda())
+        for mode in REMAT_MODES:
+            m, step = build(mode, torch.bfloat16)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            for _ in range(3):
+                step(*big, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                step(*big, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            p50 = sorted(times)[len(times) // 2]
+            rows.append((b, mode, p50, peak))
+            print(f"remat {mode} bf16 step: NestedUNet wDS full width, batch {b} {SIZE}x{SIZE}, "
+                  f"20 steps: p50 {p50:.3f} ms/step ({b * 1e3 / p50:.1f} img/s), peak device "
+                  f"memory {peak:.3f} GiB | card: {card}", flush=True)
+            del m, step
+            torch.cuda.empty_cache()
+    print("remat table (batch, mode, p50 ms/step, peak GiB): " + "; ".join(
+        f"{b} {mode} {p50:.3f} {peak:.3f}" for b, mode, p50, peak in rows), flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1896,6 +2106,16 @@ def main():
     cpu_step_phase("UNetRNNPSP", False, zero_bn_fed_biases=True, conv_gap=True, step_floor=True)
     runs.append({"fp32": refine_phase(bn, df, card)})
     runs.append({"bf16": refine_cli_phase(bn, df, card)})
+    remat = remat_phase(bn, df, card)
+    runs.append({"fp32": {k: sum(c[k] for c in remat.values()) for k in launch_counts(bn, df)}})
+    new_arch_counts()
+    for arch, (_, _, gflop) in NEW_ARCHS.items():
+        runs.append(path_phase(bn, df, card, arch, False, k4_per_batch=0, gflop=gflop))
+        runs.append(train_phase(bn, df, card, arch, False, 0, 0))
+    cpu_step_phase("DoubleUnet", False, zero_bn_fed_biases=True, conv_gap=True, plain_bn=True)
+    cpu_step_phase("DeepLab", False, conv_gap=True, step_floor=True, plain_bn=True,
+                   no_dropout=True)
+    runs.append({"bf16": deeplab_cli_phase(bn, df, card)})
     # launches of each kernel per dtype over every path driven above
     launches = {name: {k: sum(r[name][k] for r in runs if name in r)
                        for k in launch_counts(bn, df)} for name in DTYPE_NAME.values()}
@@ -1910,6 +2130,8 @@ def main():
             "replaces": "pytorch_nested_unet_tpu/ops/decoder_fusion.py:209",
             "launches": launches[name]["multipart_conv3x3"],
             **{key: agg[key] for key in timed}}
+        if dtype == torch.float32:  # per fp32 step of remat_phase, in each --remat mode
+            entry["remat_step"] = {mode: c["multipart_conv3x3"] for mode, c in remat.items()}
         if dtype == torch.bfloat16:  # the CLI path runs bf16, at the 10 nodes' shapes
             entry["cli"] = {"launches": cli["multipart_conv3x3"],
                             **{key: agg[key] for key in timed},
@@ -1931,6 +2153,8 @@ def main():
                              **{key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}},
             "vgg16rnn_step": {"launches": vgg_train[DTYPE_NAME[dtype]][fn],
                               **{key: bnk[(k, dtype, "VGG16RNN")][key] for key in timed}}}
+        if dtype == torch.float32:
+            entry["remat_step"] = {mode: c[fn] for mode, c in remat.items()}
         if dtype == torch.bfloat16:  # the CLI path: NestedUNet's training-step shapes
             entry["cli"] = {"launches": cli[fn], **{key: agg[key] for key in timed}}
         kernels.append(entry)
@@ -1938,11 +2162,14 @@ def main():
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
           "vgg16rnn_step: the 18 of a VGG16RNN step, its launches those of VGG16RNN's fit; "
-          "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase); "
-          "max_abs_err: over the path's own shapes; launches: over every path driven "
-          "(NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN, AttU_Net and UNetRNNPSP serving and "
-          "training, the arch sweep, the CLIs, --pretrained_backbone, train_canet, the "
-          "Refiner (none) and train_isic_ca with val/infer --refine); card:")
+          "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase; "
+          "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
+          "and policy); max_abs_err: over the path's own shapes; launches: over every path "
+          "driven (NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN, AttU_Net and UNetRNNPSP "
+          "serving and training, the arch sweep, the CLIs, --pretrained_backbone, "
+          "train_canet, the Refiner (none), train_isic_ca with val/infer --refine, the "
+          "--remat steps, DoubleUnet and DeepLab serving and training and the DeepLab CLIs "
+          "(none)); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,8 @@ variants) and its backbones (VGG16RNN, ResNet{18,34,50,101,152}RNN,
 ResNet50UNet, ResNet50FCN), the attention U-Nets (AttU_Net, R2U_Net,
 R2AttU_Net), CA-Net (Comprehensive_Atten_Unet) and the PSP hybrids
 (UNetRNNPSP, UNetRNNCAttention_PSP: UNetRNN with CascadePSP refinement in
-the model): 23 of the JAX package's 25 archs. The rest of the zoo is queued
-family by family in ROADMAP.md (queue 1).
+the model), DoubleUnet and DeepLab: all 25 archs of the JAX package's
+registry.
 """
 
 import inspect
@@ -20,7 +20,9 @@ from .attention_unet import AttU_Net, R2AttU_Net, R2U_Net
 from .canet import Comprehensive_Atten_Unet
 from .crdn_backbones import (ResNet18RNN, ResNet34RNN, ResNet50FCN, ResNet50RNN,
                              ResNet50UNet, ResNet101RNN, ResNet152RNN, VGG16RNN)
+from .double_unet import DoubleUnet
 from .dual_attention import UNetRNNAttention, UNetRNNCAttention, UNetRNNPAttention
+from .dual_deeplab import DeepLab
 from .ghost import UNetRNNGhost
 from .nested_unet import NestedUNet
 from .psp_hybrid import UNetRNNCAttention_PSP, UNetRNNPSP
@@ -29,9 +31,9 @@ from .unet import UNet
 
 _REGISTRY = {cls.__name__: cls for cls in (
     UNet, NestedUNet, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
-    UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, VGG16RNN, ResNet18RNN,
-    ResNet34RNN, ResNet50RNN, ResNet101RNN, ResNet152RNN, ResNet50UNet, ResNet50FCN,
-    AttU_Net, R2U_Net, R2AttU_Net, Comprehensive_Atten_Unet, UNetRNNPSP,
+    UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, DoubleUnet, DeepLab, VGG16RNN,
+    ResNet18RNN, ResNet34RNN, ResNet50RNN, ResNet101RNN, ResNet152RNN, ResNet50UNet,
+    ResNet50FCN, AttU_Net, R2U_Net, R2AttU_Net, Comprehensive_Atten_Unet, UNetRNNPSP,
     UNetRNNCAttention_PSP)}
 # --precision: the conv compute dtype (parameters are always float32)
 PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
@@ -45,8 +47,7 @@ def arch_names():
 
 def model_class(name: str):
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported yet (ported: {arch_names()}); "
-                       "see ROADMAP.md queue 1 for the order of the rest of the zoo")
+        raise KeyError(f"arch {name!r} is not registered (registered: {arch_names()})")
     return _REGISTRY[name]
 
 
@@ -72,6 +73,13 @@ def arch_options(name: str):
         if not any(p.kind is p.VAR_KEYWORD for p in params):
             break
     return sorted(set(names) - set(_SET_BY_CALLER))
+
+
+def remat_kwargs(name: str, remat):
+    """{"remat": remat} for an arch with that option and a truthy `remat`,
+    else {}: the JAX CLI gives --remat to the archs that have it and ignores
+    it for the rest (train.py:360-361 at the repo root)."""
+    return {"remat": remat} if remat and "remat" in arch_options(name) else {}
 
 
 def parse_arch_kwargs(name: str, raw):

@@ -5,13 +5,15 @@
 their state-dict keys are the reference CRDN checkpoints' own.
 """
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.decoder_fusion import conv3x3_parts, multipart_conv3x3, pack_weight
-from ..ops.fused_bn import FusedBatchNormReLU
+from ..ops.fused_bn import FusedBatchNormReLU, bn_relu, recomputing
 from ..ops.layers import TorchConv
 
 
@@ -55,17 +57,34 @@ class MultipartConv3x3(nn.Module):
         return multipart_conv3x3(parts, self.packed_weight(dt), self.bias)
 
 
+REMAT_MODES = ("none", "full", "policy")
+
+
 class VGGBlock(nn.Module):
     """(conv3x3 -> BN -> ReLU) x2 (reference archs_backup.py:24-42).
 
     Given a tuple of NHWC parts (a decoder node's skips and its upsampled feed),
     the first conv is a MultipartConv3x3 over them; given one tensor, it is a
     TorchConv. `in_channels` is the parts' total.
+
+    `remat` (one of REMAT_MODES) chooses what a train-mode forward under
+    autograd keeps for backward, as the JAX package's `nn.remat` of the block:
+    "none" every residual; "full" only the block's inputs, the block run
+    again in backward (`torch.utils.checkpoint`; inside that recompute K1
+    leaves the running statistics alone, and K1 and K4 launch again);
+    "policy" the two conv outputs (which the BNs keep anyway): the
+    activation conv2 needs for its weight gradient is not kept but made
+    again in backward from conv1's output and bn1's mean and inv
+    (`ops.fused_bn.bn_relu`), so no conv and no K1 runs twice.
     """
 
     def __init__(self, in_channels: int, middle_channels: int, out_channels: int,
-                 multipart: bool = False, dtype: Optional[torch.dtype] = None):
+                 multipart: bool = False, dtype: Optional[torch.dtype] = None,
+                 remat: str = "none"):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+        self.remat = remat
         if multipart:
             self.conv1 = MultipartConv3x3(in_channels, middle_channels, dtype=dtype)
         else:
@@ -74,9 +93,44 @@ class VGGBlock(nn.Module):
         self.conv2 = TorchConv(middle_channels, out_channels, 3, padding=1, dtype=dtype)
         self.bn2 = FusedBatchNormReLU(out_channels, dtype=dtype)
 
-    def forward(self, x) -> torch.Tensor:
+    def _block(self, x) -> torch.Tensor:
         x = self.bn1(self.conv1(x))
         return self.bn2(self.conv2(x))
+
+    def _block_policy(self, x) -> torch.Tensor:
+        x1 = self.conv1(x)
+        y1, mean, inv = self.bn1.train_forward(x1)
+        gamma, beta, dt = self.bn1.weight.detach(), self.bn1.bias.detach(), y1.dtype
+        storage = y1.untyped_storage().data_ptr()
+
+        def pack(t):
+            if t.untyped_storage().data_ptr() != storage:
+                return t
+            return t.size(), t.stride(), t.storage_offset()  # a view of y1: made again
+
+        def unpack(packed):
+            if isinstance(packed, torch.Tensor):
+                return packed
+            with torch.no_grad():
+                return bn_relu(x1, mean, inv, gamma, beta).to(dt).as_strided(*packed)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            x2 = self.conv2(y1)
+        return self.bn2(x2)
+
+    def forward(self, x) -> torch.Tensor:
+        if self.remat == "none" or not (self.training and torch.is_grad_enabled()):
+            return self._block(x)
+        if self.remat == "policy":
+            return self._block_policy(x)
+        multipart = isinstance(x, (tuple, list))
+
+        def run(*parts):
+            return self._block(parts if multipart else parts[0])
+
+        return checkpoint(run, *(x if multipart else (x,)), use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class UnetConv2(nn.Module):

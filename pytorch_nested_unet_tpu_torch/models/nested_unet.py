@@ -5,6 +5,14 @@ Node x_{i,j} = VGGBlock(x_{i,0..j-1}, up(x_{i+1,j-1})): each decoder node hands
 its first conv the parts tuple, so on the card the concat is never written.
 Deep supervision: four 1x1 heads on x0_1..x0_4 returning a list; else one head
 on x0_4. NHWC in and out; heads are float32 whatever the compute dtype.
+
+`remat` rematerializes every VGGBlock in backward, as the JAX module's
+option: False / None / "none" keeps every residual, True / "full" recomputes
+each block from its inputs, "policy" keeps only the conv outputs and
+recomputes the BN + ReLU elementwise math (see blocks.VGGBlock). Per train
+step K1 launches 30 times under "none" and "policy" and 60 under "full"
+(its recompute runs K1 again, without the running statistics), K2 and K3
+30 times under each, and K4 10 times, 20 under "full".
 """
 
 from typing import Optional, Sequence
@@ -19,25 +27,37 @@ from ..ops.resize import upsample2x
 from .blocks import VGGBlock
 
 
+def remat_mode(remat) -> str:
+    """The JAX module's remat values -> one of blocks.REMAT_MODES."""
+    if remat in (False, None, "none"):
+        return "none"
+    if remat in (True, "full"):
+        return "full"
+    if remat == "policy":
+        return "policy"
+    raise ValueError(f"remat must be False/True/'full'/'policy'/'none', got {remat!r}")
+
+
 class NestedUNet(nn.Module):
     def __init__(self, num_classes: int = 1, input_channels: int = 3,
                  deep_supervision: bool = False,
-                 nb_filter: Sequence[int] = (32, 64, 128, 256, 512),
+                 nb_filter: Sequence[int] = (32, 64, 128, 256, 512), remat=False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         nb = tuple(int(c) for c in nb_filter)
         self.deep_supervision = deep_supervision
         self.dtype = dtype
+        self.remat = remat_mode(remat)
+        kw = {"dtype": dtype, "remat": self.remat}
         # Registration order follows the reference module's __init__.
-        self.conv0_0 = VGGBlock(input_channels, nb[0], nb[0], dtype=dtype)
+        self.conv0_0 = VGGBlock(input_channels, nb[0], nb[0], **kw)
         for i in range(1, 5):
-            setattr(self, f"conv{i}_0", VGGBlock(nb[i - 1], nb[i], nb[i], dtype=dtype))
+            setattr(self, f"conv{i}_0", VGGBlock(nb[i - 1], nb[i], nb[i], **kw))
         for j in range(1, 5):
             for i in range(0, 5 - j):
                 cin = nb[i] * j + nb[i + 1]
-                setattr(self, f"conv{i}_{j}",
-                        VGGBlock(cin, nb[i], nb[i], multipart=True, dtype=dtype))
+                setattr(self, f"conv{i}_{j}", VGGBlock(cin, nb[i], nb[i], multipart=True, **kw))
         heads = ("final1", "final2", "final3", "final4") if deep_supervision else ("final",)
         for name in heads:
             setattr(self, name, TorchConv(nb[0], num_classes, 1, dtype=dtype))

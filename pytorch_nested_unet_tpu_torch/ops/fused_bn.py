@@ -19,7 +19,9 @@ JAX package. The normalize+ReLU pass between K1 and K2 is plain elementwise
 torch, as it is plain XLA in JAX (:223-225).
 """
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -245,13 +247,42 @@ def bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma):
 
 # ---------------------------------------------------------------- autograd
 
-class BNReLUTrain(torch.autograd.Function):
-    """Training-mode BN + ReLU on NHWC x -> (y, batch mean, biased batch var).
+def bn_relu(x, mean, inv, gamma, beta):
+    """The normalize + ReLU pass of a train-mode step: relu((x - mean) *
+    (inv*gamma) + beta) in f32, cast to x's dtype. `BNReLUTrain` runs it
+    after K1, and the "policy" rematerialization of VGGBlock runs it again
+    in backward on the same saved tensors, so the two agree bit for bit."""
+    return torch.relu((x.to(torch.float32) - mean) * (inv * gamma) + beta).to(x.dtype)
 
-    Forward: K1, then y = relu((x - mean) * (inv*gamma) + beta) in f32, cast
-    to x's dtype; the running stats (when given) are updated by K1. Saves
-    (x, mean, inv, gamma, beta), not the pre-activation. Backward: K2 then K3;
-    the mean and var outputs take no gradient (JAX: :237).
+
+class _Recomputing(threading.local):
+    active = False
+
+
+_RECOMPUTING = _Recomputing()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a rematerialized forward (`torch.utils.checkpoint`'s
+    recompute): inside it `FusedBatchNormReLU` runs K1 without the running
+    statistics, so a step updates them once, in its first forward. Per
+    thread, as autograd runs a CUDA backward on a thread of its own."""
+    before, _RECOMPUTING.active = _RECOMPUTING.active, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING.active = before
+
+
+class BNReLUTrain(torch.autograd.Function):
+    """Training-mode BN + ReLU on NHWC x -> (y, batch mean, biased batch var,
+    inv = rsqrt(var + eps)).
+
+    Forward: K1, then y = `bn_relu(x, mean, inv, gamma, beta)`; the running
+    stats (when given) are updated by K1. Saves (x, mean, inv, gamma, beta),
+    not the pre-activation. Backward: K2 then K3; the mean, var and inv
+    outputs take no gradient (JAX: :237).
     """
 
     @staticmethod
@@ -260,13 +291,13 @@ class BNReLUTrain(torch.autograd.Function):
         x = x.contiguous()
         _, _, mean, var, inv = bn_stats(x.view(-1, c), eps, running_mean, running_var,
                                         momentum)
-        y = torch.relu((x.to(torch.float32) - mean) * (inv * gamma) + beta).to(x.dtype)
+        y = bn_relu(x, mean, inv, gamma, beta)
         ctx.save_for_backward(x, mean, inv, gamma, beta)
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.mark_non_differentiable(mean, var, inv)
+        return y, mean, var, inv
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
+    def backward(ctx, dy, _dmean, _dvar, _dinv):
         x, mean, inv, gamma, beta = ctx.saved_tensors
         c = x.shape[-1]
         x2d = x.view(-1, c)
@@ -279,7 +310,7 @@ class BNReLUTrain(torch.autograd.Function):
 def fused_bn_relu_train(x, gamma, beta, eps: float = 1e-5, running_mean=None,
                         running_var=None, momentum: float = MOMENTUM):
     """Training-mode BN + ReLU: (y, mean, var), as JAX's fused_bn_relu_train."""
-    return BNReLUTrain.apply(x, gamma, beta, eps, running_mean, running_var, momentum)
+    return BNReLUTrain.apply(x, gamma, beta, eps, running_mean, running_var, momentum)[:3]
 
 
 class FusedBatchNormReLU(nn.Module):
@@ -287,7 +318,7 @@ class FusedBatchNormReLU(nn.Module):
     1e-5, float32 weight/bias/statistics, unbiased running variance.
 
     Train mode: batch statistics through `BNReLUTrain` (K1-K3), and the running
-    stats updated in place. Eval mode: relu((x - running_mean) *
+    stats updated in place (not inside `recomputing()`). Eval mode: relu((x - running_mean) *
     rsqrt(running_var + eps) * weight + bias). The math runs in float32 and the
     result is cast to `dtype` (or to the input's dtype when `dtype` is None).
     """
@@ -302,12 +333,17 @@ class FusedBatchNormReLU(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def train_forward(self, x: torch.Tensor):
+        """Train mode: (y, mean, inv), y in the output dtype."""
+        stats = (None, None) if _RECOMPUTING.active else (self.running_mean, self.running_var)
+        y, mean, _, inv = BNReLUTrain.apply(x, self.weight, self.bias, self.eps, *stats,
+                                            MOMENTUM)
+        return y.to(self.dtype or x.dtype), mean, inv
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
         if self.training:
-            y, _, _ = fused_bn_relu_train(x, self.weight, self.bias, self.eps,
-                                          self.running_mean, self.running_var)
-            return y.to(out_dtype)
+            return self.train_forward(x)[0]
         scale = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.to(torch.float32) - self.running_mean) * scale + self.bias
         return torch.relu(y).to(out_dtype)

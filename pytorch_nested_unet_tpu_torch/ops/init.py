@@ -31,6 +31,22 @@ def torch_conv_init_(weight: torch.Tensor, bias, generator: torch.Generator):
         uniform_(bias, bound, generator)
 
 
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """A linear's [out, in] `weight` as flax's default Dense kernel init draws
+    it: a normal truncated at 2 standard deviations, scaled to variance
+    1 / in (lecun_normal)."""
+    std = 1.0 / math.sqrt(weight.shape[1]) / 0.87962566103423978  # truncation's std
+    with torch.no_grad():
+        draw = torch.empty(weight.shape, dtype=torch.float32).normal_(generator=generator)
+        out = draw.abs() > 2.0
+        while bool(out.any()):
+            draw[out] = torch.empty(int(out.sum()), dtype=torch.float32).normal_(
+                generator=generator)
+            out = draw.abs() > 2.0
+        weight.copy_(draw * std)
+    return weight
+
+
 def init_convs_(module: torch.nn.Module, generator: Optional[torch.Generator] = None):
     """`torch_conv_init_` on every conv and linear of `module` (each submodule
     with a 4-D or 2-D `weight`), in module order, from `generator` (default:

@@ -143,7 +143,13 @@ class BatchNorm(nn.Module):
     batch variance. No ReLU, no kernel: the JAX package runs this BN in plain
     XLA, so here it is `F.batch_norm` on the NHWC tensor's channels_last view.
     Statistics are taken in float32; the output is cast to `dtype` (or to the
-    input's dtype when `dtype` is None)."""
+    input's dtype when `dtype` is None).
+
+    A train-mode batch of one value per channel (N*H*W = 1: ASPP's pooled
+    branch, a 1x1 map at batch 1), which `F.batch_norm` refuses, is
+    normalized as the JAX package's `_TorchBN` does it: the batch mean and a
+    variance of 0, so the output is the bias, and the running variance moves
+    towards 0 (var * n / max(n - 1, 1) with n = 1)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -157,6 +163,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
+        if self.training and x.numel() == x.shape[-1]:
+            mean = x.to(torch.float32).reshape(-1)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9)
+            y = (mean - mean) * (self.weight * self.eps ** -0.5) + self.bias
+            return y.reshape(x.shape).to(out_dtype)
         y = F.batch_norm(x.to(torch.float32).permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight, self.bias, self.training, 0.1,
                          self.eps)

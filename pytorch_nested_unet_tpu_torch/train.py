@@ -30,18 +30,21 @@ From arrays already at the training size (`fit`):
 
 Images are (N,H,W,3) uint8 and masks (N,H,W,num_classes) uint8.
 
-`--arch` takes any registered arch (the UNet and CRDN families and the CRDN
-backbones, see `models.arch_names()`); `--arch_kwargs` is a JSON object of
+`--arch` takes any of the 25 registered archs (`models.arch_names()`, the
+JAX package's registry); `--arch_kwargs` is a JSON object of
 its constructor options, checked against them. `--pipeline device` (default)
 keeps the uint8 set on the device and gathers each batch there; `host`
 decodes each batch from the files on a background thread. Each epoch sets the learning rate from the
 schedule, trains on shuffled drop_last batches, validates on every image (the
 short last batch padded and weighted) and steps ReduceLROnPlateau with the
 validation loss. model.pth loads into `infer.Predictor(weights=...)` and into
-the JAX package (`convert.py --pth`). The JAX CLI's --mesh and
---spatial_partition, --remat, --fused_bn(_mode) (the port's BN always runs
-its CUDA kernels), --profile, --checkpoint_backend, --platform and
---artifact are not ported (ROADMAP.md queue 1); argparse rejects them.
+the JAX package (`convert.py --pth`; not for DoubleUnet and DeepLab, which
+have no reference key layout). `--remat false|true|full|policy`
+rematerializes NestedUNet's blocks in backward (models/nested_unet.py); the
+other archs have no such option and ignore it, as the JAX CLI does. The JAX
+CLI's --mesh and --spatial_partition, --fused_bn(_mode) (the port's BN
+always runs its CUDA kernels), --profile, --checkpoint_backend, --platform
+and --artifact are not ported (ROADMAP.md queue 1); argparse rejects them.
 Refinement is `val --refine` / `infer --refine`, or in the model with
 --arch UNetRNNPSP / UNetRNNCAttention_PSP (`--pretrained_backbone` then
 fills their refinement trunk, `psp.feats`).
@@ -63,7 +66,7 @@ from .data.augment import parse_augment_spec
 from .data.datasets import DATASET_CLASSES, dirs_for, list_image_ids, split_ids
 from .data.pipeline import DeviceDataStore, HostPrefetchLoader, epoch_batches, resolve_pipeline
 from .losses import LOSS_NAMES
-from .models import PRECISIONS, arch_names, create_model, parse_arch_kwargs
+from .models import PRECISIONS, arch_names, create_model, parse_arch_kwargs, remat_kwargs
 from .training import checkpoint
 from .training.loop import (make_epoch_evaluator, make_epoch_runner, make_eval_step,
                             make_train_step, stack_metrics)
@@ -256,7 +259,7 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
         precision: str = "bf16", seed: int = 41, augment="full", log_acc: bool = False,
         skip_nonfinite: int = 0, accum_steps: int = 1, device="cuda",
         arch_kwargs: Optional[Mapping] = None,
-        pretrained_backbone: Optional[str] = None) -> dict:
+        pretrained_backbone: Optional[str] = None, remat=False) -> dict:
     """Train `arch` from a random init drawn from `seed` on the uint8 arrays
     and return a summary: `best_iou`, `log` (the log.csv columns),
     `model_dir`, `model`, and per epoch the host seconds of its training and
@@ -264,9 +267,11 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     part's metrics. arch_kwargs (a mapping or a JSON object string) go to the
     model constructor (e.g. nb_filter, decoder); an option the arch does not
     have raises ValueError. pretrained_backbone: a torchvision-format ResNet
-    `.pth` poured into the model's ResNet trunk after the init.
+    `.pth` poured into the model's ResNet trunk after the init. remat: the
+    --remat mode, given to the archs that have the option (an arch_kwargs
+    `remat` wins).
     """
-    arch_kwargs = parse_arch_kwargs(arch, arch_kwargs)
+    arch_kwargs = {**remat_kwargs(arch, remat), **parse_arch_kwargs(arch, arch_kwargs)}
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
     dev = resolve_device(device)
@@ -486,6 +491,14 @@ def _augment_spec(v):
     return v
 
 
+def _remat_mode(v):
+    """--remat values: booleans plus the 'full' / 'policy' mode strings."""
+    if isinstance(v, bool):
+        return v
+    s = str(v).lower()
+    return s if s in ("policy", "full") else str2bool(v)
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The trainer's flags (the presets' `train_isic._with_defaults` reads
     which of them an argv gives through this parser)."""
@@ -539,6 +552,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "against device memory")
     p.add_argument("--skip_nonfinite", default=0, type=int)
     p.add_argument("--accum_steps", default=1, type=int)
+    p.add_argument("--remat", default=False, type=_remat_mode,
+                   help="rematerialize NestedUNet's blocks in backward: false | true/full "
+                        "(recompute whole blocks, keep their inputs) | policy (keep the conv "
+                        "outputs, recompute BN+ReLU); other archs ignore it")
     p.add_argument("--init_from", default=None, metavar="CAPSULE",
                    help="start from models/<CAPSULE>/model.pth (a name under --output_dir "
                         "or a directory), with a fresh optimizer")

@@ -13,7 +13,7 @@ import os
 
 import torch
 
-from ..models import PRECISIONS, create_model, parse_arch_kwargs
+from ..models import PRECISIONS, create_model, parse_arch_kwargs, remat_kwargs
 from ..utils.config import load_config
 from ..utils.convert import load_reference_pth
 
@@ -26,14 +26,16 @@ def save_model(model_dir: str, model: torch.nn.Module):
 
 def build_from_config(config: dict, precision=None, generator=None) -> torch.nn.Module:
     """The model a capsule's config describes, on the CPU; precision None
-    takes the config's."""
+    takes the config's. The config's `remat` reaches the archs that have the
+    option."""
     precision = precision or config.get("precision") or "fp32"
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
     return create_model(config["arch"], config["num_classes"], config["input_channels"],
                         config["deep_supervision"], dtype=PRECISIONS[precision],
                         generator=generator,
-                        **parse_arch_kwargs(config["arch"], config.get("arch_kwargs")))
+                        **{**remat_kwargs(config["arch"], config.get("remat")),
+                           **parse_arch_kwargs(config["arch"], config.get("arch_kwargs"))})
 
 
 def load_capsule(model_dir: str, precision=None):

@@ -16,6 +16,20 @@ the released CascadePSP keys under `psp.` (`psp.feats.layer3.2.bn2.weight`,
 `psp.psp.stages.3.1.weight`, `psp.up_1.conv2.3.running_var`,
 `psp.final_28.0.bias`) for the PSP hybrids; conv weights OIHW float32,
 transposed-conv weights [in, out, kh, kw], linear weights [out, in].
+
+DoubleUnet and DeepLab have no reference layout: the reference's copies of
+both are dead code, so no reference checkpoint of either can exist. Their
+keys are the JAX package's variable paths joined with `.`, plain BN's inner
+`bn` scope dropped (`bu0_block0.downsample_bn.running_var`,
+`td3_block1.conv2.weight`, `iteration_weights`,
+`backbone.layer4_2.hha_conv2.weight`, `backbone.sagate0.fsp_rgb.fc1.weight`,
+`head.aspp.map_conv3.weight`). The JAX package's own exporter
+(`converters_for_arch(arch)[1]`) raises on both: `KeyError:
+'iteration_weights'` for DoubleUnet with weighted_sum (the 1-D parameter
+falls into its BN-leaf branch) and `ValueError: axes don't match array` for
+DeepLab (FSP's raw Dense kernels get the 4-D conv transpose). Here they are
+carried from the variables tree directly; `train` writes these keys to
+model.pth and `val` / `infer` read them back.
 """
 
 import re
@@ -28,6 +42,8 @@ from ..models import model_class
 from ..models.attention_unet import _EncDecUNet
 from ..models.canet import Comprehensive_Atten_Unet
 from ..models.crdn_backbones import ResNetFCN, ResNetRNN, ResNetUNet, VGG16RNN, _ResNetTrunk
+from ..models.double_unet import DoubleUnet
+from ..models.dual_deeplab import DeepLab
 from ..models.ghost import UNetRNNGhost
 from ..models.psp_hybrid import _PSPTail
 from ..models.rdc import GATES, _UNetRNNBase
@@ -191,10 +207,14 @@ _PSP_HYBRID = (
 # what a reference checkpoint of a PSP hybrid lacks (root convert.py:102-112)
 _PSP_SYNTH_NOTE = ("refinement tensors the reference builds as a fresh random PSPNet inside "
                   "every forward (archs_backup.py:1533-1537): this model's init, trainable")
+# DoubleUnet and DeepLab (no reference layout): the JAX paths, plain BN's
+# inner `bn` scope dropped (`fe_bn1/bn/scale` -> `fe_bn1.weight`)
+_DROP_BN_SCOPE = ((re.compile(r"\.bn\.(weight|bias|running_mean|running_var)$"), r".\1"),)
 _FAMILY_RENAMES = ((_EncDecUNet, _ATTR_TO_ATTN), (Comprehensive_Atten_Unet, _ATTR_TO_CANET),
                      (VGG16RNN, _VGG), (ResNetRNN, _RESNET_SCORE + _RESNET_TRUNK),
                      (ResNetUNet, _RESNET_UNET + _RESNET_TRUNK),
-                     (ResNetFCN, _FCN + _RESNET_TRUNK))
+                     (ResNetFCN, _FCN + _RESNET_TRUNK), (DoubleUnet, _DROP_BN_SCOPE),
+                     (DeepLab, _DROP_BN_SCOPE))
 # RNN-decoded archs: the reference builds every decoder's RDC gates
 _RNN_ARCHS = (_UNetRNNBase, VGG16RNN, ResNetRNN)
 
@@ -228,7 +248,11 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
     `<m>/conv/{kernel,bias}` become `<m>.{weight,bias}` (HWIO -> OIHW);
     `<m>/dense/{kernel,bias}` become `<m>.{weight,bias}` ([in, out] ->
     [out, in]); batch-norm `scale/bias/mean/var` become `weight/bias/running_mean/
-    running_var`; attention `gamma` stays `gamma`; then the arch's renames.
+    running_var`; attention `gamma` stays `gamma`; a raw flax Dense's 2-D
+    `<m>/kernel` (any scope name: DeepLab's FSP `fc1`, `fc2`) becomes
+    `<m>.weight` [out, in]; a 1-D parameter at the tree's root (DoubleUnet's
+    `iteration_weights`) keeps its name; then the arch's renames. Any other
+    leaf raises KeyError.
     """
     out: Dict[str, torch.Tensor] = {}
 
@@ -249,6 +273,10 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
                     raise KeyError(f"unrecognized {path[-1]} leaf: {'/'.join(path + (k,))}")
             elif k in _BN_LEAVES or k == "gamma":
                 out[".".join(path) + "." + _BN_LEAVES.get(k, k)] = torch.from_numpy(arr.copy())
+            elif k == "kernel" and arr.ndim == 2:
+                out[".".join(path) + ".weight"] = torch.from_numpy(arr.T.copy())
+            elif arr.ndim == 1 and not path:
+                out[k] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"unrecognized leaf: {'/'.join(path + (k,))}")
 

@@ -29,7 +29,7 @@ from pytorch_nested_unet_tpu_torch.utils.config import load_config, str2bool
 KW = '{"nb_filter": [4, 8, 16, 32, 64]}'
 NAME = "synth_NestedUNet_wDS"
 # flags of the JAX CLI the port does not have (ROADMAP.md queue 1)
-JAX_ONLY = {"mesh", "spatial_partition", "remat", "fused_bn", "fused_bn_mode", "profile",
+JAX_ONLY = {"mesh", "spatial_partition", "fused_bn", "fused_bn_mode", "profile",
             "checkpoint_backend", "platform"}
 
 
@@ -279,3 +279,17 @@ def test_str2bool_matches_the_jax_cli():
             str2bool(bad)
         with pytest.raises(argparse.ArgumentTypeError):
             jax_str2bool(bad)
+
+
+@pytest.mark.parametrize("value", [None, "false", "True", "t", "0", "full", "POLICY", "maybe"])
+def test_remat_flag_parses_as_the_jax_cli(value):
+    """--remat takes the JAX CLI's values (booleans plus full / policy, any
+    case) to the same config value, defaults to the same False and refuses
+    the same others."""
+    argv = ["--dataset", "synth"] + ([] if value is None else ["--remat", value])
+    if value == "maybe":
+        for parse in (jax_train.parse_args, ptrain.parse_args):
+            with pytest.raises(SystemExit):
+                parse(argv)
+        return
+    assert ptrain.parse_args(argv)["remat"] == jax_train.parse_args(argv)["remat"]

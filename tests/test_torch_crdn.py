@@ -37,8 +37,13 @@ def jax_variables(jm, shape, seed):
     values, attention gammas nonzero (at their init of 0 attention is a
     no-op)."""
     shapes = shape if isinstance(shape[0], tuple) else (shape,)
-    tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
-                          *(jnp.zeros(s, jnp.float32) for s in shapes))
+    return fill_variables(jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                                         *(jnp.zeros(s, jnp.float32) for s in shapes)), seed)
+
+
+def fill_variables(tree, seed):
+    """`jax_variables`' values for an abstract variable tree; a bare 1-D
+    parameter (DoubleUnet's iteration_weights) draws N(0, 1)."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -54,6 +59,8 @@ def jax_variables(jm, shape, seed):
             v = rng.standard_normal(s.shape) * 0.1
         elif names[-1] == "gamma":
             v = rng.uniform(0.3, 0.8, s.shape)
+        elif names[-1] == "iteration_weights":
+            v = rng.standard_normal(s.shape)
         else:
             raise KeyError(names)
         return np.asarray(v, np.float32)
@@ -200,8 +207,9 @@ def train_batch(seed, b=2, hw=32):
 # conv biases that feed a BN: UnetConv2's and VGGBlock's convs, score blocks,
 # VGG16RNN's encoder units and the ResNet backbones' score blocks; the
 # attention U-Nets' conv blocks, up-convs, gates and recurrent blocks; CA-Net's
-# conv blocks, its grid gates' W, their combine conv and the non-local W
-_BN_FED_BIAS = re.compile(r"^(conv\d+|conv\d_\d|center)/conv[12]/conv/bias$|"
+# conv blocks, its grid gates' W, their combine conv and the non-local W;
+# DoubleUnet's top-down UnetBlocks
+_BN_FED_BIAS = re.compile(r"^(conv\d+|conv\d_\d|center|td\d_block\d+)/conv[12]/conv/bias$|"
                           r"^(score_block\d|conv\d_score_block|conv_block\d_\d)/conv/conv/bias$|"
                           r"^(Conv|Up_conv)\d/conv[12]/conv/bias$|^Up\d/conv/conv/bias$|"
                           r"^Att\d/(W_g|W_x|psi)_conv/conv/bias$|"
@@ -229,8 +237,9 @@ def zero_bn_fed_biases(variables):
 def check_train_step_against_jax(arch, hw=32, seed=0, floor=None, **kw):
     """One f32 train step (BCEDice, SGD lr 1e-2, momentum 0.9, wd 1e-4,
     augment none) of the port against `jax.value_and_grad` of the JAX
-    model's train-mode forward, from the same variables (the BN-fed conv
-    biases at 0) on the same batch:
+    model's train-mode forward (the loss averaged over its heads, the
+    metrics read off the last, as the trainers do), from the same variables
+    (the BN-fed conv biases at 0) on the same batch:
     the loss within 1e-5, IoU and accuracy within 5e-3 (pixels whose logit
     sits at 0 flip under rounding), every running statistic within atol =
     rtol = 1e-5 and every gradient within 1e-4 relative L2 norm of the
@@ -263,7 +272,9 @@ def check_train_step_against_jax(arch, hw=32, seed=0, floor=None, **kw):
         def f(p):
             out, mut = jm.apply({"params": p, "batch_stats": stats}, x, train=True,
                                 mutable=["batch_stats"])
-            return loss_fn(out, m), (mut["batch_stats"], out)
+            heads = out if isinstance(out, (list, tuple)) else [out]
+            return sum(loss_fn(o, m) for o in heads) / len(heads), (mut["batch_stats"],
+                                                                    heads[-1])
 
         (loss, (new_stats, out)), grads = jax.value_and_grad(f, has_aux=True)(params)
         return loss, grads, new_stats, iou_score(out, m), pixel_accuracy(out, m)

@@ -26,7 +26,8 @@ def _step_gradients(arch, kw, variables, imgs, masks, dtype, noise=0.0,
     statistics in float32) and the loss too; the model's float32 output cast
     is kept. `noise` > 0 adds to the output of every module of a `noisy`
     class (default: every conv) Gaussian noise of that fraction of the
-    output's rms (seeded)."""
+    output's rms (seeded). A model with several heads has their losses
+    averaged, as the train step does."""
     from pytorch_nested_unet_tpu_torch.data.augment import eval_transform
     from pytorch_nested_unet_tpu_torch.losses import _bce_elementwise, _soft_dice
 
@@ -48,8 +49,10 @@ def _step_gradients(arch, kw, variables, imgs, masks, dtype, noise=0.0,
                 conv.register_forward_hook(lambda _, args, y: y + noise * y.detach().pow(2).mean(
                     ).sqrt() * torch.randn(y.shape, generator=gen, dtype=y.dtype))
     x, m = eval_transform(torch.from_numpy(imgs), torch.from_numpy(masks))
-    logits, m = model(x.to(dtype)).to(dtype), m.to(dtype)
-    loss = 0.5 * _bce_elementwise(logits, m).mean() + 1.0 - _soft_dice(logits, m, 1e-5).mean()
+    out, m = model(x.to(dtype)), m.to(dtype)
+    heads = [o.to(dtype) for o in (out if isinstance(out, (list, tuple)) else [out])]
+    loss = sum(0.5 * _bce_elementwise(o, m).mean() + 1.0 - _soft_dice(o, m, 1e-5).mean()
+               for o in heads) / len(heads)
     loss.backward()
     return ({n: p.grad.double() for n, p in model.named_parameters()},
             {n: b.double() for n, b in model.named_buffers()})

@@ -96,7 +96,7 @@ def test_unknown_arch_kwarg_raises(tmp_path):
     with pytest.raises(ValueError, match="fast_pam"):
         parse_arch_kwargs("UNetRNNCAttention", '{"fast_pam": true}')
     with pytest.raises(SystemExit):  # argparse: not a registered arch
-        ttrain.parse_args(argv + ["--arch", "DoubleUnet"])
+        ttrain.parse_args(argv + ["--arch", "NoSuchArch"])
     assert parse_arch_kwargs("UNet", '{"nb_filter": [4, 8, 16, 32, 64]}') == {
         "nb_filter": (4, 8, 16, 32, 64)}
     assert parse_arch_kwargs("UNetRNNAttention", {"fast_pam": True, "pam_grid": 64}) == {
@@ -104,18 +104,22 @@ def test_unknown_arch_kwarg_raises(tmp_path):
 
 
 def test_every_registered_arch_serves_through_predictor():
-    """Predictor(arch=...) builds and serves each of the 23 registered archs:
-    narrow where the arch has a width option, the CRDN backbones at full
-    width (ResNet50FCN at 48x48: its valid 3x3 classifier conv needs down5
-    of 3x3)."""
+    """Predictor(arch=...) builds and serves each of the 25 registered archs
+    (the JAX package's registry): narrow where the arch has a width option,
+    the CRDN backbones and DoubleUnet at full width (ResNet50FCN at 48x48:
+    its valid 3x3 classifier conv needs down5 of 3x3; DoubleUnet at 32x32,
+    the multiple of 32 it needs), DeepLab at layers (1, 1, 1, 1)."""
+    from pytorch_nested_unet_tpu.models import arch_names as jax_arch_names
+
     rng = np.random.default_rng(4)
-    assert len(arch_names()) == 23
+    assert len(arch_names()) == 25 and arch_names() == sorted(jax_arch_names())
     for arch in arch_names():
         options = arch_options(arch)
         kw = ({"nb_filter": (4, 8, 16, 32, 64)} if "nb_filter" in options
               else {"filters": (4, 8, 16, 32, 64)} if "filters" in options
-              else {"feature_scale": 16} if "feature_scale" in options else {})
-        hw = {"UNetRM7": 64, "ResNet50FCN": 48}.get(arch, 16)  # RM7 pools 6 times
+              else {"feature_scale": 16} if "feature_scale" in options
+              else {"layers": [1, 1, 1, 1]} if arch == "DeepLab" else {})
+        hw = {"UNetRM7": 64, "ResNet50FCN": 48, "DoubleUnet": 32}.get(arch, 16)  # RM7 pools 6x
         images = rng.integers(0, 256, (3, hw, hw, 3), dtype=np.uint8)
         pred = Predictor(arch, batch_size=2, device="cpu", arch_kwargs=kw)
         probs = pred.predict_u8(images)

@@ -106,7 +106,7 @@ def test_multiclass_raises(arch):
 
 
 def test_both_archs_are_registered():
-    assert len(arch_names()) == 23 and set(ARCHS) <= set(arch_names())
+    assert len(arch_names()) == 25 and set(ARCHS) <= set(arch_names())
 
 
 def test_reference_pth_keeps_the_refinement_init(pair, tmp_path, capsys):
