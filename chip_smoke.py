@@ -113,10 +113,26 @@
    ASPP's pooled BN normalizes 2 values per channel at batch 2), and
    `deeplab_cli_phase`: `train.main --arch DeepLab` for 1 bf16 epoch on
    the CLI path's folder, `val.main` and `infer.main` on its capsule;
+11h. data parallelism: `bn_finish_phase` (run after phase 5: K1's
+   sums-only launch against the plain sums, the sums-only launch plus
+   `bn_finish` equal to one K1 call bit for bit, `bn_finish` and K3 at a
+   global row count against their plain versions, and `bn_finish`'s time
+   over a step's 30 instances against its bound) and `dp_phase`
+   (NestedUNet wDS, full width, 96x96, global batch 16: a world of one
+   process over NCCL against the non-distributed step, 30 launches of K1
+   in its sums-only mode, `bn_finish`, K2 and K3 and 10 of K4 per step, its
+   p50 / p95 and busy share beside the plain step's in fp32 and bf16; then
+   two ranks on this card over Gloo, two processes of this script run as
+   `--dp-worker`, each on its 8 rows against the one-process step);
 12. a JSON line of the kernels (launches over every path above; `cli`: the
-   CLI path's own; `remat_step`: per fp32 step in each --remat mode), then
-   the last line
+   CLI path's own; `remat_step`: per fp32 step in each --remat mode; `dp`:
+   dp_phase's), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+`python3 chip_smoke.py --dp-cards N` runs only the data-parallel check over
+N cards of one host (NCCL, one process a card): each rank's fp32 step on
+its 16/N rows against the one-process step, and the bf16 step's p50 at 16
+rows a rank beside one card's.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -440,7 +456,7 @@ def path_phase(bn, df, card, arch="NestedUNet", deep_supervision=True, k4_per_ba
         outs = [pred.predict_u8(r) for r in requests]
         counts = launch_counts(bn, df)
         launches[precision] = counts
-        want = {**{k: 0 for k in bn.LAUNCHES}, "multipart_conv3x3": k4_per_batch * len(requests)}
+        want = {**bn_want(0), "multipart_conv3x3": k4_per_batch * len(requests)}
         if counts != want:
             raise AssertionError(f"serve {label} {precision}: launches {counts}, expected {want} "
                                  f"(K4 at {k4_per_batch} decoder nodes x {len(requests)} batches, "
@@ -818,14 +834,22 @@ def launch_counts(bn, df):
     return {**bn.LAUNCHES, "multipart_conv3x3": df.LAUNCHES}
 
 
+def bn_want(n, finish=0):
+    """BN launches a path should count: n of each of K1-K3 and `finish` of
+    bn_finish, which runs only in data-parallel steps (dp_phase)."""
+    return {"bn_stats": n, "bn_bwd_reduce": n, "bn_bwd_dx": n, "bn_finish": finish}
+
+
 def reset_counts(bn, df):
     for k in bn.LAUNCHES:
         bn.LAUNCHES[k] = 0
     df.LAUNCHES = 0
 
 
-def profile_steps(step, batch, gen, precision, card, steps=5):
-    """Device time by kernel over a few train steps (torch.profiler)."""
+def profile_steps(step, batch, gen, precision, card, steps=5, host_ops=0):
+    """Device time by kernel over a few train steps (torch.profiler), and
+    with host_ops > 0 the host's busiest operators (self CPU time);
+    returns (wall, device busy) ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -845,6 +869,12 @@ def profile_steps(step, batch, gen, precision, card, steps=5):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms / steps:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
               f"x{e.count // steps:<3d} {e.key[:110]}")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:host_ops]
+    for e in host:
+        print(f"  host {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step "
+              f"x{e.count // steps:<4d} {e.key[:100]}")
+    return wall_ms / steps, busy_ms / steps
 
 
 def train_phase(bn, df, card, arch="NestedUNet", deep_supervision=True,
@@ -877,7 +907,7 @@ def train_phase(bn, df, card, arch="NestedUNet", deep_supervision=True,
         fit_s = time.perf_counter() - t0
         counts = launch_counts(bn, df)
         launches[precision] = counts
-        want = {k: bn_per_step * epochs * steps for k in bn.LAUNCHES}
+        want = bn_want(bn_per_step * epochs * steps)
         want["multipart_conv3x3"] = k4_per_forward * epochs * (steps + val_batches)
         if counts != want:
             raise AssertionError(f"train {label} {precision}: launches {counts}, expected {want} "
@@ -1197,7 +1227,7 @@ def arch_sweep_phase(bn, df, card):
         loss = float(step(*batch, gen)["loss"])
         step_ms = (time.perf_counter() - t0) * 1e3
         train_counts = launch_counts(bn, df)
-        want = {**{k: bn_per_step for k in bn.LAUNCHES}, "multipart_conv3x3": k4}
+        want = {**bn_want(bn_per_step), "multipart_conv3x3": k4}
         if train_counts != want or not np.isfinite(loss):
             raise AssertionError(f"sweep {label}: train step loss {loss}, launches "
                                  f"{train_counts}, expected {want}")
@@ -1207,7 +1237,7 @@ def arch_sweep_phase(bn, df, card):
         probs = pred.predict_u8(imgs)
         serve_ms = (time.perf_counter() - t0) * 1e3
         serve_counts = launch_counts(bn, df)
-        want = {**{k: 0 for k in bn.LAUNCHES}, "multipart_conv3x3": k4}
+        want = {**bn_want(0), "multipart_conv3x3": k4}
         if serve_counts != want or probs.shape != (2, SIZE, SIZE, 1) \
                 or not np.isfinite(probs).all():
             raise AssertionError(f"sweep {label}: served {probs.shape}, launches "
@@ -1329,7 +1359,7 @@ def cli_phase(bn, df, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = launch_counts(bn, df)
-        want = {k: BN_PER_STEP * steps * epochs for k in bn.LAUNCHES}
+        want = bn_want(BN_PER_STEP * steps * epochs)
         want["multipart_conv3x3"] = 10 * ((steps + val_batches) * epochs + val_k4_batches)
         if counts != want:
             raise AssertionError(f"cli {what}: launches {counts}, expected {want} ({epochs} "
@@ -1519,8 +1549,7 @@ def pretrained_phase(bn, df, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts(bn, df)
-    want = {**{k: RESNET_RNN_BN_PER_STEP * CLI_STEPS for k in bn.LAUNCHES},
-            "multipart_conv3x3": 0}
+    want = {**bn_want(RESNET_RNN_BN_PER_STEP * CLI_STEPS), "multipart_conv3x3": 0}
     said = f"pretrained backbone: {trunk} tensors -> the model root"
     if said not in text or counts != want:
         raise AssertionError(f"pretrained: printed {said!r}: {said in text}; launches {counts}, "
@@ -1824,7 +1853,7 @@ def refine_cli_phase(bn, df, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts(bn, df)
-        want = {**{k: bn_launches for k in bn.LAUNCHES}, "multipart_conv3x3": k4_launches}
+        want = {**bn_want(bn_launches), "multipart_conv3x3": k4_launches}
         if counts != want:
             raise AssertionError(f"refine cli {what}: launches {counts}, expected {want}")
         for k in total:
@@ -1986,7 +2015,8 @@ def remat_phase(bn, df, card):
         loss = float(step(*batch, torch.Generator(device="cuda").manual_seed(0))["loss"])
         torch.cuda.synchronize()
         launches[mode] = launch_counts(bn, df)
-        want = dict(zip(launches[mode], REMAT_LAUNCHES[mode]))
+        want = {**bn_want(0), **dict(zip(("bn_stats", "bn_bwd_reduce", "bn_bwd_dx",
+                                            "multipart_conv3x3"), REMAT_LAUNCHES[mode]))}
         if launches[mode] != want:
             raise AssertionError(f"remat {mode}: launches {launches[mode]} per step, expected "
                                  f"{want}")
@@ -2040,11 +2070,574 @@ def remat_phase(bn, df, card):
     return launches
 
 
+# K1's finish split off for data-parallel steps: float32 operations per
+# channel of bn_finish (mean, var, inv, the running-stat update) and the
+# floats it moves per channel (sums 2 and running stats 2 read; mean, var,
+# inv 3 and running stats 2 written)
+FINISH_OPS, FINISH_FLOATS = 14, 9
+
+
+def finish_bound_ms(c):
+    t_bytes = FINISH_FLOATS * 4 * c / PEAK_BYTES * 1e3
+    t_ops = FINISH_OPS * c / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def bn_finish_phase(bn, dev):
+    """The data-parallel split of K1 on the card, at NestedUNet's training-step
+    shapes and the ragged ones, both dtypes: K1's sums-only launch against the
+    plain sums (SUM_TOL); the sums-only launch plus bn_finish on its sums
+    equal to one K1 call bit for bit, running statistics included; bn_finish
+    at a global n = 2 * rows against its plain version (BN_TOL) and K3 at
+    that n against its plain version. Then bn_finish over the 30 instances of
+    a NestedUNet step in one CUDA graph against its plain version and its
+    bound. Returns {dtype: summary} (bn_finish reads float32 sums whatever the
+    activations' dtype: the times are one measurement, the errors per dtype)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vec_tol, dx_tol = BN_TOL[dtype]
+        err = 0.0
+        cases = [(c, rows) for _, c, rows, _ in BN_LEVELS] + BN_RAGGED
+        for c, rows in cases:
+            what = f"bn_finish {DTYPE_NAME[dtype]} C={c} rows={rows}"
+            x = (torch.randn(rows, c, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+            xf = x.float()
+            sums = bn.bn_sums(x)
+            torch.cuda.synchronize()
+            _sum_err(sums, bn.reference_bn_sums(xf), [xf.abs().sum(0), (xf * xf).sum(0)],
+                     f"K1 sums-only {what}")
+            run = [torch.rand(c, generator=gen, device=dev) + 0.5 for _ in range(2)]
+            one_run = [t.clone() for t in run]
+            one = bn.bn_stats(x, 1e-5, *one_run)
+            split = bn.bn_finish(sums, rows, 1e-5, *run)
+            torch.cuda.synchronize()
+            if not torch.equal(sums, torch.stack(one[:2])) or not all(
+                    torch.equal(a, b) for a, b in zip((*split, *run), (*one[2:], *one_run))):
+                raise AssertionError(f"{what}: sums-only K1 + bn_finish differ from one K1 call")
+            ref_run = [t.clone() for t in run]
+            got = bn.bn_finish(sums, 2 * rows, 1e-5, *run)
+            want = bn.reference_bn_finish(sums[0], sums[1], 2 * rows, 1e-5, *ref_run)
+            torch.cuda.synchronize()
+            err = max(err, _max_err([*got, *run], [*want, *ref_run], vec_tol, what))
+            dy = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+            gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+            beta = torch.rand(c, generator=gen, device=dev) * 0.6 - 0.3
+            db, dg = bn.reference_bn_bwd_reduce(xf, dy.float(), want[0], want[2], gamma, beta)
+            dx = bn.bn_bwd_dx(x, dy, want[0], want[2], gamma, beta, db, dg, 2 * rows)
+            ref_dx = bn.reference_bn_bwd_dx(xf, dy.float(), want[0], want[2], gamma, beta, db,
+                                            dg, 2 * rows)
+            torch.cuda.synchronize()
+            _max_err([dx], [ref_dx], dx_tol, f"K3 at n = 2 * rows {what}")
+        out[dtype] = {"max_abs_err": err}
+    insts = []
+    for c, _, n in BN_STEPS["NestedUNet"]:
+        for _ in range(n):
+            s = torch.rand(2, c, generator=gen, device=dev) * 1e4
+            s[1] += s[0] ** 2 / 1e4
+            insts.append((s, [torch.rand(c, generator=gen, device=dev) for _ in range(2)]))
+    n_rows = 2 * BATCH * SIZE * SIZE
+    ms = graph_ms(lambda: [bn.bn_finish(s, n_rows, 1e-5, *r) for s, r in insts], flush)
+    plain_ms = graph_ms(lambda: [bn.reference_bn_finish(s[0], s[1], n_rows, 1e-5, *r)
+                                 for s, r in insts], flush)
+    bounds = [finish_bound_ms(s.shape[1]) for s, _ in insts]
+    bound = sum(b for b, _ in bounds)
+    by = "bytes" if sum(b for b, k in bounds if k == "bytes") >= bound / 2 else "operations"
+    print(f"bn_finish over the {len(insts)} instances of one NestedUNet step (one CUDA graph, "
+          f"one L2 flush): kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.6f} ms "
+          f"({by}) | no library call takes sums | max abs err fp32 "
+          f"{out[torch.float32]['max_abs_err']:.3g}, bf16 "
+          f"{out[torch.bfloat16]['max_abs_err']:.3g}; the split path equals one K1 call bit "
+          f"for bit at every shape", flush=True)
+    for agg in out.values():
+        agg.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    return out
+
+
+
+def bn_bits(bn, dev, path):
+    """K1 (with its running-stat update), K2 and K3 outputs at the five
+    levels of NestedUNet's training step, both dtypes, on seeded inputs,
+    saved to `path`: run it on two trees' packages (each first on sys.path,
+    in its own process) and compare the files to show that a change keeps
+    the single-process kernels' bits."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for lvl, c, rows, _ in BN_LEVELS:
+            x = (torch.randn(rows, c, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+            dy = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+            gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+            beta = torch.rand(c, generator=gen, device=dev) * 0.6 - 0.3
+            rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+            k1 = bn.bn_stats(x, 1e-5, rm, rv)
+            db, dg = bn.bn_bwd_reduce(x, dy, k1[2], k1[4], gamma, beta)
+            dx = bn.bn_bwd_dx(x, dy, k1[2], k1[4], gamma, beta, db, dg)
+            out[f"{DTYPE_NAME[dtype]}_level{lvl}"] = [t.cpu() for t in (*k1, rm, rv, db, dg, dx)]
+    torch.save(out, path)
+
+# One data-parallel NestedUNet wDS step (full width, 96x96): launches of K1
+# (its sums-only mode), bn_finish, K2, K3 and K4 on each rank
+DP_LAUNCHES = {**bn_want(BN_PER_STEP, BN_PER_STEP), "multipart_conv3x3": 10}
+DP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke", "dp")
+DP_RANKS = 2
+
+
+def _dp_batch(n=BATCH):
+    x, y = synthetic_set(64, seed=10)
+    return np.resize(x, (n, *x.shape[1:])), np.resize(y, (n, *y.shape[1:]))
+
+
+def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda"):
+    """Full-width NestedUNet wDS from seed 11 on `device` and its SGD train
+    step (under `mesh`, data-parallel); `moved`: every weight multiplied by
+    1 + moved * N(0, 1) (seeded), to measure how far rounding moves the
+    step."""
+    from pytorch_nested_unet_tpu_torch.models import create_model
+    from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
+    from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
+
+    m = create_model("NestedUNet", 1, 3, True, dtype=dtype,
+                     generator=torch.Generator().manual_seed(11))
+    # the conv biases that feed a BN at 0, as in cpu_step_phase: at their
+    # init they dominate the first conv's output, and var = E[x^2] - mean^2
+    # then turns the rounding of a BN sum split over ranks into a 3% move of
+    # a deep conv's gradient (the step would be held to summation order)
+    noise = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith(("conv1.bias", "conv2.bias")):
+                p.zero_()
+            elif moved:
+                p.mul_(1 + moved * torch.randn(p.shape, generator=noise))
+    m = m.to(device)
+    return m, make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
+                              "BCEDiceLoss", True, augment, mesh)
+
+
+def _dp_result(m, metrics):
+    """(loss, gradients, running statistics) of a step, copied to the host."""
+    return (float(metrics["loss"]),
+            {n: p.grad.to("cpu", torch.float32, copy=True) for n, p in m.named_parameters()},
+            {n: b.to("cpu", copy=True) for n, b in m.named_buffers()})
+
+
+def _dp_rel(got, want):
+    """Each gradient's L2 distance relative to the larger of its own norm and
+    its module's weight gradient norm, as cpu_step_phase takes it."""
+    grads, grads0 = got[1], want[1]
+    return {n: float((g - grads0[n]).norm() / max(
+        grads0[n].norm(), grads0[n.rsplit(".", 1)[0] + ".weight"].norm()))
+        for n, g in grads.items()}
+
+
+def _dp_compare(got, want, loss_tol, stats_tol, grad_tol, what):
+    """Loss, running statistics and gradients (`_dp_rel`) of two steps;
+    raises outside the tolerances (grad_tol: one for all, or per gradient).
+    Returns (loss error, stats error, the gradient nearest its tolerance,
+    its error, its tolerance)."""
+    rel = _dp_rel(got, want)
+    tol = grad_tol if isinstance(grad_tol, dict) else dict.fromkeys(rel, grad_tol)
+    worst = max(rel, key=lambda n: rel[n] / tol[n])
+    stats_err = max(float((b - want[2][n]).abs().max()) for n, b in got[2].items())
+    loss_err = abs(got[0] - want[0])
+    if loss_err > loss_tol or stats_err > stats_tol or rel[worst] > tol[worst]:
+        raise AssertionError(f"{what}: loss {got[0]} vs {want[0]}, running stats off by "
+                             f"{stats_err}, gradient {worst} off by {rel[worst]} relative L2 "
+                             f"(tolerances {loss_tol}, {stats_tol}, {tol[worst]})")
+    return loss_err, stats_err, worst, rel[worst], tol[worst]
+
+
+def _p50_p95(step, batch, gen, steps=20):
+    for _ in range(3):
+        step(*batch, gen)
+    if batch[0].is_cuda:
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(*batch, gen)
+        if batch[0].is_cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2], times[min(len(times) - 1, int(len(times) * 0.95))]
+
+
+def _dp_reference(device="cuda"):
+    """The non-distributed fp32 step over the global batch of 16 (augment
+    none) and how far it moves: against itself run again (it is not
+    deterministic on the card: bilinear upsampling's backward adds with
+    atomics) and under a 1e-7 change of every weight (at full width the step
+    is chaotic at init: ReLU masks flip, a deep conv's gradient moves by
+    ~2e-3). Returns (result, {gradient: run-to-run spread}, {gradient:
+    movement})."""
+    x, y = _dp_batch()
+    batch = (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+    runs = []
+    for moved in (0.0, 0.0, 1e-7):
+        m, step = _dp_build(moved=moved, device=device)
+        runs.append(_dp_result(m, step(*batch, torch.Generator(device).manual_seed(0))))
+        del m, step
+    return runs[0], _dp_rel(runs[1], runs[0]), _dp_rel(runs[2], runs[0])
+
+
+def dp_worker(rank, world, port, out_dir, backend, device, steps):
+    """One rank of a data-parallel run (dp_phase's 2 ranks over Gloo on one
+    card, `--dp-cards`' N over NCCL, one card each): one fp32 step of
+    full-width NestedUNet wDS on this rank's rows of the global batch of 16
+    (augment none, TF32 off), its launches and the p50 of `steps` more; over
+    NCCL also the bf16 step's p50 at 16 rows a rank (augment full). Written
+    to rank<rank>.pt under out_dir."""
+    from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
+    from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
+    from pytorch_nested_unet_tpu_torch.parallel import (batch_sharding, initialize_distributed,
+                                                        make_mesh)
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    initialize_distributed(backend=backend, device=dev, world_size=world, rank=rank,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = make_mesh()
+        x, y = _dp_batch()
+        rows = batch_sharding(mesh, BATCH)
+        batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
+        m, step = _dp_build(mesh, device=dev)
+        reset_counts(bn, df)
+        result = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        first = launch_counts(bn, df)
+        p50, _ = _p50_p95(step, batch, torch.Generator(dev).manual_seed(0), steps)
+        out = {"result": result, "launches": first, "p50": p50, "backend": dist.get_backend()}
+        del m, step
+        if backend == "nccl":
+            x16, y16 = _dp_batch(BATCH * world)
+            rows = batch_sharding(mesh, BATCH * world)
+            m, step = _dp_build(mesh, torch.bfloat16, "full", device=dev)
+            out["bf16_p50"] = _p50_p95(step, (torch.from_numpy(x16[rows]).to(dev),
+                                              torch.from_numpy(y16[rows]).to(dev)),
+                                       torch.Generator(dev).manual_seed(0), steps)
+        out["total"] = launch_counts(bn, df)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_ranks(world, backend, reference, card, steps=10, device=None):
+    """Run `world` dp_worker processes (over NCCL each on its own card,
+    cuda:RANK; over Gloo all on `device`, default the first card) and hold
+    each rank's fp32 step against the one-process step over 16
+    (`reference`, from _dp_reference): loss and running statistics within
+    1e-5, each gradient within 1e-4 or 4x its movement under a 1e-7 weight
+    change, where that is more (a rank adds each BN's sums in another
+    order; cpu_step_phase's step_floor rule), DP_LAUNCHES per step. Returns
+    the ranks' outputs."""
+    plain, _, movement = reference
+    os.makedirs(DP_ROOT, exist_ok=True)
+    for f in os.listdir(DP_ROOT):
+        os.remove(os.path.join(DP_ROOT, f))
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for rank in range(world):
+            dev = f"cuda:{rank}" if backend == "nccl" else (device or "cuda:0")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker", str(rank), str(world),
+                 str(port), DP_ROOT, backend, dev, str(steps)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dp rank {rank} of {world} ({backend}) failed:\n{log[-3000:]}")
+    outs = []
+    gate = {n: max(1e-4, 4 * v) for n, v in movement.items()}
+    for rank in range(world):
+        r = torch.load(os.path.join(DP_ROOT, f"rank{rank}.pt"), weights_only=False)
+        if r["launches"] != DP_LAUNCHES:
+            raise AssertionError(f"dp rank {rank}: launches {r['launches']} per step, expected "
+                                 f"{DP_LAUNCHES}")
+        loss_err, stats_err, worst, rel, tol = _dp_compare(r["result"], plain, 1e-5, 1e-5, gate,
+                                                           f"dp rank {rank} of {world}")
+        largest = max(_dp_rel(r["result"], plain).items(), key=lambda kv: kv[1])
+        bf16 = r.get("bf16_p50")
+        print(f"dp rank {rank} of {world} ({r['backend']}, {BATCH // world} rows of {BATCH}), "
+              f"one fp32 step against the one-process step over {BATCH}: loss off by "
+              f"{loss_err:.3g} (1e-5), running stats by {stats_err:.3g} (1e-5), gradients: "
+              f"nearest its gate {worst} at {rel:.3g} (gate {tol:.3g}), largest {largest[0]} "
+              f"at {largest[1]:.3g} (its gate {gate[largest[0]]:.3g}); the step's own "
+              f"movement under a 1e-7 weight change: median "
+              f"{np.median(list(movement.values())):.3g}, max {max(movement.values()):.3g} "
+              f"| launches per step {r['launches']} | fp32 p50 of {steps} steps "
+              f"{r['p50']:.3f} ms"
+              + (" (a correctness run: Gloo stages each all-reduce through host memory)"
+                 if backend == "gloo" else "")
+              + (f" | bf16 at {BATCH} rows a rank (global {BATCH * world}): p50 {bf16[0]:.3f} "
+                 f"ms (p95 {bf16[1]:.3f})" if bf16 else "")
+              + f" | all ranks' wall {wall:.1f} s | card: {card}", flush=True)
+        outs.append(r)
+    return outs
+
+
+def dp_phase(bn, df, card):
+    """Data-parallel NestedUNet wDS (full width, 96x96, global batch 16):
+    (a) a world of one process over NCCL (`--mesh data=1`'s path): one fp32
+    step (augment none) against the non-distributed step from the same
+    weights, loss and running statistics within 1e-6, gradients within 1e-5
+    (or twice the plain step's own run-to-run spread, measured first: it is
+    not deterministic on the card), DP_LAUNCHES per step; then the step's
+    p50 / p95 and busy share in fp32 and bf16 beside the plain step's
+    (plain, mesh, mesh, plain); (b) two ranks on the one card over Gloo
+    (`dp_ranks`), each stepping on its 8 rows. Returns {precision:
+    launches} over every step driven here and by the ranks."""
+    import torch.distributed as dist
+
+    from pytorch_nested_unet_tpu_torch.parallel import initialize_single_process, make_mesh
+
+    x, y = _dp_batch()
+    batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+    reference = _dp_reference()
+    plain, spread, _ = reference
+    floor_worst = max(spread, key=spread.get)
+    floor = spread[floor_worst]
+    totals = {"fp32": bn_want(0), "bf16": bn_want(0)}
+    for t in totals.values():
+        t["multipart_conv3x3"] = 0
+
+    def count(precision):
+        for k, v in launch_counts(bn, df).items():
+            totals[precision][k] += v
+
+    initialize_single_process("nccl")
+    try:
+        mesh = make_mesh()
+        reset_counts(bn, df)
+        m, step = _dp_build(mesh)
+        got = _dp_result(m, step(*batch, gen()))
+        torch.cuda.synchronize()
+        per_step = launch_counts(bn, df)
+        count("fp32")
+        if per_step != DP_LAUNCHES:
+            raise AssertionError(f"dp world 1: launches {per_step} per step, expected "
+                                 f"{DP_LAUNCHES}")
+        loss_err, stats_err, worst, rel, _ = _dp_compare(got, plain, 1e-6, 1e-6,
+                                                         max(1e-5, 2 * floor),
+                                                         "dp world 1 (NCCL)")
+        print(f"dp world 1 ({dist.get_backend()}), one fp32 step (batch {BATCH}, "
+              f"{SIZE}x{SIZE}) against the non-distributed step: loss off by {loss_err:.3g} "
+              f"(1e-6), running stats by {stats_err:.3g} (1e-6), worst gradient {worst} at "
+              f"{rel:.3g} relative L2 (gate {max(1e-5, 2 * floor):.3g}: 1e-5 or twice the "
+              f"plain step's run-to-run spread, {floor_worst} at {floor:.3g}) | launches per "
+              f"step {per_step} | card: {card}", flush=True)
+        del m, step
+        for precision, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            rows = []
+            reset_counts(bn, df)
+            for kind in ("plain", "mesh", "mesh", "plain"):
+                m, step = _dp_build(mesh if kind == "mesh" else None, dtype, "full")
+                rows.append((kind, *_p50_p95(step, batch, gen())))
+                del m, step
+            count(precision)
+            reset_counts(bn, df)
+            busy = {}
+            for kind in ("plain", "mesh"):
+                m, step = _dp_build(mesh if kind == "mesh" else None, dtype, "full")
+                step(*batch, gen())
+                busy[kind] = profile_steps(step, batch, gen(), f"dp {kind} {precision}", card,
+                                           host_ops=8)
+                del m, step
+            count(precision)
+            print(f"dp step {precision}: NestedUNet wDS full width, batch {BATCH} "
+                  f"{SIZE}x{SIZE}, 20 steps each, p50 (p95) ms: " + ", ".join(
+                      f"{kind} {p50:.3f} ({p95:.3f})" for kind, p50, p95 in rows)
+                  + " | busy ms/step (share of wall, profiler on): " + ", ".join(
+                      f"{kind} {b:.3f} ({100 * b / w:.1f}%)" for kind, (w, b) in busy.items())
+                  + f" | card: {card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    for r in dp_ranks(DP_RANKS, "gloo", reference, card, steps=5):
+        for k, v in r["total"].items():
+            totals["fp32"][k] += v
+    return totals
+
+
+DP_CLI_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
+                           "dp_cli")
+
+
+def _dp_cli_launch(world, args, out_of_rank, device_of_rank):
+    """train.main as `world` processes with torchrun's variables (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); returns their
+    outputs, raising if one fails."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "pytorch_nested_unet_tpu_torch.train", *args,
+                 "--output_dir", out_of_rank(rank), "--device", device_of_rank(rank)],
+                env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dp cli rank {rank} of {world} failed:\n{out[-3000:]}")
+    return outs
+
+
+def dp_cli(world, card, device="cuda"):
+    """The folder CLI data-parallel over `world` processes, as
+    tests/test_torch_multihost.py runs it on the CPU: a narrow UNet
+    (nb_filter 4..64, 32x32, batch 8, fp32, Adam, augment full) on 24
+    seeded PNG pairs, `--mesh data=N` for 2 epochs with each rank writing
+    to its own --output_dir (no shared filesystem), then `--resume` to a
+    3rd; then one process with `--mesh data=1` on the same schedule
+    (`--resume` re-seeds the shuffle). Holds the two log.csv's to
+    the JAX multi-host test's bounds (loss rtol 2e-4 / atol 2e-5, IoU atol
+    0.02), checks that rank 0 alone wrote the capsule and that every rank
+    resumed from epoch 1. `device`: "cuda" gives rank r cuda:r (NCCL);
+    "cpu" runs the ranks on the CPU over Gloo."""
+    import shutil
+
+    from pytorch_nested_unet_tpu_torch.data import image_io
+
+    shutil.rmtree(DP_CLI_ROOT, ignore_errors=True)
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:32, 0:32]
+    for sub in ("images", "masks/0"):
+        os.makedirs(os.path.join(DP_CLI_ROOT, "inputs", "synth", sub))
+    for i in range(24):
+        img = rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+        cy, cx = rng.integers(10, 22, 2)
+        mask = ((((yy - cy) ** 2 + (xx - cx) ** 2) < 25) * 255).astype(np.uint8)
+        img[mask > 0] = 220
+        image_io.write_png(os.path.join(DP_CLI_ROOT, "inputs", "synth", "images",
+                                        f"im{i:02d}.png"), img)
+        image_io.write_png(os.path.join(DP_CLI_ROOT, "inputs", "synth", "masks", "0",
+                                        f"im{i:02d}.png"), mask)
+    args = ["--data_dir", os.path.join(DP_CLI_ROOT, "inputs"), "--dataset", "synth",
+            "--arch", "UNet", "--arch_kwargs", '{"nb_filter": [4, 8, 16, 32, 64]}', "--name",
+            "run", "--input_w", "32", "--input_h", "32", "--batch_size", "8", "--lr", "1e-2",
+            "--precision", "fp32"]
+    outs_of = lambda r: os.path.join(DP_CLI_ROOT, f"out{r}")  # noqa: E731
+    dev_of = (lambda r: f"cuda:{r}") if device == "cuda" else (lambda r: "cpu")  # noqa: E731
+    t0 = time.perf_counter()
+    outs = _dp_cli_launch(world, args + ["--mesh", f"data={world}", "--epochs", "2"], outs_of,
+                          dev_of)
+    wall = time.perf_counter() - t0
+    if f"multi-host: process 0/{world}" not in outs[0] or \
+            f"mesh: {{'data': {world}}}" not in outs[0]:
+        raise AssertionError(f"dp cli: rank 0 printed no multi-host / mesh line:\n"
+                             f"{outs[0][-2000:]}")
+    capsule = ("config.yml", "log.csv", "model.pth", "last.pth")
+    run0 = os.path.join(outs_of(0), "run")
+    written = [r for r in range(1, world) for f in capsule
+               if os.path.exists(os.path.join(outs_of(r), "run", f))]
+    if not all(os.path.isfile(os.path.join(run0, f)) for f in capsule) or written:
+        raise AssertionError(f"dp cli: rank 0's capsule {os.listdir(run0)}, other ranks wrote "
+                             f"{written}")
+    outs = _dp_cli_launch(world, args + ["--mesh", f"data={world}", "--epochs", "3",
+                                         "--resume", "true"], outs_of, dev_of)
+    if not all("resumed from epoch 1" in out for out in outs):
+        raise AssertionError("dp cli: a rank did not resume from rank 0's last.pth")
+    for extra in (["--epochs", "2"], ["--epochs", "3", "--resume", "true"]):
+        # the same schedule in one process: --resume re-seeds the shuffle
+        one = subprocess.run([sys.executable, "-m", "pytorch_nested_unet_tpu_torch.train",
+                              *args, "--mesh", "data=1", *extra, "--output_dir",
+                              os.path.join(DP_CLI_ROOT, "one"), "--device",
+                              "cuda:0" if device == "cuda" else "cpu"],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        if one.returncode != 0:
+            raise AssertionError(f"dp cli one process failed:\n{one.stdout[-3000:]}")
+
+    def read_log(run_dir):
+        with open(os.path.join(run_dir, "log.csv")) as f:
+            return list(csv.DictReader(f))
+
+    a, b = read_log(run0), read_log(os.path.join(DP_CLI_ROOT, "one", "run"))
+    worst = {}
+    for col, rtol, atol in (("loss", 2e-4, 2e-5), ("val_loss", 2e-4, 2e-5), ("iou", 0, 0.02),
+                            ("val_iou", 0, 0.02)):
+        x, y = (np.array([float(r[col]) for r in t]) for t in (a, b))
+        if len(x) != 3 or len(y) != 3 or not np.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"dp cli: {col} over {world} ranks {x} vs one process {y}")
+        worst[col] = float(np.abs(x - y).max())
+    print(f"dp cli: train.main --mesh data={world} over {world} processes ({device}), narrow "
+          f"UNet 32x32 batch 8 fp32, 2 epochs in {wall:.1f} s of wall, then --resume to a 3rd "
+          f"(every rank resumed from rank 0's last.pth; rank 0 alone wrote the capsule); "
+          f"log.csv against --mesh data=1 in one process, max abs diff " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()) + f" | card: {card}", flush=True)
+
+
+def dp_cards(world):
+    """`python3 chip_smoke.py --dp-cards N`: data-parallel NestedUNet wDS over
+    N cards of one host (NCCL, one process a card): each rank's fp32 step on
+    its 16/N rows held against the one-process step over 16 on the first
+    card (dp_ranks' gates), then each rank's bf16 step p50 at 16 rows a
+    rank (global 16N) beside the one-card bf16 step's at 16; then the
+    folder CLI over the N cards (`dp_cli`)."""
+    from pytorch_nested_unet_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"--dp-cards {world}: {torch.cuda.device_count()} card(s)")
+    print(f"card: {card} x{torch.cuda.device_count()} | torch {torch.__version__}", flush=True)
+    _build.build_all()
+    reference = _dp_reference()
+    x, y = _dp_batch()
+    m, step = _dp_build(None, torch.bfloat16, "full")
+    p50, p95 = _p50_p95(step, (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()),
+                        torch.Generator(device="cuda").manual_seed(0), 10)
+    del m, step
+    print(f"dp one card, bf16 step at {BATCH}: p50 {p50:.3f} ms (p95 {p95:.3f}) | card: {card}",
+          flush=True)
+    dp_ranks(world, "nccl", reference, card)
+    dp_cli(world, card)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-worker"]:
+        rank, world, port, out_dir, backend, device, steps = sys.argv[2:9]
+        return dp_worker(int(rank), int(world), int(port), out_dir, backend, device, int(steps))
+    if sys.argv[1:2] == ["--dp-cards"]:
+        return dp_cards(int(sys.argv[2]))
     from pytorch_nested_unet_tpu_torch.ops import _build
     from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
     from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
@@ -2081,6 +2674,7 @@ def main():
     runs = [path_phase(bn, df, card)]
     bn_kernels_per_call(bn, dev)
     bnk = bn_kernel_phase(bn, dev)
+    finish = bn_finish_phase(bn, dev)
     k4_backward_phase(df, dev)
     runs.append(train_phase(bn, df, card))
     cpu_step_phase()
@@ -2108,6 +2702,8 @@ def main():
     runs.append({"bf16": refine_cli_phase(bn, df, card)})
     remat = remat_phase(bn, df, card)
     runs.append({"fp32": {k: sum(c[k] for c in remat.values()) for k in launch_counts(bn, df)}})
+    dp = dp_phase(bn, df, card)
+    runs.append(dp)
     new_arch_counts()
     for arch, (_, _, gflop) in NEW_ARCHS.items():
         runs.append(path_phase(bn, df, card, arch, False, k4_per_batch=0, gflop=gflop))
@@ -2132,6 +2728,7 @@ def main():
             **{key: agg[key] for key in timed}}
         if dtype == torch.float32:  # per fp32 step of remat_phase, in each --remat mode
             entry["remat_step"] = {mode: c["multipart_conv3x3"] for mode, c in remat.items()}
+        entry["dp"] = {"launches": dp[name]["multipart_conv3x3"]}
         if dtype == torch.bfloat16:  # the CLI path runs bf16, at the 10 nodes' shapes
             entry["cli"] = {"launches": cli["multipart_conv3x3"],
                             **{key: agg[key] for key in timed},
@@ -2157,19 +2754,30 @@ def main():
             entry["remat_step"] = {mode: c[fn] for mode, c in remat.items()}
         if dtype == torch.bfloat16:  # the CLI path: NestedUNet's training-step shapes
             entry["cli"] = {"launches": cli[fn], **{key: agg[key] for key in timed}}
+        entry["dp"] = {"launches": dp[DTYPE_NAME[dtype]][fn]}
         kernels.append(entry)
+    for dtype, agg in finish.items():
+        name = DTYPE_NAME[dtype]
+        kernels.append({
+            "name": f"bn_finish[{name}]", "route": "cuda",
+            "source": "pytorch_nested_unet_tpu_torch/ops/csrc/fused_bn.cu",
+            "replaces": "pytorch_nested_unet_tpu/ops/fused_bn.py:145",
+            "launches": launches[name]["bn_finish"], **{key: agg[key] for key in timed}})
     print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 NestedUNet "
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
           "vgg16rnn_step: the 18 of a VGG16RNN step, its launches those of VGG16RNN's fit; "
           "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase; "
           "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
-          "and policy); max_abs_err: over the path's own shapes; launches: over every path "
+          "and policy; dp: launches in dp_phase's data-parallel steps, world 1 over NCCL and "
+          "2 ranks over Gloo; bn_finish: its 30 instances of one batch-16 NestedUNet step, "
+          "on float32 sums in either dtype, launched only by data-parallel steps); "
+          "max_abs_err: over the path's own shapes; launches: over every path "
           "driven (NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN, AttU_Net and UNetRNNPSP "
           "serving and training, the arch sweep, the CLIs, --pretrained_backbone, "
           "train_canet, the Refiner (none), train_isic_ca with val/infer --refine, the "
-          "--remat steps, DoubleUnet and DeepLab serving and training and the DeepLab CLIs "
-          "(none)); card:")
+          "--remat steps, the data-parallel steps, DoubleUnet and DeepLab serving and training "
+          "and the DeepLab CLIs (none)); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

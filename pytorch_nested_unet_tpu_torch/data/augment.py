@@ -15,7 +15,7 @@ every transform at fixed parameters against the JAX package. Channels are used
 as loaded (cv2 BGR), as in the reference.
 """
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -193,15 +193,26 @@ def apply_augment(img, mask, ops: Sequence[str], params: Dict[str, torch.Tensor]
     return img, mask
 
 
-def augment_batch(images_u8, masks_u8, ops, generator: torch.Generator):
+def augment_batch(images_u8, masks_u8, ops, generator: torch.Generator,
+                  shard: Optional[Tuple[int, slice]] = None):
     """(B,H,W,3) uint8 images + (B,H,W,C) uint8 masks -> float32 (normalized
     images, masks in [0,1]), augmented with `ops` (see parse_augment_spec) on
-    per-sample draws from `generator`, which lives on the batch's device."""
+    per-sample draws from `generator`, which lives on the batch's device.
+
+    shard = (global batch, rows): the batch is these rows of a global batch
+    (data-parallel training); the draws are made for the global batch and
+    the rows' draws applied, so every rank, its generator in the same state,
+    augments its rows as one process would augment the whole batch."""
     ops = parse_augment_spec(ops)
     img = images_u8.to(torch.float32) / 255.0
     mask = masks_u8.to(torch.float32) / 255.0
     if ops:
-        params = draw_params(img.shape[0], generator, img.device)
+        if shard is None:
+            params = draw_params(img.shape[0], generator, img.device)
+        else:
+            global_batch, rows = shard
+            params = {k: v[rows] for k, v in
+                      draw_params(global_batch, generator, img.device).items()}
         img, mask = apply_augment(img, mask, ops, params)
     return normalize(img), mask
 

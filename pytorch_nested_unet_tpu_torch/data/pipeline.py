@@ -11,6 +11,11 @@ do the decoding, without the interpreter lock) one step ahead of the trainer.
 Both draw the epoch order from one shared numpy Generator, so at equal seeds
 they give the same batches in the same order. `resolve_pipeline` picks one
 for `--pipeline auto`.
+
+Data-parallel runs (parallel/mesh.py): every rank's device holds the whole
+store (replicated, as the JAX package's store is) and draws the same seeded
+order; each rank gathers its rows of every global batch. A rank's
+`HostPrefetchLoader` decodes only its rows (`rows`).
 """
 
 import queue
@@ -61,11 +66,13 @@ class HostPrefetchLoader:
     """Decodes the batches of one epoch per iteration on a background thread,
     `prefetch` batches ahead. Yields (images_u8, masks_u8, valid) numpy
     batches of `dataset` (a data.datasets dataset) at size_hw; a decoding
-    error is raised in the consumer."""
+    error is raised in the consumer. With `rows` (a slice of the batch), only
+    those rows of each batch are decoded and yielded; `valid` stays the whole
+    batch's count."""
 
     def __init__(self, dataset, batch_size: int, size_hw: Tuple[int, int],
                  shuffle: bool = True, drop_last: bool = True, prefetch: int = 2,
-                 rng: Optional[np.random.Generator] = None):
+                 rng: Optional[np.random.Generator] = None, rows: slice = slice(None)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.size_hw = tuple(size_hw)
@@ -74,6 +81,7 @@ class HostPrefetchLoader:
         # a Generator shared with the device path keeps both epoch orders equal
         self.rng = rng if rng is not None else np.random.default_rng(0)
         self.prefetch = prefetch
+        self.rows = rows
 
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -95,7 +103,7 @@ class HostPrefetchLoader:
         def producer():
             try:
                 for idx, valid in batches:
-                    imgs, msks = self.dataset.load_items(idx, self.size_hw)
+                    imgs, msks = self.dataset.load_items(idx[self.rows], self.size_hw)
                     if not put((imgs, msks, valid)):
                         return
             except Exception as e:  # handed to the consumer, which raises it

@@ -7,7 +7,10 @@ Semantics follow the JAX package, which follows the reference:
     the errors sorted per image with a stable descending `torch.sort`;
   - BCEWithLogitsLoss: the mean binary cross-entropy with logits.
 The `_weighted` variants weight each sample (1 valid, 0 padding), so the padded
-last validation batch scores like the reference's batch-weighted meter.
+last validation batch scores like the reference's batch-weighted meter. Each
+is a finish over sums (`get_weighted_loss_sums`): the weighted sums of its
+per-sample terms and the sum of the weights, which data-parallel evaluation
+adds across ranks before the finish.
 
 Every loss takes (logits, targets) shaped (B, ...) (NHWC for the models),
 computes in float32 and returns a 0-d tensor.
@@ -18,7 +21,7 @@ import torch
 __all__ = ["LOSS_NAMES", "get_loss", "get_weighted_loss", "bce_with_logits",
            "bce_dice_loss", "lovasz_hinge", "lovasz_hinge_loss",
            "bce_with_logits_weighted", "bce_dice_loss_weighted",
-           "lovasz_hinge_loss_weighted"]
+           "lovasz_hinge_loss_weighted", "get_weighted_loss_sums"]
 
 
 def _f32(*tensors):
@@ -88,29 +91,59 @@ def lovasz_hinge_loss(logits, targets):
     return lovasz_hinge(logits, targets, per_image=True)
 
 
-def _weighted_mean(per_sample, weights):
+def _weighted_sums(weights, *per_sample):
+    """[sum w*t for each per-sample term t..., sum w], float32."""
     weights = weights.to(torch.float32)
-    return (per_sample * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return torch.stack([(t * weights).sum() for t in per_sample] + [weights.sum()])
+
+
+def _mean_of(sums, k):
+    """The weighted mean of term k from `_weighted_sums` (no sample: 0)."""
+    return sums[k] / torch.clamp(sums[-1], min=1.0)
+
+
+def _bce_per_sample(logits, targets):
+    per = _bce_elementwise(logits, targets)
+    return per.reshape(per.shape[0], -1).mean(1)
+
+
+def bce_with_logits_weighted_sums(logits, targets, weights):
+    logits, targets = _f32(logits, targets)
+    return _weighted_sums(weights, _bce_per_sample(logits, targets))
+
+
+def bce_dice_loss_weighted_sums(logits, targets, weights, smooth: float = 1e-5):
+    logits, targets = _f32(logits, targets)
+    return _weighted_sums(weights, _bce_per_sample(logits, targets),
+                          _soft_dice(logits, targets, smooth))
+
+
+def lovasz_hinge_loss_weighted_sums(logits, targets, weights):
+    logits, targets = _f32(logits, targets)
+    b = logits.shape[0]
+    return _weighted_sums(weights, _lovasz_hinge_rows(logits.reshape(b, -1),
+                                                      targets.reshape(b, -1)))
+
+
+def _finish_mean(sums):
+    return _mean_of(sums, 0)
+
+
+def _finish_bce_dice(sums):
+    return 0.5 * _mean_of(sums, 0) + (1.0 - _mean_of(sums, 1))
 
 
 def bce_with_logits_weighted(logits, targets, weights):
     """BCE where sample i counts with weight w_i (all ones: the plain mean)."""
-    logits, targets = _f32(logits, targets)
-    per = _bce_elementwise(logits, targets)
-    return _weighted_mean(per.reshape(per.shape[0], -1).mean(1), weights)
+    return _finish_mean(bce_with_logits_weighted_sums(logits, targets, weights))
 
 
 def bce_dice_loss_weighted(logits, targets, weights, smooth: float = 1e-5):
-    logits, targets = _f32(logits, targets)
-    bce = bce_with_logits_weighted(logits, targets, weights)
-    return 0.5 * bce + (1.0 - _weighted_mean(_soft_dice(logits, targets, smooth), weights))
+    return _finish_bce_dice(bce_dice_loss_weighted_sums(logits, targets, weights, smooth))
 
 
 def lovasz_hinge_loss_weighted(logits, targets, weights):
-    logits, targets = _f32(logits, targets)
-    b = logits.shape[0]
-    per_image = _lovasz_hinge_rows(logits.reshape(b, -1), targets.reshape(b, -1))
-    return _weighted_mean(per_image, weights)
+    return _finish_mean(lovasz_hinge_loss_weighted_sums(logits, targets, weights))
 
 
 _LOSSES = {
@@ -122,6 +155,11 @@ _WEIGHTED = {
     "BCEDiceLoss": bce_dice_loss_weighted,
     "LovaszHingeLoss": lovasz_hinge_loss_weighted,
     "BCEWithLogitsLoss": bce_with_logits_weighted,
+}
+_WEIGHTED_SUMS = {
+    "BCEDiceLoss": (bce_dice_loss_weighted_sums, _finish_bce_dice),
+    "LovaszHingeLoss": (lovasz_hinge_loss_weighted_sums, _finish_mean),
+    "BCEWithLogitsLoss": (bce_with_logits_weighted_sums, _finish_mean),
 }
 LOSS_NAMES = sorted(_LOSSES)
 
@@ -136,5 +174,15 @@ def get_loss(name: str):
 def get_weighted_loss(name: str):
     try:
         return _WEIGHTED[name]
+    except KeyError:
+        raise KeyError(f"unknown loss {name!r}; available: {LOSS_NAMES}") from None
+
+
+def get_weighted_loss_sums(name: str):
+    """(sums, finish) of the weighted loss `name`: sums(logits, targets,
+    weights) gives a float32 vector of weighted sums that adds across ranks,
+    finish(vector) the loss; finish(sums(...)) is get_weighted_loss(name)."""
+    try:
+        return _WEIGHTED_SUMS[name]
     except KeyError:
         raise KeyError(f"unknown loss {name!r}; available: {LOSS_NAMES}") from None

@@ -7,12 +7,16 @@ Formulas follow the reference:
   - dice_coef: soft dice on the sigmoid probabilities, no threshold;
   - pixel_accuracy: share of pixels where the thresholded prediction equals the
     binarized target.
+IoU and accuracy are ratios over the whole batch, so data-parallel steps add
+their counts (`iou_counts`, `accuracy_counts`) across ranks and divide after
+(`iou_from_counts`, `accuracy_from_counts`).
 """
 
 import torch
 
 __all__ = ["iou_score", "iou_score_weighted", "dice_coef", "numeric_score",
-           "pixel_accuracy"]
+           "pixel_accuracy", "iou_counts", "iou_from_counts", "accuracy_counts",
+           "accuracy_from_counts"]
 
 
 def _binary(logits, targets):
@@ -20,20 +24,27 @@ def _binary(logits, targets):
             targets.to(torch.float32) > 0.5)
 
 
-def iou_score(logits, targets, smooth: float = 1e-5):
+def iou_counts(logits, targets, weights=None):
+    """(intersection, union) pixel counts, float32; with weights (0/1 per
+    sample) over the valid samples only."""
     pred, tgt = _binary(logits, targets)
-    intersection = (pred & tgt).sum().to(torch.float32)
-    union = (pred | tgt).sum().to(torch.float32)
+    if weights is None:
+        return (pred & tgt).sum().to(torch.float32), (pred | tgt).sum().to(torch.float32)
+    w = weights.to(torch.float32).reshape((-1,) + (1,) * (logits.dim() - 1))
+    return ((pred & tgt) * w).sum(), ((pred | tgt) * w).sum()
+
+
+def iou_from_counts(intersection, union, smooth: float = 1e-5):
     return (intersection + smooth) / (union + smooth)
+
+
+def iou_score(logits, targets, smooth: float = 1e-5):
+    return iou_from_counts(*iou_counts(logits, targets), smooth)
 
 
 def iou_score_weighted(logits, targets, weights, smooth: float = 1e-5):
     """IoU over the valid samples (weights 0/1 per sample), for padded batches."""
-    pred, tgt = _binary(logits, targets)
-    w = weights.to(torch.float32).reshape((-1,) + (1,) * (logits.dim() - 1))
-    intersection = ((pred & tgt) * w).sum()
-    union = ((pred | tgt) * w).sum()
-    return (intersection + smooth) / (union + smooth)
+    return iou_from_counts(*iou_counts(logits, targets, weights), smooth)
 
 
 def dice_coef(logits, targets, smooth: float = 1e-5):
@@ -53,8 +64,16 @@ def numeric_score(pred_binary, target_binary):
     return fp, fn, tp, tn
 
 
+def accuracy_counts(logits, targets):
+    """(pixels where the thresholded prediction equals the target, pixels)."""
+    fp, fn, tp, tn = numeric_score(*_binary(logits, targets))
+    return tp + tn, fp + fn + tp + tn
+
+
+def accuracy_from_counts(correct, total):
+    return correct.to(torch.float32) / torch.clamp(total, min=1).to(torch.float32)
+
+
 def pixel_accuracy(logits, targets):
     """`Acc` (reference metrics.py:47-105): threshold the probabilities at 0.5."""
-    fp, fn, tp, tn = numeric_score(*_binary(logits, targets))
-    total = fp + fn + tp + tn
-    return (tp + tn).to(torch.float32) / torch.clamp(total, min=1).to(torch.float32)
+    return accuracy_from_counts(*accuracy_counts(logits, targets))

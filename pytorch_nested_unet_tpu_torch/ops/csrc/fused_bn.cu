@@ -13,6 +13,13 @@
 //      dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n).
 // Semantics: the plain versions in ops/fused_bn.py of this package.
 //
+// Data-parallel training splits K1: in its sums-only mode it writes the
+// per-channel sums and stops, the caller all-reduces them across ranks, and
+// bn_finish turns the global sums and the global row count into mean, var,
+// inv and the running-stat update, through the same finishing arithmetic
+// (finish_channel) as a single K1 call. K2's (2, C) output is all-reduced the
+// same way, and K3 divides by the row count it is given (the global one).
+//
 // What bounds them on an H100: bytes. Each reads x (K1) or x and dy (K2, K3)
 // once and K3 writes dx once, with a handful of operations per element, far
 // below the card's ~295 operations per byte; at NestedUNet's full width
@@ -265,18 +272,40 @@ __device__ __forceinline__ void sum_partial_rows(const float* part, int P, int w
   __syncthreads();
 }
 
+// One channel's statistics from its sums over n rows: mean, biased var =
+// max(sum x^2/n - mean^2, 0) and inv = rsqrt(var + eps) into stat[0], stat[C]
+// and stat[2C] (at channel c), and with run_mean non-null the running stats
+// moved once. K1's finish and bn_finish both run it, so the split path gives
+// the bits of one K1 call on the same sums.
+__device__ __forceinline__ void finish_channel(float sum, float sumsq, float n, int c, int C,
+                                               float eps, float keep, float take, float unbias,
+                                               float* __restrict__ stat,
+                                               float* __restrict__ run_mean,
+                                               float* __restrict__ run_var) {
+  const float mean = sum / n;
+  const float var = fmaxf(__fsub_rn(sumsq / n, __fmul_rn(mean, mean)), 0.f);
+  stat[c] = mean;
+  stat[C + c] = var;
+  stat[2 * C + c] = rsqrtf(var + eps);
+  if (run_mean != nullptr) {
+    run_mean[c] = keep * run_mean[c] + take * mean;
+    run_var[c] = keep * run_var[c] + take * (var * unbias);
+  }
+}
+
 // K1: out rows 0..4 = sum, sumsq, mean, biased var, inv; with run_mean and
 // run_var non-null, run = keep*run + take*stat (the variance times unbias),
-// once per call. part: [gridy][P][width] f32 scratch; tickets: [gridy] ints,
-// 0 on entry and on exit. The kUnroll rows of a step are loaded (rows past
-// the chunk's end as zeros) before any is added. The finish is the plain
-// version's f32 arithmetic, each step rounded on its own.
+// once per call; with sums_only, rows 0..1 only (the running stats are left).
+// part: [gridy][P][width] f32 scratch; tickets: [gridy] ints, 0 on entry and
+// on exit. The kUnroll rows of a step are loaded (rows past the chunk's end
+// as zeros) before any is added. The finish is the plain version's f32
+// arithmetic, each step rounded on its own.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, kReduceBlocksPerSm)
 stats_kernel(const T* __restrict__ x, float* part, int* tickets, float* __restrict__ out,
              float* __restrict__ run_mean, float* __restrict__ run_var, long long rows, int C,
              int gpb, long long rows_per_block, int width, float eps, float keep, float take,
-             float unbias) {
+             float unbias, int sums_only) {
   __shared__ __align__(16) float sh[kFoldFloats];
   const int P = gridDim.x;
   const int slice = blockIdx.y;
@@ -320,19 +349,24 @@ stats_kernel(const T* __restrict__ x, float* part, int* tickets, float* __restri
     const int c = slice * half + j;
     if (c >= C) continue;
     const float sum = sh[j], sumsq = sh[half + j];
-    const float n = (float)rows;
-    const float mean = sum / n;
-    const float var = fmaxf(__fsub_rn(sumsq / n, __fmul_rn(mean, mean)), 0.f);
     out[c] = sum;
     out[C + c] = sumsq;
-    out[2 * C + c] = mean;
-    out[3 * C + c] = var;
-    out[4 * C + c] = rsqrtf(var + eps);
-    if (run_mean != nullptr) {
-      run_mean[c] = keep * run_mean[c] + take * mean;
-      run_var[c] = keep * run_var[c] + take * (var * unbias);
-    }
+    if (!sums_only)
+      finish_channel(sum, sumsq, (float)rows, c, C, eps, keep, take, unbias, out + 2 * C,
+                     run_mean, run_var);
   }
+}
+
+// bn_finish: out rows 0..2 = mean, biased var, inv of the [2][C] sums over n
+// rows (finish_channel), the running stats moved when given. One thread per
+// channel.
+__global__ void finish_kernel(const float* __restrict__ sums, float n, int C, float eps,
+                              float keep, float take, float unbias, float* __restrict__ out,
+                              float* __restrict__ run_mean, float* __restrict__ run_var) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C)
+    finish_channel(sums[c], sums[C + c], n, c, C, eps, keep, take, unbias, out, run_mean,
+                   run_var);
 }
 
 // K2: out[0][c] = dbeta = sum dz, out[1][c] = dgamma = sum dz*xhat.
@@ -407,7 +441,9 @@ bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// K3: dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n), in x's dtype. The
+// K3: dx = gamma*inv * (dz - dbeta/n - xhat*dgamma/n), in x's dtype, n the
+// row count the statistics were taken over (the local rows, or all ranks'
+// rows in data-parallel training). The
 // U rows of a step are loaded (x and dy) before any is computed, and dx is
 // written as 16-byte stores; rows past the chunk's end are skipped. U is
 // kUnroll, or kDxUnrollBf16 for 8 bf16 channels a thread: their 56
@@ -419,14 +455,14 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
               const float* __restrict__ mean, const float* __restrict__ inv,
               const float* __restrict__ gamma, const float* __restrict__ beta,
               const float* __restrict__ dbeta, const float* __restrict__ dgamma,
-              T* __restrict__ dx, long long rows, int C, int gpb, long long rows_per_block) {
+              T* __restrict__ dx, long long rows, float n, int C, int gpb,
+              long long rows_per_block) {
   constexpr int U = VEC == 8 ? kDxUnrollBf16 : kUnroll;
   const int lanes = kThreads / gpb;
   const int c0 = (blockIdx.y * gpb + threadIdx.x % gpb) * VEC;
   if (c0 >= C) return;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
-  const float n = (float)rows;
   ChannelParams<VEC> cp;
   cp.load(mean, inv, gamma, beta, c0);
   float scale[VEC], db_n[VEC], dg_n[VEC];
@@ -478,10 +514,10 @@ int vec_for(int C, std::initializer_list<const void*> ptrs) {
 template <typename T, int VEC>
 void launch_stats(const Layout& L, const void* x, float* work, int* tickets, float* out,
                   float* run_mean, float* run_var, long long rows, int C, float eps, float keep,
-                  float take, float unbias, cudaStream_t s) {
+                  float take, float unbias, int sums_only, cudaStream_t s) {
   stats_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
       static_cast<const T*>(x), work, tickets, out, run_mean, run_var, rows, C, L.gpb,
-      L.rows_per_block, L.width, eps, keep, take, unbias);
+      L.rows_per_block, L.width, eps, keep, take, unbias, sums_only);
 }
 
 template <typename T, int VEC>
@@ -496,10 +532,18 @@ void launch_reduce(const Layout& L, const void* x, const void* dy, const float* 
 template <typename T, int VEC>
 void launch_dx(const Layout& L, const void* x, const void* dy, const float* mean,
                const float* inv, const float* gamma, const float* beta, const float* dbeta,
-               const float* dgamma, void* dx, long long rows, int C, cudaStream_t s) {
+               const float* dgamma, void* dx, long long rows, float n, int C, cudaStream_t s) {
   bwd_dx_kernel<T, VEC><<<dim3(L.nparts, L.gridy), kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, gamma, beta, dbeta,
-      dgamma, static_cast<T*>(dx), rows, C, L.gpb, L.rows_per_block);
+      dgamma, static_cast<T*>(dx), rows, n, C, L.gpb, L.rows_per_block);
+}
+
+// The running-stat update's factors for statistics over n rows: keep =
+// momentum, take = 1 - momentum, unbias = n/(n-1) (1 when n = 1).
+void update_factors(long long n, double momentum, float& keep, float& take, float& unbias) {
+  unbias = (float)((double)n / (double)(n > 1 ? n - 1 : 1));
+  keep = (float)momentum;
+  take = (float)(1.0 - momentum);
 }
 
 }  // namespace
@@ -514,39 +558,60 @@ void launch_dx(const Layout& L, const void* x, const void* dy, const float* mean
 // either, replays from a CUDA graph included, as long as the calls that
 // share it are ordered on one stream (two kernels in flight at once on one
 // buffer would mix tickets).
+// bn_finish takes neither.
 // Kernels launch on `stream`; the return value is cudaGetLastError().
 
 // K1 (one launch). out: float32 [5, C] = sum, sumsq, mean, biased var, inv.
 // With run_mean and run_var non-null: run = momentum*run + (1 - momentum)*stat,
-// the variance taken unbiased (times rows/(rows-1)).
+// the variance taken unbiased (times rows/(rows-1)). With sums_only != 0, out
+// is float32 [2, C] = sum, sumsq and the running stats must be null.
 extern "C" int bn_stats(int dtype, const void* x, long long rows, int C, double eps,
-                        double momentum, float* work, long long work_floats, int* tickets,
-                        int num_tickets, int sms, float* out, float* run_mean, float* run_var,
-                        void* stream) {
-  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+                        double momentum, int sums_only, float* work, long long work_floats,
+                        int* tickets, int num_tickets, int sms, float* out, float* run_mean,
+                        float* run_var, void* stream) {
+  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1) ||
+      (sums_only && (run_mean != nullptr || run_var != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x}) : vec_for<__nv_bfloat16>(C, {x});
   const Layout L = make_reduce_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
   if ((long long)L.gridy * L.nparts * L.width > work_floats || L.gridy > num_tickets)
     return (int)cudaErrorInvalidValue;
-  const float unbias = (float)((double)rows / (double)(rows > 1 ? rows - 1 : 1));
-  const float e = (float)eps, keep = (float)momentum, take = (float)(1.0 - momentum);
+  float keep, take, unbias;
+  update_factors(rows, momentum, keep, take, unbias);
+  const float e = (float)eps;
   if (dtype == 0) {
     if (vec == 4)
       launch_stats<float, 4>(L, x, work, tickets, out, run_mean, run_var, rows, C, e, keep,
-                             take, unbias, s);
+                             take, unbias, sums_only, s);
     else
       launch_stats<float, 1>(L, x, work, tickets, out, run_mean, run_var, rows, C, e, keep,
-                             take, unbias, s);
+                             take, unbias, sums_only, s);
   } else {
     if (vec == 8)
       launch_stats<__nv_bfloat16, 8>(L, x, work, tickets, out, run_mean, run_var, rows, C, e,
-                                     keep, take, unbias, s);
+                                     keep, take, unbias, sums_only, s);
     else
       launch_stats<__nv_bfloat16, 1>(L, x, work, tickets, out, run_mean, run_var, rows, C, e,
-                                     keep, take, unbias, s);
+                                     keep, take, unbias, sums_only, s);
   }
+  return (int)cudaGetLastError();
+}
+
+// bn_finish (one launch): K1's finish from sums, float32 [2, C] (sum x and
+// sum x^2 over n rows, e.g. all ranks' K1 sums-only outputs added), into out,
+// float32 [3, C] = mean, biased var, inv; with run_mean and run_var non-null,
+// the running-stat update of K1 (the variance times n/(n-1)).
+extern "C" int bn_finish(const float* sums, long long n, int C, double eps, double momentum,
+                         float* out, float* run_mean, float* run_var, void* stream) {
+  if (n < 1 || C < 1 || (run_mean == nullptr) != (run_var == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float keep, take, unbias;
+  update_factors(n, momentum, keep, take, unbias);
+  constexpr int kFinishThreads = 128;
+  finish_kernel<<<(C + kFinishThreads - 1) / kFinishThreads, kFinishThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(sums, (float)n, C, (float)eps, keep, take,
+                                                       unbias, out, run_mean, run_var);
   return (int)cudaGetLastError();
 }
 
@@ -578,29 +643,32 @@ extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long
   return (int)cudaGetLastError();
 }
 
-// K3 (one launch). dx: contiguous (rows, C) in x's dtype.
-extern "C" int bn_bwd_dx(int dtype, const void* x, const void* dy, long long rows, int C,
-                         const float* mean, const float* inv, const float* gamma,
+// K3 (one launch). dx: contiguous (rows, C) in x's dtype; n: the row count
+// behind mean, inv, dbeta and dgamma (rows in one process, all ranks' rows
+// in data-parallel training).
+extern "C" int bn_bwd_dx(int dtype, const void* x, const void* dy, long long rows, long long n,
+                         int C, const float* mean, const float* inv, const float* gamma,
                          const float* beta, const float* dbeta, const float* dgamma, void* dx,
                          int sms, void* stream) {
-  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+  if (rows < 1 || n < rows || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x, dy, dx})
                              : vec_for<__nv_bfloat16>(C, {x, dy, dx});
   const Layout L = make_dx_layout(rows, C, vec, dtype == 0 ? 4 : 2, sms);
+  const float nf = (float)n;
   if (dtype == 0) {
     if (vec == 4)
-      launch_dx<float, 4>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows, C, s);
+      launch_dx<float, 4>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows, nf, C, s);
     else
-      launch_dx<float, 1>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows, C, s);
+      launch_dx<float, 1>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows, nf, C, s);
   } else {
     if (vec == 8)
       launch_dx<__nv_bfloat16, 8>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows,
-                                  C, s);
+                                  nf, C, s);
     else
       launch_dx<__nv_bfloat16, 1>(L, x, dy, mean, inv, gamma, beta, dbeta, dgamma, dx, rows,
-                                  C, s);
+                                  nf, C, s);
   }
   return (int)cudaGetLastError();
 }

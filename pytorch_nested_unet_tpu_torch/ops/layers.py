@@ -8,11 +8,18 @@ in OIHW, a transposed conv's in [in, out, kh, kw]), so reference checkpoints
 load as they are. `dtype` is the compute dtype: a conv casts its input and
 weight to it and adds the bias in it after the convolution, as flax does;
 BatchNorm computes in float32 and casts its output to it.
+
+Data-parallel training sets `process_group` on the BNs and dropouts
+(`parallel.mesh.sync_batch_norm`): a train-mode BN then takes its moments
+over every rank's rows (`_SyncBatchNorm`, the explicit form of the JAX
+package's `_TorchBN` under an axis name), and a dropout draws its mask for
+every rank's rows and keeps this rank's.
 """
 
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -105,7 +112,11 @@ class Dropout(nn.Module):
     probability `p` and the rest scaled by 1 / (1 - p); identity in eval. The
     masks come from a generator per device, seeded on first use from
     `generator` (default: seed 0), so a model built from a seed drops the
-    same elements on every run."""
+    same elements on every run. With `process_group` set, the mask is drawn
+    for every rank's rows (equal row counts) and this rank's rows are kept,
+    so N ranks drop what one process would over the whole batch."""
+
+    process_group = None
 
     def __init__(self, p: float = 0.5, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -123,7 +134,14 @@ class Dropout(nn.Module):
         if gen is None:
             seed = int(torch.randint(0, 2**62, (1,), generator=self._seeds))
             gen = self._generators[x.device] = torch.Generator(x.device).manual_seed(seed)
-        keep = torch.rand(self.mask_shape(x), generator=gen, device=x.device) >= self.p
+        shape = self.mask_shape(x)
+        if self.process_group is None:
+            keep = torch.rand(shape, generator=gen, device=x.device) >= self.p
+        else:
+            group, b = self.process_group, shape[0]
+            rank = dist.get_rank(group)
+            keep = (torch.rand((b * dist.get_world_size(group), *shape[1:]), generator=gen,
+                               device=x.device) >= self.p)[rank * b:(rank + 1) * b]
         return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
@@ -135,6 +153,58 @@ class ChannelDropout(Dropout):
 
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return (x.shape[0], 1, 1, x.shape[3])
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm of float32 (n, C) rows over every rank of
+    `group` (equal row counts): y = (x - mean) * (inv * weight) + bias with
+    the global moments. Forward: the global mean by an all-reduce of the
+    sums, then the biased variance either as the global mean of (x - mean)^2
+    (`two_pass`, the JAX package's `_TorchBN`) or as E[x^2] - mean^2 clipped
+    at 0 (flax's `nn.BatchNorm`), one more all-reduce. Backward: [sum dy,
+    sum dy*xhat] all-reduced for dx = weight*inv * (dy - sum dy/n - xhat *
+    sum dy*xhat/n) over the global n; dweight and dbias stay this rank's own
+    (the optimizer averages them). Returns (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, two_pass):
+        n = x.shape[0] * dist.get_world_size(group)
+        if two_pass:
+            s = x.sum(0)
+            dist.all_reduce(s, group=group)
+            mean = s / n
+            sq = ((x - mean) ** 2).sum(0)
+            dist.all_reduce(sq, group=group)
+            var = sq / n
+        else:
+            s = torch.stack([x.sum(0), (x * x).sum(0)])
+            dist.all_reduce(s, group=group)
+            mean = s[0] / n
+            var = torch.clamp(s[1] / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        xhat = (x - mean) * inv
+        ctx.save_for_backward(xhat, inv, weight)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight + bias, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, inv, weight = ctx.saved_tensors
+        local = torch.stack([dy.sum(0), (dy * xhat).sum(0)])
+        total = local.clone()
+        dist.all_reduce(total, group=ctx.group)
+        dx = (weight * inv) * (dy - total[0] / ctx.n - xhat * (total[1] / ctx.n))
+        return dx, local[1], local[0], None, None, None
+
+
+def sync_batch_norm_train(x, weight, bias, eps, group, two_pass=True):
+    """`_SyncBatchNorm` on an NHWC tensor's float32 (N*H*W, C) rows: (y in
+    x's shape, mean, biased var, the global row count)."""
+    c = x.shape[-1]
+    y, mean, var = _SyncBatchNorm.apply(x.to(torch.float32).reshape(-1, c), weight, bias,
+                                        eps, group, two_pass)
+    return y.reshape(x.shape), mean, var, x.numel() // c * dist.get_world_size(group)
 
 
 class BatchNorm(nn.Module):
@@ -149,7 +219,12 @@ class BatchNorm(nn.Module):
     branch, a 1x1 map at batch 1), which `F.batch_norm` refuses, is
     normalized as the JAX package's `_TorchBN` does it: the batch mean and a
     variance of 0, so the output is the bias, and the running variance moves
-    towards 0 (var * n / max(n - 1, 1) with n = 1)."""
+    towards 0 (var * n / max(n - 1, 1) with n = 1). With `process_group` set
+    the batch is every rank's rows (`_SyncBatchNorm`, two passes, as
+    `_TorchBN` under an axis name), and n counts them all: a rank holding
+    one value per channel is normalized with the others' values too."""
+
+    process_group = None
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -163,6 +238,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
+        if self.training and self.process_group is not None:
+            y, mean, var, n = sync_batch_norm_train(x, self.weight, self.bias, self.eps,
+                                                    self.process_group)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * (var * (n / max(n - 1, 1))))
+            return y.to(out_dtype)
         if self.training and x.numel() == x.shape[-1]:
             mean = x.to(torch.float32).reshape(-1)
             with torch.no_grad():
@@ -185,7 +267,11 @@ class FlaxBatchNorm(nn.Module):
     `momentum` is torch's convention (new = (1 - momentum) * old + momentum *
     batch; flax's momentum 0.9 is 0.1 here, its 0.99 is 0.01).
     `zero_scale` starts the scale at 0 (a residual branch that starts as
-    identity). The output is float32; callers cast it."""
+    identity). The output is float32; callers cast it. With `process_group`
+    set the train-mode moments are over every rank's rows (`_SyncBatchNorm`,
+    one pass)."""
+
+    process_group = None
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
                  zero_scale: bool = False):
@@ -199,6 +285,14 @@ class FlaxBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
+        if self.training and self.process_group is not None:
+            y, mean, var, _ = sync_batch_norm_train(x, self.weight, self.bias, self.eps,
+                                                    self.process_group, two_pass=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var)
+            return y
         if self.training:
             mean = x.mean(dim=(0, 1, 2))
             var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)

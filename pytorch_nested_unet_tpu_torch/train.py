@@ -41,10 +41,27 @@ validation loss. model.pth loads into `infer.Predictor(weights=...)` and into
 the JAX package (`convert.py --pth`; not for DoubleUnet and DeepLab, which
 have no reference key layout). `--remat false|true|full|policy`
 rematerializes NestedUNet's blocks in backward (models/nested_unet.py); the
-other archs have no such option and ignore it, as the JAX CLI does. The JAX
-CLI's --mesh and --spatial_partition, --fused_bn(_mode) (the port's BN
-always runs its CUDA kernels), --profile, --checkpoint_backend, --platform
-and --artifact are not ported (ROADMAP.md queue 1); argparse rejects them.
+other archs have no such option and ignore it, as the JAX CLI does.
+
+Data-parallel training runs one process per device, each with this same
+command, started by torchrun (which sets RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR and MASTER_PORT):
+
+    torchrun --nproc_per_node 2 -m pytorch_nested_unet_tpu_torch.train \
+        --mesh data=2 ... [--device cpu]
+
+Each rank takes its rows of every global batch of `-b`, the BN moments and
+the metrics are the global batch's, the gradients are averaged, and only rank
+0 writes config.yml, log.csv, model.pth and last.pth; `--resume` adopts rank
+0's last.pth on every rank (parallel/mesh.py). The device is
+cuda:LOCAL_RANK (a bare `--device cuda`), the backend NCCL (Gloo for the
+CPU). Without --mesh a multi-process run gets a 'data' mesh over all ranks;
+`--mesh data=1` in one process runs the same collective path over a world of
+one. The JAX CLI's 'x', 'y' and 'model' mesh axes and --spatial_partition
+are not ported (ROADMAP.md queue 1, A11b and A11c): the CLI exits with a
+message when given them. Its --fused_bn(_mode) (the port's BN always runs its
+CUDA kernels), --profile, --checkpoint_backend, --platform and --artifact are
+not ported either (ROADMAP.md queue 1); argparse rejects them.
 Refinement is `val --refine` / `infer --refine`, or in the model with
 --arch UNetRNNPSP / UNetRNNCAttention_PSP (`--pretrained_backbone` then
 fills their refinement trunk, `psp.feats`).
@@ -61,12 +78,15 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data.augment import parse_augment_spec
 from .data.datasets import DATASET_CLASSES, dirs_for, list_image_ids, split_ids
 from .data.pipeline import DeviceDataStore, HostPrefetchLoader, epoch_batches, resolve_pipeline
 from .losses import LOSS_NAMES
 from .models import PRECISIONS, arch_names, create_model, parse_arch_kwargs, remat_kwargs
+from .parallel import mesh as pmesh
+from .parallel import multihost
 from .training import checkpoint
 from .training.loop import (make_epoch_evaluator, make_epoch_runner, make_eval_step,
                             make_train_step, stack_metrics)
@@ -117,12 +137,14 @@ def _valid_weights(valid_list, batch_size):
 
 
 class _DeviceFeed:
-    """Epochs over uint8 sets on the device: each batch is gathered there."""
+    """Epochs over uint8 sets on the device: each batch is gathered there
+    (under a mesh, each rank's rows of it)."""
 
     def __init__(self, model, opt, loss, deep_supervision, augment, train_store, val_store,
-                 batch_size, dev):
-        self.run_epoch = make_epoch_runner(model, opt, loss, deep_supervision, augment=augment)
-        self.eval_epoch = make_epoch_evaluator(model, loss, deep_supervision)
+                 batch_size, dev, mesh=None):
+        self.run_epoch = make_epoch_runner(model, opt, loss, deep_supervision, augment=augment,
+                                           mesh=mesh)
+        self.eval_epoch = make_epoch_evaluator(model, loss, deep_supervision, mesh)
         self.train_store, self.val_store = train_store, val_store
         self.batch_size, self.dev = batch_size, dev
 
@@ -143,14 +165,16 @@ class _DeviceFeed:
 
 
 class _HostFeed:
-    """Epochs over batches decoded from the files by HostPrefetchLoaders."""
+    """Epochs over batches decoded from the files by HostPrefetchLoaders
+    (under a mesh, each rank decodes its rows)."""
 
     def __init__(self, model, opt, loss, deep_supervision, augment, train_loader,
-                 val_loader, batch_size, dev):
-        self.step = make_train_step(model, opt, loss, deep_supervision, augment)
-        self.eval_step = make_eval_step(model, loss, deep_supervision)
+                 val_loader, batch_size, dev, mesh=None):
+        self.step = make_train_step(model, opt, loss, deep_supervision, augment, mesh)
+        self.eval_step = make_eval_step(model, loss, deep_supervision, mesh)
         self.train_loader, self.val_loader = train_loader, val_loader
         self.batch_size, self.dev = batch_size, dev
+        self.rows = val_loader.rows
 
     def train(self, data_rng, generator):
         # the loader draws the epoch's order from the same data_rng
@@ -161,19 +185,21 @@ class _HostFeed:
     def val(self, data_rng):
         per_step, valid_list = [], []
         for imgs, msks, valid in self.val_loader:
-            w = torch.from_numpy(_valid_weights([valid], self.batch_size)[0]).to(self.dev)
+            w = _valid_weights([valid], self.batch_size)[0][self.rows]
             per_step.append(self.eval_step(torch.from_numpy(imgs).to(self.dev),
-                                           torch.from_numpy(msks).to(self.dev), w))
+                                           torch.from_numpy(msks).to(self.dev),
+                                           torch.from_numpy(w).to(self.dev)))
             valid_list.append(valid)
         return stack_metrics(per_step), valid_list
 
 
 def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols,
             data_rng, generator, early_stopping=-1, skip_nonfinite=0, start_epoch=0,
-            best_iou=0.0, trigger=0, stop_requested=lambda: False) -> dict:
+            best_iou=0.0, trigger=0, stop_requested=lambda: False, is_main=True) -> dict:
     """The epoch loop shared by `fit` and the folder CLI: train, validate,
     step the plateau schedule, append to log.csv, write model.pth on a better
-    validation IoU and last.pth after every epoch."""
+    validation IoU and last.pth after every epoch (the files only where
+    `is_main`: rank 0 of a data-parallel run)."""
     log_path = os.path.join(model_dir, "log.csv")
     train_s, val_s = [], []
     guard = bool(skip_nonfinite)
@@ -227,15 +253,18 @@ def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols
                "val_acc": va["acc"].avg}
         for k in cols:
             log[k].append(row[k])
-        _write_log(log_path, log, cols)
+        if is_main:
+            _write_log(log_path, log, cols)
 
         trigger += 1
         if va["iou"].avg > best_iou:
-            checkpoint.save_model(model_dir, model)
-            print("=> saved best model")
+            if is_main:
+                checkpoint.save_model(model_dir, model)
+                print("=> saved best model")
             best_iou = va["iou"].avg
             trigger = 0
-        checkpoint.save_training_state(model_dir, model, opt, epoch, best_iou, trigger)
+        if is_main:
+            checkpoint.save_training_state(model_dir, model, opt, epoch, best_iou, trigger)
         if 0 <= early_stopping <= trigger:
             print("=> early stopping")
             break
@@ -259,7 +288,7 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
         precision: str = "bf16", seed: int = 41, augment="full", log_acc: bool = False,
         skip_nonfinite: int = 0, accum_steps: int = 1, device="cuda",
         arch_kwargs: Optional[Mapping] = None,
-        pretrained_backbone: Optional[str] = None, remat=False) -> dict:
+        pretrained_backbone: Optional[str] = None, remat=False, mesh=None) -> dict:
     """Train `arch` from a random init drawn from `seed` on the uint8 arrays
     and return a summary: `best_iou`, `log` (the log.csv columns),
     `model_dir`, `model`, and per epoch the host seconds of its training and
@@ -269,7 +298,8 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     have raises ValueError. pretrained_backbone: a torchvision-format ResNet
     `.pth` poured into the model's ResNet trunk after the init. remat: the
     --remat mode, given to the archs that have the option (an arch_kwargs
-    `remat` wins).
+    `remat` wins). mesh: a parallel.mesh.Mesh to train data-parallel on
+    (`batch_size` is then the global batch; only rank 0 writes).
     """
     arch_kwargs = {**remat_kwargs(arch, remat), **parse_arch_kwargs(arch, arch_kwargs)}
     if precision not in PRECISIONS:
@@ -299,13 +329,14 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     sched = LRSchedule(scheduler, lr, epochs, min_lr, factor, patience, milestones, gamma)
     feed = _DeviceFeed(model, opt, loss, deep_supervision, ops,
                        DeviceDataStore(tr_x, tr_y, dev), DeviceDataStore(va_x, va_y, dev),
-                       batch_size, dev)
+                       batch_size, dev, mesh)
     cols = _log_cols(log_acc)
     return _epochs(model, opt, sched, feed, model_dir=model_dir, epochs=epochs,
                    batch_size=batch_size, log={k: [] for k in cols}, cols=cols,
                    data_rng=np.random.default_rng(seed),
                    generator=torch.Generator(device=dev).manual_seed(seed + 1),
-                   early_stopping=early_stopping, skip_nonfinite=skip_nonfinite)
+                   early_stopping=early_stopping, skip_nonfinite=skip_nonfinite,
+                   is_main=mesh is None or mesh.index == 0)
 
 
 def build_datasets(config):
@@ -389,9 +420,11 @@ def _read_log(log_path, cols, rows):
     return log
 
 
-def train_folder(config: dict) -> dict:
+def train_folder(config: dict, mesh=None) -> dict:
     """The folder CLI's run (train.py:328-765 of the JAX package): see the
-    module docstring. `config` is parse_args' dict."""
+    module docstring. `config` is parse_args' dict; `mesh` a
+    parallel.mesh.Mesh for a data-parallel run (`main` builds it)."""
+    is_main = mesh is None or mesh.index == 0
     if config["name"] is None:
         tag = "wDS" if config["deep_supervision"] else "woDS"
         config["name"] = f"{config['dataset']}_{config['arch']}_{tag}"
@@ -401,7 +434,8 @@ def train_folder(config: dict) -> dict:
     for k in sorted(config):
         print(f"{k}: {config[k]}")
     print("-" * 20)
-    save_config(config, model_dir)
+    if is_main:
+        save_config(config, model_dir)
 
     dev = resolve_device(config["device"])
     size_hw = (config["input_h"], config["input_w"])
@@ -430,7 +464,7 @@ def train_folder(config: dict) -> dict:
     start_epoch, best_iou, trigger = 0, 0.0, 0
     if config["resume"]:
         try:
-            restored = checkpoint.load_training_state(model_dir, model, opt)
+            restored = checkpoint.load_training_state(model_dir, model, opt, mesh)
         except ValueError as e:
             sys.exit(f"--resume: {e}")
         if restored:
@@ -448,10 +482,13 @@ def train_folder(config: dict) -> dict:
     generator = torch.Generator(device=dev).manual_seed(config["seed"] + 1)
     ops = parse_augment_spec(config["augment"])
     if resolve_pipeline(config, len(train_ds) + len(val_ds), dev) == "host":
+        rows = slice(None) if mesh is None else pmesh.batch_sharding(mesh, bs)
         feed = _HostFeed(model, opt, config["loss"], config["deep_supervision"], ops,
-                         HostPrefetchLoader(train_ds, bs, size_hw, True, True, rng=data_rng),
-                         HostPrefetchLoader(val_ds, bs, size_hw, False, False, rng=data_rng),
-                         bs, dev)
+                         HostPrefetchLoader(train_ds, bs, size_hw, True, True, rng=data_rng,
+                                            rows=rows),
+                         HostPrefetchLoader(val_ds, bs, size_hw, False, False, rng=data_rng,
+                                            rows=rows),
+                         bs, dev, mesh)
     else:
         t0 = time.perf_counter()
         stores = [DeviceDataStore(*ds.load_all(size_hw)[:2], dev) for ds in (train_ds, val_ds)]
@@ -459,7 +496,7 @@ def train_folder(config: dict) -> dict:
         print(f"decoded {n} images at {size_hw[0]}x{size_hw[1]} in "
               f"{time.perf_counter() - t0:.2f} s")
         feed = _DeviceFeed(model, opt, config["loss"], config["deep_supervision"], ops,
-                           stores[0], stores[1], bs, dev)
+                           stores[0], stores[1], bs, dev, mesh)
 
     # finish the epoch, write last.pth and exit 0 on SIGTERM / SIGINT
     stop = {"flag": False}
@@ -480,7 +517,7 @@ def train_folder(config: dict) -> dict:
                        generator=generator, early_stopping=config["early_stopping"],
                        skip_nonfinite=config["skip_nonfinite"], start_epoch=start_epoch,
                        best_iou=best_iou, trigger=trigger,
-                       stop_requested=lambda: stop["flag"])
+                       stop_requested=lambda: stop["flag"], is_main=is_main)
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
@@ -550,6 +587,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'device' keeps the uint8 set on the device, 'host' decodes each "
                         "batch on a background thread, 'auto' picks by the set's size "
                         "against device memory")
+    p.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="data-parallel mesh over the processes, e.g. 'data=2' (torchrun "
+                        "starts them); without it a multi-process run gets 'data' over all. "
+                        "The 'x', 'y' and 'model' axes are not ported (ROADMAP.md)")
+    p.add_argument("--spatial_partition", default=False, type=str2bool,
+                   help="not ported (ROADMAP.md queue 1, A11b): true exits with a message")
     p.add_argument("--skip_nonfinite", default=0, type=int)
     p.add_argument("--accum_steps", default=1, type=int)
     p.add_argument("--remat", default=False, type=_remat_mode,
@@ -574,11 +617,80 @@ def parse_args(argv=None) -> dict:
     return vars(build_parser().parse_args(argv))
 
 
+def _mesh_axes(config):
+    """(names, sizes) of --mesh, or None; exits on a refused flag: a bad
+    spec, an axis that is not ported, --spatial_partition."""
+    if config["spatial_partition"]:
+        sys.exit("--spatial_partition: " + pmesh.NOT_PORTED.format("x"))
+    if not config.get("mesh"):
+        return None
+    try:
+        names, sizes = pmesh.parse_mesh_spec(config["mesh"])
+    except ValueError as e:
+        sys.exit(f"--mesh: {e}")
+    for name in names:
+        if name not in pmesh.PORTED_AXES:
+            sys.exit("--mesh: " + pmesh.NOT_PORTED.format(name))
+    return names, sizes
+
+
+def _build_mesh(config, axes, world: int):
+    """The data mesh (JAX train.py:255-304, the 'data' axis): --mesh's axes
+    must cover the processes and the batch divide over 'data'; without
+    --mesh a multi-process run gets 'data' over all ranks and one process
+    none. Exits with a message otherwise."""
+    if axes is not None:
+        names, sizes = axes
+        total = int(np.prod(sizes))
+        if total != world:
+            sys.exit(f"--mesh '{config['mesh']}' needs {total} processes, have {world}")
+    elif world > 1:
+        names, sizes = ("data",), (world,)
+    else:
+        return None
+    mesh = pmesh.make_mesh(sizes, names)
+    if config["batch_size"] % mesh.size:
+        sys.exit(f"batch_size {config['batch_size']} not divisible by the mesh 'data' axis "
+                 f"size {mesh.size}")
+    print(f"mesh: {mesh.shape}")
+    return mesh
+
+
+def _rank_device(device: str, multiprocess: bool) -> str:
+    """A bare 'cuda' in a multi-process run is this rank's card,
+    cuda:LOCAL_RANK."""
+    if multiprocess and device == "cuda":
+        return f"cuda:{multihost.local_rank()}"
+    return device
+
+
 def main(argv=None) -> dict:
     config = parse_args(argv)
+    axes = _mesh_axes(config)
+    multiprocess = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    config["device"] = _rank_device(config["device"], multiprocess)
+    dev = resolve_device(config["device"])
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)  # NCCL's collectives run on the current device
+    owned = multihost.initialize_distributed(device=dev)
+    if owned:
+        print(f"multi-host: process {dist.get_rank()}/{dist.get_world_size()}, device {dev}, "
+              f"backend {dist.get_backend()}")
+    elif axes is not None and not dist.is_initialized():
+        # --mesh in one process: the collective path over a world of one
+        multihost.initialize_single_process("nccl" if dev.type == "cuda" else "gloo")
+        owned = True
+    try:
+        return _run(config, _build_mesh(config, axes, multihost.process_count()))
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _run(config, mesh):
     npy = [config.pop(k) for k in NPY_FLAGS]
     if not any(npy):
-        return train_folder(config)
+        return train_folder(config, mesh)
     if not all(npy):
         sys.exit(f"training from arrays needs all of --{', --'.join(NPY_FLAGS)}")
     if config["name"] is None:
@@ -587,8 +699,9 @@ def main(argv=None) -> dict:
     for k in sorted(config):
         print(f"{k}: {config[k]}")
     print("-" * 20)
-    fit_args = {k: v for k, v in config.items() if k in inspect.signature(fit).parameters}
-    return fit(*(np.load(path) for path in npy), **fit_args)
+    fit_args = {k: v for k, v in config.items()
+                if k in inspect.signature(fit).parameters and k != "mesh"}
+    return fit(*(np.load(path) for path in npy), **fit_args, mesh=mesh)
 
 
 if __name__ == "__main__":

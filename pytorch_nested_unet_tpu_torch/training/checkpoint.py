@@ -7,6 +7,10 @@
                             with `convert.py --pth`
   models/<name>/last.pth    the resume state: model, optimizer (its buffers
                             and non-finite counters), epoch, best_iou, trigger
+
+In data-parallel runs only rank 0 writes (train.py gates the calls), so only
+rank 0's last.pth counts: `load_training_state` with a mesh reads it on rank 0
+and broadcasts the outcome and the state to every rank.
 """
 
 import os
@@ -14,6 +18,7 @@ import os
 import torch
 
 from ..models import PRECISIONS, create_model, parse_arch_kwargs, remat_kwargs
+from ..parallel.multihost import broadcast_object
 from ..utils.config import load_config
 from ..utils.convert import load_reference_pth
 
@@ -63,15 +68,7 @@ def save_training_state(model_dir: str, model, optimizer, epoch: int, best_iou: 
     os.replace(path + ".tmp", path)
 
 
-def load_training_state(model_dir: str, model, optimizer):
-    """Restore last.pth into `model` and `optimizer`; returns (epoch,
-    best_iou, trigger), or None when there is no last.pth. Raises ValueError
-    when the optimizer's layout (--optimizer, --skip_nonfinite,
-    --accum_steps) differs from the saved one's."""
-    path = os.path.join(model_dir, "last.pth")
-    if not os.path.exists(path):
-        return None
-    state = torch.load(path, map_location="cpu", weights_only=True)
+def _restore(state, path, model, optimizer):
     try:
         optimizer.load_state_dict(state["optimizer"])
     except (KeyError, ValueError) as e:
@@ -79,4 +76,38 @@ def load_training_state(model_dir: str, model, optimizer):
                          f"--optimizer/--skip_nonfinite/--accum_steps must match the "
                          f"original run ({e})") from e
     model.load_state_dict(state["model"], strict=True)
+    return int(state["epoch"]), float(state["best_iou"]), int(state["trigger"])
+
+
+def load_training_state(model_dir: str, model, optimizer, mesh=None):
+    """Restore last.pth into `model` and `optimizer`; returns (epoch,
+    best_iou, trigger), or None when there is no last.pth. Raises ValueError
+    when the optimizer's layout (--optimizer, --skip_nonfinite,
+    --accum_steps) differs from the saved one's.
+
+    With a mesh over processes, rank 0 (the only writer) reads its last.pth
+    and broadcasts whether it restored one (or its error, which every rank
+    then raises) and then the state, which every rank restores: a rank
+    without the file (no shared filesystem) resumes as rank 0 does."""
+    path = os.path.join(model_dir, "last.pth")
+    if mesh is None or mesh.group is None:
+        if not os.path.exists(path):
+            return None
+        return _restore(torch.load(path, map_location="cpu", weights_only=True), path,
+                        model, optimizer)
+    state = err = None
+    if mesh.index == 0 and os.path.exists(path):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        try:
+            _restore(state, path, model, optimizer)
+        except ValueError as e:
+            err = str(e)
+    flag, err = broadcast_object((-1 if err else int(state is not None), err), group=mesh.group)
+    if flag < 0:
+        raise ValueError(err)
+    if not flag:
+        return None
+    state = broadcast_object(state, group=mesh.group)
+    if mesh.index != 0:
+        _restore(state, path, model, optimizer)
     return int(state["epoch"]), float(state["best_iou"]), int(state["trigger"])

@@ -9,57 +9,94 @@ stay on the device. The epoch runners gather each batch with `index_select`
 from the device-resident uint8 store and stack the per-step metrics there;
 the host reads them once per epoch. The JAX package's lax.scan over the epoch
 has no counterpart yet (CUDA graphs of the epoch are queued in ROADMAP.md).
+
+Under a data mesh (`mesh`, parallel/mesh.py) each rank takes its rows of every
+global batch: the train step draws the augmentation for the global batch and
+applies this rank's draws, its BNs take global moments and its optimizer
+averages the gradients across ranks; the metrics are the global batch's (the
+loss the mean of the ranks' losses, IoU and accuracy from the ranks' pixel
+counts added, the eval loss from the ranks' weighted sums added), the same on
+every rank.
 """
 
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from ..data.augment import augment_batch, eval_transform, parse_augment_spec
-from ..losses import get_loss, get_weighted_loss
-from ..metrics import iou_score, iou_score_weighted, pixel_accuracy
+from ..losses import get_loss, get_weighted_loss, get_weighted_loss_sums
+from ..metrics import (accuracy_counts, accuracy_from_counts, iou_counts, iou_from_counts,
+                       iou_score, iou_score_weighted, pixel_accuracy)
+from ..parallel.mesh import batch_sharding, shard_train_step
 
 
 def _as_heads(outputs):
     return outputs if isinstance(outputs, (list, tuple)) else [outputs]
 
 
+def _all_reduce_sum(values, mesh):
+    """Float64 sums of a small vector over the mesh's ranks."""
+    v = torch.stack([t.to(torch.float64).reshape(()) for t in values])
+    if mesh.group is not None:
+        dist.all_reduce(v, group=mesh.group)
+    return v
+
+
 def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
-                    deep_supervision: bool, augment="full") -> Callable:
+                    deep_supervision: bool, augment="full", mesh=None) -> Callable:
     """Return step(images_u8, masks_u8, generator) -> {'loss', 'iou', 'acc'}.
 
     images_u8 (B,H,W,3) and masks_u8 (B,H,W,C) are uint8 on the model's device;
     `generator` (on that device) draws the augmentation; `augment` is an
     augment spec (see data.augment.parse_augment_spec). `optimizer` is a
     training.optim.Optimizer (or any object with zero_grad/step). Puts `model`
-    in train mode.
+    in train mode. With `mesh` (a parallel.mesh.Mesh), `model` and
+    `optimizer` go on it (`shard_train_step`) and the batch is this rank's
+    rows of a global batch of B * ranks (see the module docstring).
     """
     loss_fn = get_loss(loss_name)
     ops = parse_augment_spec(augment)
+    if mesh is not None:
+        shard_train_step(model, optimizer, mesh)
 
     def step(images_u8, masks_u8, generator) -> Dict[str, torch.Tensor]:
         model.train()
-        images, masks = augment_batch(images_u8, masks_u8, ops, generator)
+        shard = None
+        if mesh is not None:
+            global_batch = images_u8.shape[0] * mesh.size
+            shard = (global_batch, batch_sharding(mesh, global_batch))
+        images, masks = augment_batch(images_u8, masks_u8, ops, generator, shard)
         optimizer.zero_grad()
         heads = _as_heads(model(images))
         loss = sum(loss_fn(o, masks) for o in heads) / len(heads)
         loss.backward()
         optimizer.step()
         final = heads[-1].detach()
-        return {"loss": loss.detach(), "iou": iou_score(final, masks),
-                "acc": pixel_accuracy(final, masks)}
+        if mesh is None:
+            return {"loss": loss.detach(), "iou": iou_score(final, masks),
+                    "acc": pixel_accuracy(final, masks)}
+        v = _all_reduce_sum([loss.detach(), *iou_counts(final, masks),
+                             *accuracy_counts(final, masks)], mesh)
+        return {"loss": (v[0] / mesh.size).to(torch.float32),
+                "iou": iou_from_counts(v[1].to(torch.float32), v[2].to(torch.float32)),
+                "acc": accuracy_from_counts(v[3], v[4])}
 
     return step
 
 
-def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: bool):
+def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: bool,
+                   mesh=None):
     """Return eval_step(images_u8, masks_u8, weights) -> {'loss', 'iou', 'acc'}.
 
     weights is a (B,) 0/1 float tensor marking the valid (non-padding) samples,
     so a padded last batch scores like the reference's batch-weighted meter.
     Runs the eval forward without gradients and restores the model's mode.
+    With `mesh`, the batch and its weights are this rank's rows of a global
+    batch, and the metrics are the global batch's.
     """
     wloss_fn = get_weighted_loss(loss_name)
+    wloss_sums, wloss_finish = get_weighted_loss_sums(loss_name)
 
     @torch.no_grad()
     def eval_step(images_u8, masks_u8, weights) -> Dict[str, torch.Tensor]:
@@ -68,9 +105,20 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
         try:
             images, masks = eval_transform(images_u8, masks_u8)
             heads = _as_heads(model(images))
-            loss = sum(wloss_fn(o, masks, weights) for o in heads) / len(heads)
-            return {"loss": loss, "iou": iou_score_weighted(heads[-1], masks, weights),
-                    "acc": pixel_accuracy(heads[-1], masks)}
+            if mesh is None:
+                loss = sum(wloss_fn(o, masks, weights) for o in heads) / len(heads)
+                return {"loss": loss, "iou": iou_score_weighted(heads[-1], masks, weights),
+                        "acc": pixel_accuracy(heads[-1], masks)}
+            sums = [wloss_sums(o, masks, weights) for o in heads]
+            v = _all_reduce_sum([*torch.cat(sums), *iou_counts(heads[-1], masks, weights),
+                                 *accuracy_counts(heads[-1], masks)], mesh)
+            k = sums[0].numel()
+            loss = sum(wloss_finish(v[i * k:(i + 1) * k].to(torch.float32))
+                       for i in range(len(heads))) / len(heads)
+            c = len(heads) * k
+            return {"loss": loss,
+                    "iou": iou_from_counts(v[c].to(torch.float32), v[c + 1].to(torch.float32)),
+                    "acc": accuracy_from_counts(v[c + 2], v[c + 3])}
         finally:
             model.train(was_training)
 
@@ -100,30 +148,35 @@ def stack_metrics(per_step):
 
 
 def make_epoch_runner(model, optimizer, loss_name: str, deep_supervision: bool,
-                      augment="full"):
+                      augment="full", mesh=None):
     """Return run_epoch(images_u8, masks_u8, batch_idx, generator) -> metrics.
 
     images_u8/masks_u8 are the whole uint8 training set on the device;
-    batch_idx is a (steps, batch) int64 tensor on the same device. Each metric
+    batch_idx is a (steps, batch) int64 tensor on the same device (with
+    `mesh`, the global batches: each rank gathers its rows). Each metric
     comes back as a (steps,) device tensor.
     """
-    step = make_train_step(model, optimizer, loss_name, deep_supervision, augment)
+    step = make_train_step(model, optimizer, loss_name, deep_supervision, augment, mesh)
 
     def run_epoch(images_u8, masks_u8, batch_idx, generator):
-        per_step = [step(images_u8.index_select(0, idx), masks_u8.index_select(0, idx),
-                         generator) for idx in batch_idx]
+        rows = slice(None) if mesh is None else batch_sharding(mesh, batch_idx.shape[1])
+        per_step = [step(images_u8.index_select(0, idx[rows]),
+                         masks_u8.index_select(0, idx[rows]), generator) for idx in batch_idx]
         return stack_metrics(per_step)
 
     return run_epoch
 
 
-def make_epoch_evaluator(model, loss_name: str, deep_supervision: bool):
+def make_epoch_evaluator(model, loss_name: str, deep_supervision: bool, mesh=None):
     """Return eval_epoch(images_u8, masks_u8, batch_idx, weights) -> metrics,
-    each a (steps,) device tensor; weights is (steps, batch) 0/1."""
-    eval_step = make_eval_step(model, loss_name, deep_supervision)
+    each a (steps,) device tensor; weights is (steps, batch) 0/1 (with
+    `mesh`, of the global batches)."""
+    eval_step = make_eval_step(model, loss_name, deep_supervision, mesh)
 
     def eval_epoch(images_u8, masks_u8, batch_idx, weights):
-        per_step = [eval_step(images_u8.index_select(0, idx), masks_u8.index_select(0, idx), w)
+        rows = slice(None) if mesh is None else batch_sharding(mesh, batch_idx.shape[1])
+        per_step = [eval_step(images_u8.index_select(0, idx[rows]),
+                              masks_u8.index_select(0, idx[rows]), w[rows])
                     for idx, w in zip(batch_idx, weights)]
         return stack_metrics(per_step)
 

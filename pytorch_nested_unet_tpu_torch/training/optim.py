@@ -15,6 +15,11 @@ through; `accum_steps=K` (optax.MultiSteps) averages the gradients of K calls
 and updates on every K-th. The finiteness test reads one flag from the device
 per update, so it costs a host sync when it is on.
 
+Under a data mesh (`mesh`, set by `parallel.mesh.shard_train_step`) the
+gradients are averaged across ranks once per update, after the K micro-batches
+are accumulated and before the finiteness test, which therefore reads the
+same averaged gradients on every rank, so every rank skips together.
+
 `LRSchedule` is the host-side per-epoch controller of the reference's four
 schedulers.
 """
@@ -23,6 +28,8 @@ import math
 from typing import Iterable, Optional, Sequence
 
 import torch
+
+from ..parallel.mesh import all_reduce_mean_
 
 
 class Optimizer:
@@ -50,6 +57,7 @@ class Optimizer:
         self.total_notfinite = 0     # all skipped updates since the start
         self._acc = None
         self._mini_step = 0
+        self.mesh = None  # a parallel.mesh.Mesh: gradients averaged across its ranks
 
     @property
     def param_groups(self):
@@ -105,6 +113,8 @@ class Optimizer:
                 return
             grads = self._acc
             self._acc = None
+        if self.mesh is not None:
+            all_reduce_mean_(grads, self.mesh)
         if self.skip_nonfinite:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
             self.notfinite_run = 0 if finite else self.notfinite_run + 1

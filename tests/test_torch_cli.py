@@ -29,8 +29,7 @@ from pytorch_nested_unet_tpu_torch.utils.config import load_config, str2bool
 KW = '{"nb_filter": [4, 8, 16, 32, 64]}'
 NAME = "synth_NestedUNet_wDS"
 # flags of the JAX CLI the port does not have (ROADMAP.md queue 1)
-JAX_ONLY = {"mesh", "spatial_partition", "fused_bn", "fused_bn_mode", "profile",
-            "checkpoint_backend", "platform"}
+JAX_ONLY = {"fused_bn", "fused_bn_mode", "profile", "checkpoint_backend", "platform"}
 
 
 def _write_set(root, n=14, size=32):
@@ -232,8 +231,14 @@ def test_folder_cli_exits_on_empty_or_small_sets(tmp_path):
     _write_set(tmp_path / "inputs" / "small", n=5)
     with pytest.raises(SystemExit, match="batch_size 16 exceeds"):
         ptrain.main(base + ["--dataset", "small"])
-    with pytest.raises(SystemExit):  # the JAX CLI's --mesh is not ported
-        ptrain.parse_args(base + ["--mesh", "data=2"])
+    # the 'x', 'y' and 'model' mesh axes and --spatial_partition are not
+    # ported: refused with a message, never run on one process in silence
+    for flags in (["--mesh", "x=2"], ["--mesh", "data=1,model=2"],
+                  ["--spatial_partition", "true"]):
+        with pytest.raises(SystemExit, match="not ported.*ROADMAP.md"):
+            ptrain.main(base + ["--dataset", "small"] + flags)
+    with pytest.raises(SystemExit, match="needs 2 processes, have 1"):
+        ptrain.main(base + ["--dataset", "small", "--mesh", "data=2"])
     with pytest.raises(SystemExit):  # nor --fused_bn: the port's BN always runs K1-K3
         ptrain.parse_args(base + ["--fused_bn", "true"])
 

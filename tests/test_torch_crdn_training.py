@@ -32,7 +32,7 @@ from test_torch_crdn import FS, check_train_step_against_jax
 @pytest.mark.parametrize("decoder", ["GRU", "LSTM", "vanilla"])
 def test_unetrnn_train_step_matches_jax(decoder):
     check_train_step_against_jax("UNetRNN", feature_scale=FS, decoder=decoder)
-    assert tbn.LAUNCHES == {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    assert tbn.LAUNCHES == {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0, "bn_finish": 0}
 
 
 def test_unetrm3_train_step_matches_jax():

@@ -184,9 +184,43 @@ def test_bn_kernels(cuda, dtype, c, rows):
     ref_dx = bn.reference_bn_bwd_dx(xf, dyf, mean, inv, gamma, beta, ref_db, ref_dg)
     torch.testing.assert_close(dx.float(), ref_dx, atol=dx_tol, rtol=dx_tol)
     assert {k: bn.LAUNCHES[k] - before[k] for k in before} == {
-        "bn_stats": 1, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
+        "bn_stats": 1, "bn_bwd_reduce": 1, "bn_bwd_dx": 1, "bn_finish": 0}
     # no float atomics: the same inputs give the same bits
     assert torch.equal(bn.bn_stats(x)[0], got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,rows", [(32, 147456), (512, 576), (70, 37), (1, 1)])
+def test_bn_split_path_gives_one_k1_calls_bits(cuda, dtype, c, rows):
+    """Data-parallel K1: the sums-only launch and bn_finish on its sums give
+    the bits of one K1 call (the running stats too); bn_finish matches its
+    plain version; K3 divides by the n it is given."""
+    g = torch.Generator().manual_seed(c + rows)
+    x = (torch.randn(rows, c, generator=g) * 1.5 + 0.3).to(cuda, dtype)
+    rm, rv = torch.rand(c, device=cuda), torch.rand(c, device=cuda) + 0.5
+    rm1, rv1 = rm.clone(), rv.clone()
+    before = dict(bn.LAUNCHES)
+    one = bn.bn_stats(x, 1e-5, rm1, rv1)
+    sums = bn.bn_sums(x)
+    split = bn.bn_finish(sums, rows, 1e-5, rm, rv)
+    torch.cuda.synchronize()
+    assert {k: bn.LAUNCHES[k] - before[k] for k in before} == {
+        "bn_stats": 2, "bn_bwd_reduce": 0, "bn_bwd_dx": 0, "bn_finish": 1}
+    assert torch.equal(sums, torch.stack(one[:2]))
+    for a, b in zip((*split, rm, rv), (*one[2:], rm1, rv1)):
+        assert torch.equal(a, b)
+    rm2, rv2 = rm.clone(), rv.clone()
+    want = bn.reference_bn_finish(sums[0], sums[1], 2 * rows, 1e-5, rm2, rv2)
+    got = bn.bn_finish(sums, 2 * rows, 1e-5, rm, rv)
+    for a, b in zip((*got, rm, rv), (*want, rm2, rv2)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    dy = torch.randn(rows, c, generator=g).to(cuda, dtype)
+    gamma, beta = torch.rand(c, device=cuda) + 0.5, torch.rand(c, device=cuda) - 0.5
+    db, dg = bn.bn_bwd_reduce(x, dy, got[0], got[2], gamma, beta)
+    dx = bn.bn_bwd_dx(x, dy, got[0], got[2], gamma, beta, db, dg, 2 * rows)
+    ref = bn.reference_bn_bwd_dx(x.float(), dy.float(), got[0], got[2], gamma, beta, db, dg,
+                                 2 * rows)
+    torch.testing.assert_close(dx.float(), ref, atol=BN_TOL[dtype][1], rtol=BN_TOL[dtype][1])
 
 
 def _k2_inputs(c, rows, dtype, dev, seed=0):
@@ -355,7 +389,7 @@ def test_train_step_cuda_matches_cpu(cuda):
         metrics[dev] = step(imgs.to(dev), masks.to(dev), torch.Generator(device=dev))
         if dev == "cuda":
             assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
-                "bn_stats": 30, "bn_bwd_reduce": 30, "bn_bwd_dx": 30}
+                "bn_stats": 30, "bn_bwd_reduce": 30, "bn_bwd_dx": 30, "bn_finish": 0}
             assert df.LAUNCHES - before[1] == 10
         models[dev] = m
     assert abs(float(metrics["cuda"]["loss"]) - float(metrics["cpu"]["loss"])) <= 1e-5
@@ -400,7 +434,7 @@ def test_unetrnn_train_step_cuda_matches_cpu(cuda):
         metrics[dev] = step(imgs.to(dev), masks.to(dev), torch.Generator(device=dev))
         if dev == "cuda":
             assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
-                "bn_stats": 15, "bn_bwd_reduce": 15, "bn_bwd_dx": 15}
+                "bn_stats": 15, "bn_bwd_reduce": 15, "bn_bwd_dx": 15, "bn_finish": 0}
             assert df.LAUNCHES == before[1]
         models[dev] = m
     assert abs(float(metrics["cuda"]["loss"]) - float(metrics["cpu"]["loss"])) <= 1e-5
@@ -430,7 +464,7 @@ def test_unet_runs_k4_at_its_four_decoder_nodes(cuda):
     step(imgs, imgs[..., :1], torch.Generator(device=cuda))
     assert df.LAUNCHES - before[1] == 4
     assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
-        "bn_stats": 18, "bn_bwd_reduce": 18, "bn_bwd_dx": 18}
+        "bn_stats": 18, "bn_bwd_reduce": 18, "bn_bwd_dx": 18, "bn_finish": 0}
 
 
 def test_folder_cli_trains_an_epoch_with_the_expected_launches(cuda, tmp_path):
@@ -459,7 +493,7 @@ def test_folder_cli_trains_an_epoch_with_the_expected_launches(cuda, tmp_path):
                     "--deep_supervision", "true", "--arch_kwargs",
                     '{"nb_filter": [4, 8, 16, 32, 64]}', "--device", "cuda"])
     assert {k: bn.LAUNCHES[k] - before[0][k] for k in bn.LAUNCHES} == {
-        "bn_stats": 60, "bn_bwd_reduce": 60, "bn_bwd_dx": 60}
+        "bn_stats": 60, "bn_bwd_reduce": 60, "bn_bwd_dx": 60, "bn_finish": 0}
     assert df.LAUNCHES - before[1] == 30
     assert len(r["log"]["loss"]) == 1 and np.isfinite(r["log"]["loss"][0])
     for f in ("config.yml", "log.csv", "model.pth", "last.pth"):

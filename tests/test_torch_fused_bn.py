@@ -201,7 +201,7 @@ def _c_signatures():
     return sigs
 
 
-@pytest.mark.parametrize("name", ["bn_stats", "bn_bwd_reduce", "bn_bwd_dx"])
+@pytest.mark.parametrize("name", ["bn_stats", "bn_bwd_reduce", "bn_bwd_dx", "bn_finish"])
 def test_ctypes_table_matches_c_signature(name):
     """The wrapper's argtypes hold each parameter's kind of the C function, so
     a changed C interface fails here, without a card."""
@@ -223,4 +223,4 @@ def test_eval_mode_uses_running_stats_and_cpu_builds_nothing():
     assert torch.equal(mod.running_mean, torch.full((16,), 0.5))  # eval leaves them
     mod.train()(torch.from_numpy(x))
     assert "fused_bn" not in _build._LIBS
-    assert tbn.LAUNCHES == {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    assert tbn.LAUNCHES == {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0, "bn_finish": 0}

@@ -115,7 +115,7 @@ def test_one_train_step_matches_jax(jax_path, request):
     if jax_path == "pallas":
         request.getfixturevalue("pallas")
     _compare(*_run(1), loss_tol=1e-5, param_tol=2e-4)
-    assert tbn.LAUNCHES == {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    assert tbn.LAUNCHES == {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0, "bn_finish": 0}
     assert tdf.LAUNCHES == 0
 
 
