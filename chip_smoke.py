@@ -14,7 +14,8 @@
    bfloat16, with its time (and TFLOP/s, share of the bound, launch plan),
    the plain version's, one library call's as a yardstick, and the
    card's bound for the same work; then the host time of one K4 call from
-   Python and of the bf16 launch plan alone;
+   Python, direct (every path but the artifact) and through the registered
+   operator (the artifact's), and of the bf16 launch plan alone;
 4. serving path phase: full-width NestedUNet with deep supervision served
    through `Predictor` (8 requests of 16 uint8 96x96 images, fp32 then bf16),
    with the launch counts of every kernel read around each run, a
@@ -68,6 +69,16 @@
    3rd, `--pipeline host` for 1, `val.main` (IoU against Predictor's) and
    `infer.main` on images of other sizes (full-res 0/255 masks, probability
    masks against Predictor's), with exact launch counts;
+11a. the serving artifact (`export_phase`, on the CLI path's capsule):
+   `export.main` in fp32 and bf16 with --check true, export seconds and
+   MB; the fp32 artifact loaded by a fresh process that imports no model
+   code (10 K4 launches a batch of 16, within 1e-5 of the live Predictor);
+   batches 1, 3 and 16 through one dynamic artifact (10 K4 launches each,
+   1e-5), a pinned artifact refusing 3; `infer.main --artifact` over the
+   serving folder, masks within 1 LSB of `infer.main --name`'s; the
+   artifact's p50 / p95, img/s and device-busy ms beside the live
+   Predictor's; `train.main --profile` for 1 bf16 epoch, its trace naming
+   K1-K3's and K4's kernels;
 11b. `--pretrained_backbone` (`pretrained_phase`): a torchvision-format
    ResNet-50 state dict written from a seed, `train.main --arch ResNet50RNN
    --pretrained_backbone` for 1 bf16 epoch on the CLI path's folder, the
@@ -126,7 +137,8 @@
    `--dp-worker`, each on its 8 rows against the one-process step);
 12. a JSON line of the kernels (launches over every path above; `cli`: the
    CLI path's own; `remat_step`: per fp32 step in each --remat mode; `dp`:
-   dp_phase's), then the last line
+   dp_phase's; `artifact`: K4's launches by export_phase's artifacts), then
+   the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `python3 chip_smoke.py --dp-cards N` runs only the data-parallel check over
@@ -359,8 +371,10 @@ def kernel_phase(df, dev):
 
 def k4_host_us(df, dev, calls=200, rounds=5):
     """Host time in us of one K4 call from Python (enqueue only, at a small
-    shape) in each dtype, and of the bf16 launch plan alone through its C
-    query: the best of `rounds` rounds of `calls` calls each."""
+    shape) in each dtype, as every path but the artifact calls it (the
+    direct launch) and through the registered operator (the exported
+    artifact's call), and of the bf16 launch plan alone through its C query:
+    the best of `rounds` rounds of `calls` calls each."""
     import ctypes
 
     def best_us(fn):
@@ -382,6 +396,8 @@ def k4_host_us(df, dev, calls=200, rounds=5):
         for _ in range(20):
             df.multipart_conv3x3(parts, kernel, bias)
         out[DTYPE_NAME[dtype]] = best_us(lambda: df.multipart_conv3x3(parts, kernel, bias))
+        op = torch.ops.nested_unet_torch.multipart_conv3x3
+        out[f"{DTYPE_NAME[dtype]} operator"] = best_us(lambda: op(parts, kernel, bias))
     chans, plan = (ctypes.c_int * 2)(32, 32), (ctypes.c_int * 7)()
     query = df._lib().decoder_fusion_plan
     out["bf16 plan"] = best_us(lambda: query(1, 2, 12, 12, 32, chans, 2, plan))
@@ -408,9 +424,11 @@ def hmma_counts(build, name):
     return counts
 
 
-def profile_batches(pred, request, precision):
-    """Device time by kernel over a few served batches (torch.profiler), and
-    the share of the window in which some kernel or copy ran."""
+def profile_batches(pred, request, precision, host_ops=0):
+    """Device time by kernel over a few served batches (torch.profiler), the
+    share of the window in which some kernel or copy ran, and with host_ops
+    > 0 the host's busiest operators (self CPU time); returns (wall, device
+    busy) ms per batch."""
     from torch.profiler import ProfilerActivity, profile
 
     batches = 3
@@ -432,6 +450,12 @@ def profile_batches(pred, request, precision):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms / batches:8.3f} ms/batch {100 * ms / busy_ms:5.1f}%  "
               f"x{e.count // batches:<3d} {e.key[:110]}")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:host_ops]
+    for e in host:
+        print(f"  host {e.self_cpu_time_total / 1e3 / batches:8.3f} ms/batch "
+              f"x{e.count // batches:<4d} {e.key[:100]}")
+    return wall_ms / batches, busy_ms / batches
 
 
 def path_phase(bn, df, card, arch="NestedUNet", deep_supervision=True, k4_per_batch=10,
@@ -1572,6 +1596,246 @@ def pretrained_phase(bn, df, card):
     return counts
 
 
+# export_phase's fresh serving process: it imports the port's serving module
+# (and through it ops/) and nothing of the model code, loads the artifact on
+# the card, answers one batch and reports K4's launches, its seconds to load
+# and its largest difference from the probabilities the parent saved
+EXPORT_LOADER = """
+import sys, time
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+torch.cuda.init()
+t1 = time.perf_counter()
+from pytorch_nested_unet_tpu_torch.serving import load_exported
+from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
+predict, manifest = load_exported(sys.argv[1], "cuda")
+t2 = time.perf_counter()
+got = predict(np.load(sys.argv[2])).cpu().numpy()
+t3 = time.perf_counter()
+pkg = "pytorch_nested_unet_tpu_torch"
+models = [m for m in sys.modules if m.startswith((pkg + ".models", pkg + ".training"))]
+print(df.LAUNCHES, float(np.abs(got - np.load(sys.argv[3])).max()), t1 - t0, t2 - t1, t3 - t2,
+      len(models))
+"""
+
+
+PROFILE_IMAGES = 80  # export_phase's traced epoch: 4 steps of 16 and 1 val batch
+
+
+def export_phase(bn, df, card):
+    """The serving artifact (serving.py) on the capsule cli_phase wrote
+    (full-width NestedUNet wDS, 96x96): `export.main` in fp32 and bf16 with
+    --check true (the reloaded artifact against the live Predictor, 1e-5 /
+    2e-2), export and load seconds and MB; the fp32 artifact loaded in a
+    fresh process that imports no model code (10 K4 launches, the batch
+    within 1e-5 of the live Predictor); batches 1, 3 and 16 through the fp32
+    artifact (10 K4 launches each, 1e-5 against the live Predictor); a
+    pinned artifact refusing 3; `infer.main --artifact` over the serving
+    folder, masks within 1 LSB of `infer.main --name`'s; the artifact's
+    p50 / p95 and img/s beside the live Predictor's, each precision, order
+    live, artifact, artifact, live, and the device-busy ms of the first live
+    and the first artifact window; then `train.main --profile` for 1 bf16
+    epoch on the folder's first PROFILE_IMAGES pairs, whose trace must name
+    K1-K3 and a K4 kernel. Returns {dtype: launches} with, under
+    "artifact", the K4 launches read in the windows that ran only an
+    artifact (the fresh process's, batches 1/3/16, the pinned batch,
+    `infer --artifact`, the timed artifact windows)."""
+    import shutil
+
+    from pytorch_nested_unet_tpu_torch import export, infer, serving, train
+    from pytorch_nested_unet_tpu_torch.data import image_io
+    from pytorch_nested_unet_tpu_torch.infer import Predictor
+
+    name = "dsb2018_96_NestedUNet_wDS"
+    out_dir = os.path.join(CLI_ROOT, "models")
+    model_dir = os.path.join(out_dir, name)
+    serve_dir = os.path.join(CLI_ROOT, "serve")
+    if not os.path.isfile(os.path.join(model_dir, "model.pth")):
+        raise AssertionError(f"export: no cli_phase capsule under {model_dir}")
+    root = os.path.join(CLI_ROOT, "export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    start = time.perf_counter()
+    launches = {p: {k: 0 for k in launch_counts(bn, df)} for p in ("fp32", "bf16")}
+    artifact_k4 = {"fp32": 0, "bf16": 0}
+
+    def counted(precision, fn, artifact=False):
+        """Run fn between two reads of the counts; with artifact=True the
+        window holds the artifact's calls alone and its K4 launches count
+        as the artifact's."""
+        reset_counts(bn, df)
+        result = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts(bn, df)
+        for k in counts:
+            launches[precision][k] += counts[k]
+        if artifact:
+            artifact_k4[precision] += counts["multipart_conv3x3"]
+        return result, counts
+
+    # 1. export in both precisions, --check true (the artifact's batch of 2
+    # and the live Predictor's in one window: 20 K4 launches, not in the
+    # artifact's tally)
+    paths, sizes, export_s = {}, {}, {}
+    for precision in ("fp32", "bf16"):
+        out = os.path.join(root, f"{name}_{precision}.pt2")
+        t0 = time.perf_counter()
+        (_, text), counts = counted(precision, lambda: _tee_stdout(lambda: export.main(
+            ["--name", name, "--output_dir", out_dir, "--out", out, "--precision", precision,
+             "--device", "cuda", "--check", "true"])))
+        export_s[precision] = time.perf_counter() - t0
+        if "round-trip check ok" not in text or counts["multipart_conv3x3"] != 20:
+            raise AssertionError(f"export {precision}: printed {text!r}, launches {counts}")
+        paths[precision], sizes[precision] = out, os.path.getsize(out) / 1e6
+
+    # 2. a fresh process loads the fp32 artifact and serves a batch of 16
+    rng = np.random.default_rng(0)
+    request = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    live = {p: Predictor.from_capsule(model_dir, p, BATCH, "cuda")[0] for p in ("fp32", "bf16")}
+    want, _ = counted("fp32", lambda: live["fp32"].predict_u8(request))
+    np.save(os.path.join(root, "request.npy"), request)
+    np.save(os.path.join(root, "want.npy"), want)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", EXPORT_LOADER, paths["fp32"],
+                        os.path.join(root, "request.npy"), os.path.join(root, "want.npy")],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=300)
+    process_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"export: the serving process failed:\n{r.stderr[-3000:]}")
+    k4, err, init_s, load_s, first_s, models = r.stdout.split()
+    launches["fp32"]["multipart_conv3x3"] += int(k4)
+    artifact_k4["fp32"] += int(k4)
+    print(f"export: fresh serving process ({process_s:.1f} s in all): CUDA init "
+          f"{float(init_s):.2f} s, load_exported {float(load_s):.2f} s, first batch "
+          f"{float(first_s):.2f} s; {k4} K4 launches for a batch of {BATCH}, max abs diff "
+          f"{float(err):.3g} from the live Predictor (atol 1e-5), model modules imported: "
+          f"{models} | card: {card}", flush=True)
+    if int(k4) != 10 or float(err) > 1e-5 or int(models):
+        raise AssertionError(f"export: serving process launched {k4} K4, diff {err}, "
+                             f"imported {models} model modules")
+
+    # 3. batches 1, 3 and 16 through one dynamic artifact against the live
+    # Predictor's model at the same batch; a pinned one refuses 3
+    predict, manifest = serving.load_exported(paths["fp32"], "cuda")
+    for b in (1, 3, BATCH):
+        images = rng.integers(0, 256, (b, SIZE, SIZE, 3), dtype=np.uint8)
+        got, counts = counted("fp32", lambda: predict(images).cpu().numpy(), artifact=True)
+        ref = live["fp32"]._predict(torch.from_numpy(images).cuda()).cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        if got.shape != (b, SIZE, SIZE, 1) or counts["multipart_conv3x3"] != 10 or err > 1e-5:
+            raise AssertionError(f"export batch {b}: {got.shape}, launches {counts}, err {err}")
+    pinned = os.path.join(root, "pinned.pt2")
+    (_, _), _ = counted("fp32", lambda: _tee_stdout(lambda: export.main(
+        ["--name", name, "--output_dir", out_dir, "--out", pinned, "--precision", "fp32",
+         "--batch", str(BATCH), "--device", "cuda", "--check", "false"])))
+    fixed, _ = serving.load_exported(pinned, "cuda")
+    _, counts = counted("fp32", lambda: fixed(request), artifact=True)
+    if counts["multipart_conv3x3"] != 10:
+        raise AssertionError(f"export: the pinned artifact's batch launched {counts}")
+    try:
+        fixed(request[:3])
+    except (AssertionError, RuntimeError) as e:
+        refused = str(e).splitlines()[0][:80]
+    else:
+        raise AssertionError("export: the pinned artifact served a batch of 3")
+    print(f"export: the dynamic fp32 artifact served batches 1, 3, {BATCH} (10 K4 launches "
+          f"each, within 1e-5 of the live Predictor); the pinned one refused 3: {refused!r}",
+          flush=True)
+
+    # 4. infer --artifact over the serving folder against infer --name
+    masks = {}
+    for mode, flags in (("name", ["--name", name, "--output_dir", out_dir]),
+                        ("artifact", ["--artifact", paths["bf16"]])):
+        save = os.path.join(root, f"infer_{mode}")
+        (s, text), counts = counted("bf16", lambda: _tee_stdout(lambda: infer.main(
+            flags + ["--input_dir", serve_dir, "--save_dir", save, "--device", "cuda"])),
+            artifact=mode == "artifact")
+        if counts["multipart_conv3x3"] != 10 or s["written"] != len(CLI_SERVE_SIZES):
+            raise AssertionError(f"export infer --{mode}: launches {counts}, summary {s}")
+        masks[mode] = np.stack([image_io.load_image(os.path.join(save, name, "0", f), 1)
+                                for f in sorted(os.listdir(os.path.join(save, name, "0")))])
+    lsb = int(np.abs(masks["artifact"].astype(int) - masks["name"].astype(int)).max())
+    print(f"export: infer --artifact (bf16) wrote {len(masks['artifact'])} masks within {lsb} "
+          f"LSB of infer --name's (max 1)", flush=True)
+    if lsb > 1:
+        raise AssertionError(f"export: infer --artifact masks {lsb} LSB from infer --name's")
+
+    # 5. the artifact beside the live Predictor: 16 requests of 16 each, twice;
+    # the first window of each traced
+    requests = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+                for _ in range(16)]
+    load_s = {}
+    for precision in ("fp32", "bf16"):
+        t0 = time.perf_counter()
+        artifact = Predictor.from_artifact(paths[precision], BATCH, "cuda")[0]
+        load_s[precision] = time.perf_counter() - t0
+        served, busy = {}, {}
+        for mode in ("live", "artifact", "artifact", "live"):
+            pred = live[precision] if mode == "live" else artifact
+            pred.latencies, pred.images = [], 0
+            _, counts = counted(precision, lambda: [pred.predict_u8(q) for q in requests],
+                                artifact=mode == "artifact")
+            if counts["multipart_conv3x3"] != 10 * len(requests):
+                raise AssertionError(f"export {mode} {precision}: launches {counts}")
+            s = pred.summary()
+            if mode not in busy:
+                busy[mode] = profile_batches(pred, requests[0], f"{mode} {precision}", 6)[1]
+            served.setdefault(mode, []).append(
+                f"p50 {s['p50_ms']:.3f} ms, p95 {s['p95_ms']:.3f} ms, "
+                f"{s['img_per_s']:.1f} img/s")
+        for mode, lines in served.items():
+            print(f"export serving {precision} {mode}: " + " | ".join(lines)
+                  + f" | device busy {busy[mode]:.3f} ms/batch | card: {card}", flush=True)
+    print(f"export: seconds to export (with the check) fp32 {export_s['fp32']:.2f}, bf16 "
+          f"{export_s['bf16']:.2f}; to load in this process fp32 {load_s['fp32']:.2f}, bf16 "
+          f"{load_s['bf16']:.2f}; artifact MB fp32 {sizes['fp32']:.2f}, bf16 "
+          f"{sizes['bf16']:.2f}", flush=True)
+
+    # 6. train --profile: one bf16 epoch, traced, on the first PROFILE_IMAGES
+    # pairs of the CLI folder (a trace of the whole epoch would run to
+    # ~100 MB)
+    src = os.path.join(CLI_ROOT, "inputs", "dsb2018_96")
+    data_dir = os.path.join(root, "inputs")
+    for sub in ("images", os.path.join("masks", "0")):
+        os.makedirs(os.path.join(data_dir, "dsb2018_96", sub))
+        for f in sorted(os.listdir(os.path.join(src, sub)))[:PROFILE_IMAGES]:
+            os.link(os.path.join(src, sub, f), os.path.join(data_dir, "dsb2018_96", sub, f))
+    trace_dir = os.path.join(root, "trace")
+    (r, text), counts = counted("bf16", lambda: _tee_stdout(lambda: train.main(
+        ["--dataset", "dsb2018_96", "--data_dir", data_dir, "--output_dir", out_dir,
+         "--name", "profiled", "--precision", "bf16", "--deep_supervision", "true",
+         "--epochs", "1", "--profile", trace_dir, "-b", str(BATCH), "--input_w", str(SIZE),
+         "--input_h", str(SIZE), "--device", "cuda"])))
+    n_val = -(-PROFILE_IMAGES // 5)  # the seed-41 split's val set
+    steps, val_batches = (PROFILE_IMAGES - n_val) // BATCH, -(-n_val // BATCH)
+    want = {**bn_want(BN_PER_STEP * steps), "multipart_conv3x3": 10 * (steps + val_batches)}
+    files = os.listdir(trace_dir)
+    if counts != want or files != ["epoch0.pt.trace.json"] \
+            or f"profiler trace written to {trace_dir}" not in text:
+        raise AssertionError(f"export train --profile: launches {counts} (want {want}), "
+                             f"files {files}")
+    trace = os.path.join(trace_dir, files[0])
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in kernels if k in n)
+             for k in ("stats_kernel", "bwd_reduce_kernel", "bwd_dx_kernel", "conv3x3_")}
+    print(f"export: train --profile, 1 bf16 epoch of {steps} steps ({r['train_s'][0]:.3f} s "
+          f"train, the trace's writing apart): trace "
+          f"{os.path.getsize(trace) / 1e6:.1f} MB, {len(events)} events, "
+          f"{len(kernels)} kernel names; K1-K4 found: "
+          + "; ".join(f"{k}: {[n[:60] for n in v]}" for k, v in found.items())
+          + f" | card: {card}", flush=True)
+    if not all(found.values()):
+        raise AssertionError(f"export: the trace lacks {[k for k, v in found.items() if not v]}")
+    print(f"export path launches: {launches}, of them the artifacts' K4: {artifact_k4}; "
+          f"export_phase {time.perf_counter() - start:.1f} s", flush=True)
+    return {**launches, "artifact": artifact_k4}
+
+
 # canet_cli_phase: an ISIC-sized-image folder (64 PNG pairs at 256x256 in the
 # ISIC layout, 52 train / 12 test), trained by the CA-Net preset at its own
 # 256x256 and batch 2
@@ -2691,6 +2955,8 @@ def main():
     runs.append(train_phase(bn, df, card, "ResNet50RNN", False, RESNET_RNN_BN_PER_STEP, 0))
     cli = cli_phase(bn, df, card)
     runs.append({"bf16": cli})
+    export = export_phase(bn, df, card)
+    runs.append(export)
     runs.append({"bf16": pretrained_phase(bn, df, card)})
     runs.append(path_phase(bn, df, card, "AttU_Net", False, k4_per_batch=0))
     runs.append(train_phase(bn, df, card, "AttU_Net", False, 0, 0))
@@ -2729,6 +2995,7 @@ def main():
         if dtype == torch.float32:  # per fp32 step of remat_phase, in each --remat mode
             entry["remat_step"] = {mode: c["multipart_conv3x3"] for mode, c in remat.items()}
         entry["dp"] = {"launches": dp[name]["multipart_conv3x3"]}
+        entry["artifact"] = {"launches": export["artifact"][name]}
         if dtype == torch.bfloat16:  # the CLI path runs bf16, at the 10 nodes' shapes
             entry["cli"] = {"launches": cli["multipart_conv3x3"],
                             **{key: agg[key] for key in timed},
@@ -2768,13 +3035,19 @@ def main():
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
           "vgg16rnn_step: the 18 of a VGG16RNN step, its launches those of VGG16RNN's fit; "
           "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase; "
+          "artifact: K4 launches by the exported serving artifacts of export_phase (the "
+          "registered operator in a torch.export program), read in the windows that ran an "
+          "artifact alone (export --check's windows, which hold the live Predictor's calls "
+          "too, are left out; they and export_phase's other launches, train --profile's "
+          "epoch included, are in the totals); "
           "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
           "and policy; dp: launches in dp_phase's data-parallel steps, world 1 over NCCL and "
           "2 ranks over Gloo; bn_finish: its 30 instances of one batch-16 NestedUNet step, "
           "on float32 sums in either dtype, launched only by data-parallel steps); "
           "max_abs_err: over the path's own shapes; launches: over every path "
           "driven (NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN, AttU_Net and UNetRNNPSP "
-          "serving and training, the arch sweep, the CLIs, --pretrained_backbone, "
+          "serving and training, the arch sweep, the CLIs, the serving artifacts and "
+          "train --profile, --pretrained_backbone, "
           "train_canet, the Refiner (none), train_isic_ca with val/infer --refine, the "
           "--remat steps, the data-parallel steps, DoubleUnet and DeepLab serving and training "
           "and the DeepLab CLIs (none)); card:")

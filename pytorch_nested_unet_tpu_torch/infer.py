@@ -40,8 +40,16 @@ Serving arrays:
 
 reads a (N,H,W,C) uint8 `.npy` and writes (N,H,W,num_classes) float32
 probabilities, for any registered arch, refined as above with --refine true.
-The JAX CLI's --artifact (an exported model) is not ported (ROADMAP.md
-queue 1).
+
+Serving an artifact (export.py) on a directory of images:
+
+    python -m pytorch_nested_unet_tpu_torch.infer --artifact \
+        models/<name>/serving/<name>.pt2 --input_dir new_images/ [...as above]
+
+loads the exported program (serving.load_exported: no model code, no
+registry, no checkpoint) and serves it as a capsule is served, with the
+same batching, timing, masks and --refine; the name and the image size come
+from its manifest, and an artifact that pins its batch overrides -b.
 """
 
 import argparse
@@ -97,7 +105,10 @@ class Predictor:
 
     def _serve(self, model):
         self.model = model.to(self.device)
-        self._predict = make_predict_fn(self.model)
+        self._start(make_predict_fn(self.model))
+
+    def _start(self, predict):
+        self._predict = predict  # uint8 batch on the device -> probabilities there
         self.latencies = []   # seconds per batch, in order
         self.images = 0       # real (unpadded) images answered
 
@@ -118,6 +129,29 @@ class Predictor:
         self.num_classes = int(config["num_classes"])
         self._serve(model)
         return self, config
+
+    @classmethod
+    def from_artifact(cls, path: str, batch_size: int = 16, device="cuda"):
+        """A Predictor of a serving artifact (serving.py; no model code, no
+        checkpoint). An artifact that pins its batch serves that batch
+        whatever `batch_size` says, with a message. Returns (predictor,
+        manifest); `model` is None."""
+        from .serving import load_exported
+
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        predict, manifest = load_exported(path, self.device)
+        pinned = manifest["batch"]
+        if pinned != "dynamic" and batch_size != pinned:
+            print(f"artifact pins batch={pinned}; overriding --batch_size {batch_size}")
+            batch_size = int(pinned)
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.model = None
+        self.batch_size = int(batch_size)
+        self.num_classes = int(manifest["num_classes"])
+        self._start(predict)
+        return self, manifest
 
     def predict_u8(self, images: np.ndarray) -> np.ndarray:
         """(N,H,W,C) uint8 -> (N,H,W,num_classes) float32 probabilities."""
@@ -195,7 +229,11 @@ def make_refiner(args: dict, device) -> Optional[Refiner]:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--name", default=None, help="capsule name (models/<name>)")
-    p.add_argument("--input_dir", default=None, help="directory of images (with --name)")
+    p.add_argument("--artifact", default=None,
+                   help="serve a .pt2 serving artifact (export.py) instead of a capsule: no "
+                        "model code or checkpoint; supersedes --name/--output_dir/--precision")
+    p.add_argument("--input_dir", default=None,
+                   help="directory of images (with --name or --artifact)")
     p.add_argument("--img_ext", default=None,
                    help="glob extension (default: the capsule's img_ext)")
     p.add_argument("--output_dir", default="models")
@@ -232,12 +270,19 @@ def _print_summary(s, predictor, n, where):
           f"{predictor.device}")
 
 
-def serve_capsule(args) -> dict:
-    """--name mode: see the module docstring. Returns the Predictor's summary
-    with `written` (mask files) and `unreadable` (images skipped)."""
-    predictor, config = Predictor.from_capsule(
-        os.path.join(args.output_dir, args.name), args.precision, args.batch_size,
-        args.device)
+def serve_folder(args) -> dict:
+    """--name / --artifact mode: see the module docstring. Returns the
+    Predictor's summary with `written` (mask files) and `unreadable` (images
+    skipped)."""
+    if args.artifact:
+        predictor, config = Predictor.from_artifact(args.artifact, args.batch_size, args.device)
+        args.name = args.name or config.get("name") or \
+            os.path.splitext(os.path.basename(args.artifact))[0]
+        args.batch_size = predictor.batch_size
+    else:
+        predictor, config = Predictor.from_capsule(
+            os.path.join(args.output_dir, args.name), args.precision, args.batch_size,
+            args.device)
     size_hw = (config["input_h"], config["input_w"])
     ext = args.img_ext or config.get("img_ext", ".png")
     paths = sorted(glob.glob(os.path.join(args.input_dir, f"*{ext}")))
@@ -286,13 +331,13 @@ def serve_capsule(args) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.name:
+    if args.name or args.artifact:
         if not args.input_dir:
-            sys.exit("--name needs --input_dir")
-        return serve_capsule(args)
+            sys.exit("--name and --artifact need --input_dir")
+        return serve_folder(args)
     if not (args.input and args.output):
-        sys.exit("give --name and --input_dir (a capsule on images), or --input and "
-                 "--output (.npy arrays)")
+        sys.exit("one of --name or --artifact is required (with --input_dir: images), or "
+                 "--input and --output (.npy arrays)")
     predictor = Predictor(args.arch, args.num_classes, args.input_channels,
                           args.deep_supervision, args.precision or "fp32", args.batch_size,
                           weights=args.weights, seed=args.seed, device=args.device,

@@ -27,7 +27,8 @@ class MultipartConv3x3(nn.Module):
     the weight on every call so the gradient reaches `weight`; without them
     (serving, eval) the HWIO copy of the weights in the compute dtype is made
     once and made again only when the weights change (a step, a load, a move
-    to another device).
+    to another device). Under `torch.export` that copy, made before the
+    trace, is what the exported program holds.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -40,6 +41,13 @@ class MultipartConv3x3(nn.Module):
         self._packed_key = None
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        if torch.compiler.is_exporting():
+            # the copy made before the trace (serving.py) becomes a constant of
+            # the exported program; the traced weight has no data to key on
+            if self._packed is None or self._packed.dtype != dtype:
+                raise RuntimeError("MultipartConv3x3: call packed_weight(dtype) on the real "
+                                   "weights before torch.export")
+            return self._packed
         w = self.weight
         # a tensor made under inference_mode keeps no version counter
         version = -1 if w.is_inference() else w._version

@@ -10,6 +10,12 @@ bfloat16 on the tensor cores and in float32 on the FP32 cores. It takes
 every shape: there is no shape guard and no fall-back. On CPU tensors it runs
 the plain version,
 `reference_multipart_conv3x3`, which the tests hold against the JAX package.
+Under `torch.export` it is the registered operator
+`torch.ops.nested_unet_torch.multipart_conv3x3` (CUDA: the kernel launch;
+CPU: the plain version; any other device: the dispatcher raises), which
+stays one node of the serving artifact (serving.py); everywhere else it
+calls the launch directly, without the dispatcher's host time. The launch
+is a ctypes call on the tensors' pointers.
 
 Weights are HWIO `[3, 3, cin, co]` (co contiguous), the JAX kernel's layout and
 the one the CUDA kernel reads; `pack_weight` makes it from torch's OIHW.
@@ -25,7 +31,7 @@ through it when an input requires grad.
 """
 
 import ctypes
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -129,22 +135,35 @@ def multipart_conv3x3(parts: Sequence[torch.Tensor], kernel: torch.Tensor,
     """conv3x3(concat(parts, -1), kernel) + bias; NHWC parts, HWIO kernel.
 
     CUDA tensors: the kernel, bias in float32 added before the one rounding to
-    the parts' dtype. CPU tensors: `reference_multipart_conv3x3`. Inputs that
-    require grad go through `conv3x3_parts` (the kernel's OIHW view).
+    the parts' dtype. CPU tensors: `reference_multipart_conv3x3`. Under
+    `torch.export`, the registered operator
+    `torch.ops.nested_unet_torch.multipart_conv3x3`, which the exported graph
+    records. Inputs that require grad go through `conv3x3_parts` (the
+    kernel's OIHW view).
     """
     parts = tuple(parts)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (*parts, kernel, bias)):
         return conv3x3_parts(parts, kernel.permute(3, 2, 0, 1), bias)
+    if torch.compiler.is_exporting():
+        return torch.ops.nested_unet_torch.multipart_conv3x3(list(parts), kernel, bias)
     return _forward(parts, kernel, bias)
 
 
 def _forward(parts, kernel, bias):
-    global LAUNCHES
+    """The plain version on CPU tensors, the kernel on CUDA tensors, and an
+    error on any other device."""
     if all(t is None or t.device.type == "cpu" for t in (*parts, kernel, bias)):
         return reference_multipart_conv3x3(parts, kernel, bias)
     if parts[0].device.type != "cuda":
         raise ValueError(f"multipart_conv3x3: no kernel for device {parts[0].device}")
+    return _launch(parts, kernel, bias)
+
+
+def _launch(parts, kernel, bias):
+    """Check the arguments, launch the CUDA kernel on the current stream and
+    count the launch."""
+    global LAUNCHES
     dev, dt, (b, h, w), co = _check_cuda_args(parts, kernel, bias)
     out = torch.empty((b, h, w, co), dtype=dt, device=dev)
     if out.numel() == 0:
@@ -162,6 +181,28 @@ def _forward(parts, kernel, bias):
         raise RuntimeError(f"decoder_fusion_fwd launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+# The registered operator. Its CUDA implementation is `_launch` (no fall-back),
+# its CPU implementation the plain version; the dispatcher raises on any other
+# device. The fake implementation gives the output's shape and dtype from the
+# inputs' alone, so the batch may be symbolic under torch.export.
+@torch.library.custom_op("nested_unet_torch::multipart_conv3x3", mutates_args=(),
+                         device_types="cuda")
+def _multipart_conv3x3_op(parts: List[torch.Tensor], kernel: torch.Tensor,
+                          bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _launch(parts, kernel, bias)
+
+
+@_multipart_conv3x3_op.register_kernel("cpu")
+def _(parts, kernel, bias):
+    return reference_multipart_conv3x3(parts, kernel, bias)
+
+
+@_multipart_conv3x3_op.register_fake
+def _(parts, kernel, bias):
+    b, h, w = parts[0].shape[:3]
+    return parts[0].new_empty((b, h, w, kernel.shape[-1]))
 
 
 class _MultipartConv3x3(torch.autograd.Function):

@@ -60,8 +60,13 @@ CPU). Without --mesh a multi-process run gets a 'data' mesh over all ranks;
 one. The JAX CLI's 'x', 'y' and 'model' mesh axes and --spatial_partition
 are not ported (ROADMAP.md queue 1, A11b and A11c): the CLI exits with a
 message when given them. Its --fused_bn(_mode) (the port's BN always runs its
-CUDA kernels), --profile, --checkpoint_backend, --platform and --artifact are
-not ported either (ROADMAP.md queue 1); argparse rejects them.
+CUDA kernels), --checkpoint_backend and --platform have no counterpart;
+argparse rejects them.
+
+`--profile DIR` traces the training part of the run's first epoch with
+torch.profiler (host, and the device on a card) on rank 0 only, into
+DIR/epoch<N>.pt.trace.json, a chrome trace (chrome://tracing, Perfetto or
+TensorBoard's profiler plugin read it).
 Refinement is `val --refine` / `infer --refine`, or in the model with
 --arch UNetRNNPSP / UNetRNNCAttention_PSP (`--pretrained_backbone` then
 fills their refinement trunk, `psp.feats`).
@@ -193,13 +198,37 @@ class _HostFeed:
         return stack_metrics(per_step), valid_list
 
 
+def _start_profiler(model):
+    """A running torch.profiler over the host and, for a model on a card,
+    the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if next(model.parameters()).device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _write_profile(prof, profile_dir, epoch):
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.pt.trace.json"))
+    print(f"profiler trace written to {profile_dir}")
+
+
 def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols,
             data_rng, generator, early_stopping=-1, skip_nonfinite=0, start_epoch=0,
-            best_iou=0.0, trigger=0, stop_requested=lambda: False, is_main=True) -> dict:
+            best_iou=0.0, trigger=0, stop_requested=lambda: False, is_main=True,
+            profile=None) -> dict:
     """The epoch loop shared by `fit` and the folder CLI: train, validate,
     step the plateau schedule, append to log.csv, write model.pth on a better
     validation IoU and last.pth after every epoch (the files only where
-    `is_main`: rank 0 of a data-parallel run)."""
+    `is_main`: rank 0 of a data-parallel run). With `profile` (a directory),
+    the training part of the first epoch run is traced by torch.profiler on
+    the main process into <profile>/epoch<N>.pt.trace.json (chrome trace
+    format; the writing is not in the epoch's train_s)."""
     log_path = os.path.join(model_dir, "log.csv")
     train_s, val_s = [], []
     guard = bool(skip_nonfinite)
@@ -209,8 +238,11 @@ def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols
 
         # ---- train ----
         t0 = time.perf_counter()
+        prof = _start_profiler(model) if profile and epoch == start_epoch and is_main else None
         metrics = {k: v.cpu().numpy() for k, v in feed.train(data_rng, generator).items()}
         train_s.append(time.perf_counter() - t0)
+        if prof is not None:
+            _write_profile(prof, profile, epoch)
         tr = {k: AverageMeter() for k in ("loss", "iou", "acc")}
         bad_steps = 0
         for s in range(len(metrics["loss"])):
@@ -288,7 +320,8 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
         precision: str = "bf16", seed: int = 41, augment="full", log_acc: bool = False,
         skip_nonfinite: int = 0, accum_steps: int = 1, device="cuda",
         arch_kwargs: Optional[Mapping] = None,
-        pretrained_backbone: Optional[str] = None, remat=False, mesh=None) -> dict:
+        pretrained_backbone: Optional[str] = None, remat=False, mesh=None,
+        profile: Optional[str] = None) -> dict:
     """Train `arch` from a random init drawn from `seed` on the uint8 arrays
     and return a summary: `best_iou`, `log` (the log.csv columns),
     `model_dir`, `model`, and per epoch the host seconds of its training and
@@ -299,7 +332,8 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     `.pth` poured into the model's ResNet trunk after the init. remat: the
     --remat mode, given to the archs that have the option (an arch_kwargs
     `remat` wins). mesh: a parallel.mesh.Mesh to train data-parallel on
-    (`batch_size` is then the global batch; only rank 0 writes).
+    (`batch_size` is then the global batch; only rank 0 writes). profile: a
+    directory for a torch.profiler trace of the first epoch's training.
     """
     arch_kwargs = {**remat_kwargs(arch, remat), **parse_arch_kwargs(arch, arch_kwargs)}
     if precision not in PRECISIONS:
@@ -336,7 +370,7 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
                    data_rng=np.random.default_rng(seed),
                    generator=torch.Generator(device=dev).manual_seed(seed + 1),
                    early_stopping=early_stopping, skip_nonfinite=skip_nonfinite,
-                   is_main=mesh is None or mesh.index == 0)
+                   is_main=mesh is None or mesh.index == 0, profile=profile)
 
 
 def build_datasets(config):
@@ -517,7 +551,8 @@ def train_folder(config: dict, mesh=None) -> dict:
                        generator=generator, early_stopping=config["early_stopping"],
                        skip_nonfinite=config["skip_nonfinite"], start_epoch=start_epoch,
                        best_iou=best_iou, trigger=trigger,
-                       stop_requested=lambda: stop["flag"], is_main=is_main)
+                       stop_requested=lambda: stop["flag"], is_main=is_main,
+                       profile=config["profile"])
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
@@ -606,6 +641,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torchvision-format ResNet .pth poured into the model's ResNet "
                         "trunk (the ResNet backbone archs, the PSP hybrids' refinement trunk) "
                         "after --init_from")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the training part of the first epoch this run trains with "
+                        "torch.profiler (host and device) into DIR/epoch<N>.pt.trace.json, on "
+                        "the main process only")
     p.add_argument("--device", default="cuda")
     for flag in NPY_FLAGS:
         p.add_argument(f"--{flag}", default=None,

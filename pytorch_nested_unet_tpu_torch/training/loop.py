@@ -125,19 +125,32 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
     return eval_step
 
 
+class PredictModule(torch.nn.Module):
+    """uint8 NHWC images -> sigmoid of the last head of `model`'s forward
+    (val.py semantics, reference val.py:92-100): the eval transform, the
+    model, the sigmoid. The module serving.py exports."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+        images, _ = eval_transform(images_u8)
+        return torch.sigmoid(_as_heads(self.model(images))[-1])
+
+
 def make_predict_fn(model: torch.nn.Module):
-    """Return predict(images_u8) -> sigmoid of the last head of the eval
-    forward (val.py semantics, reference val.py:92-100).
+    """Return predict(images_u8) -> `PredictModule(model)`'s probabilities,
+    without autograd.
 
     images_u8: (B,H,W,C) uint8 on the model's device; the result is
     (B,H,W,num_classes) float32 probabilities. Puts `model` in eval mode.
     """
-    model.eval()
+    module = PredictModule(model.eval())
 
     @torch.inference_mode()
     def predict(images_u8: torch.Tensor) -> torch.Tensor:
-        images, _ = eval_transform(images_u8)
-        return torch.sigmoid(_as_heads(model(images))[-1])
+        return module(images_u8)
 
     return predict
 

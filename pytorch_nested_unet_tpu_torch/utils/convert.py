@@ -205,8 +205,10 @@ _PSP_HYBRID = (
     (re.compile(r"^psp\.(final_(?:28|56))_(\d)\."), r"psp.\1.\2."),
 )
 # what a reference checkpoint of a PSP hybrid lacks (root convert.py:102-112)
-_PSP_SYNTH_NOTE = ("refinement tensors the reference builds as a fresh random PSPNet inside "
-                  "every forward (archs_backup.py:1533-1537): this model's init, trainable")
+_PSP_SYNTH_NOTE = (
+    "refinement tensors the reference builds as a FRESH RANDOM PSPNet inside every forward "
+    "(archs_backup.py:1533-1537) — fixed init here, trainable; graft the released "
+    "CascadePSP weights with --refine_pth")
 # DoubleUnet and DeepLab (no reference layout): the JAX paths, plain BN's
 # inner `bn` scope dropped (`fe_bn1/bn/scale` -> `fe_bn1.weight`)
 _DROP_BN_SCOPE = ((re.compile(r"\.bn\.(weight|bias|running_mean|running_var)$"), r".\1"),)
@@ -291,7 +293,8 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
                        init: Optional[Mapping[str, torch.Tensor]] = None
                        ) -> Dict[str, torch.Tensor]:
     """Read a reference-layout `model.pth` (e.g. one written by
-    `python convert.py --export`, or by the reference trainer) as float32
+    `python convert.py --export`, or by the reference trainer; a checkpoint
+    that keeps it under 'state_dict' beside other entries too) as float32
     tensors, dropping DataParallel `module.` prefixes, `num_batches_tracked`
     counters, the parameters the reference builds but never runs, and for
     the RNN-decoded archs the gate convs of the decoders other than
@@ -308,6 +311,8 @@ def load_reference_pth(path, arch: str = "NestedUNet", decoder: Optional[str] = 
     those tensors are taken from `init` (the model's own state dict), with a
     note printed, as the root convert.py synthesizes them."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("state_dict"), Mapping):  # {'state_dict': sd, ...metadata}
+        sd = sd["state_dict"]
     out = {}
     for key, value in sd.items():
         if key.startswith("module."):

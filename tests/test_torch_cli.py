@@ -4,6 +4,7 @@ weights, on the CPU at a narrow width (nb_filter 4..64, 32x32, batch 4)."""
 
 import argparse
 import csv
+import json
 import os
 
 import cv2
@@ -29,7 +30,7 @@ from pytorch_nested_unet_tpu_torch.utils.config import load_config, str2bool
 KW = '{"nb_filter": [4, 8, 16, 32, 64]}'
 NAME = "synth_NestedUNet_wDS"
 # flags of the JAX CLI the port does not have (ROADMAP.md queue 1)
-JAX_ONLY = {"fused_bn", "fused_bn_mode", "profile", "checkpoint_backend", "platform"}
+JAX_ONLY = {"fused_bn", "fused_bn_mode", "checkpoint_backend", "platform"}
 
 
 def _write_set(root, n=14, size=32):
@@ -135,6 +136,24 @@ def test_resume_keeps_rows_and_checks_the_optimizer(runs):
                                          r"\(2, 4, 1, 1\)"):
         ptrain.main(argv + ["--epochs", "1", "--num_classes", "2", "--name", "nc2",
                             "--init_from", NAME])
+
+
+def test_profile_traces_the_first_epoch_only(runs, tmp_path, capsys):
+    """--profile DIR: one chrome trace of the training part of the first
+    epoch the run trains (epoch 0, or the resumed epoch), its host
+    operators in it."""
+    root, _ = runs
+    argv = _common(root) + ["--output_dir", str(tmp_path), "--name", "prof", "--device", "cpu"]
+    ptrain.main(argv + ["--epochs", "2", "--profile", str(tmp_path / "trace")])
+    assert f"profiler trace written to {tmp_path / 'trace'}" in capsys.readouterr().out
+    assert os.listdir(tmp_path / "trace") == ["epoch0.pt.trace.json"]
+    with open(tmp_path / "trace" / "epoch0.pt.trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::convolution" in names and "BNReLUTrain" in names
+    ptrain.main(argv + ["--epochs", "3", "--resume", "true", "--profile",
+                        str(tmp_path / "resumed")])
+    assert os.listdir(tmp_path / "resumed") == ["epoch2.pt.trace.json"]
+    assert load_config(str(tmp_path / "prof"))["profile"] == str(tmp_path / "resumed")
 
 
 def test_val_matches_jax_val(runs, capsys):

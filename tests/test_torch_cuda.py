@@ -128,6 +128,48 @@ def test_predictor_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
 
 
+def test_k4_operator_launches_the_kernel(cuda):
+    """The registered operator on CUDA tensors is the kernel launch: one
+    count a call, the kernel's result, and torch.library.opcheck's schema,
+    fake and dispatch checks; a CPU kernel beside CUDA parts is refused."""
+    parts, kernel, bias = _inputs(2, (5, 3, 8), 6, (13, 10), cuda, torch.float32)
+    op = torch.ops.nested_unet_torch.multipart_conv3x3.default
+    before = df.LAUNCHES
+    out = op(parts, kernel, bias)
+    assert df.LAUNCHES - before == 1
+    want = df.reference_multipart_conv3x3(parts, kernel, bias)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    torch.library.opcheck(op, (parts, kernel, bias))
+    with pytest.raises(ValueError):
+        op([p.cpu() for p in parts], kernel, bias)
+
+
+def test_artifact_serves_through_k4_on_the_card(cuda, tmp_path):
+    """A narrow NestedUNet wDS capsule exported with a dynamic batch: loaded
+    on the card it launches K4 at the 10 decoder nodes per call and gives
+    the live Predictor's probabilities at batch 1 and 3."""
+    from pytorch_nested_unet_tpu_torch import serving
+    from pytorch_nested_unet_tpu_torch.utils.config import save_config
+
+    model = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW,
+                         generator=torch.Generator().manual_seed(3))
+    save_config({"arch": "NestedUNet", "num_classes": 1, "input_channels": 3,
+                 "deep_supervision": True, "input_h": 32, "input_w": 32, "precision": "fp32",
+                 "name": "run", "arch_kwargs": '{"nb_filter": [4, 8, 16, 32, 64]}'},
+                str(tmp_path / "run"))
+    torch.save(model.state_dict(), tmp_path / "run" / "model.pth")
+    path, manifest = serving.export_capsule(str(tmp_path / "run"), device="cuda")
+    predict, _ = serving.load_exported(path, "cuda")
+    rng = np.random.default_rng(1)
+    for b in (1, 3):
+        images = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        live = Predictor.from_capsule(str(tmp_path / "run"), batch_size=b, device="cuda")[0]
+        before = df.LAUNCHES
+        got = predict(images).cpu().numpy()
+        assert df.LAUNCHES - before == 10
+        np.testing.assert_allclose(got, live.predict_u8(images), atol=1e-5, rtol=0)
+
+
 # K1-K3, against the plain version in f32 on the same (rounded) inputs. The
 # per-channel sums differ by summation order only; dbeta and dgamma add terms
 # of either sign, so their error is held against the sum of the summands'
