@@ -135,16 +135,29 @@
    p50 / p95 and busy share beside the plain step's in fp32 and bf16; then
    two ranks on this card over Gloo, two processes of this script run as
    `--dp-worker`, each on its 8 rows against the one-process step);
+11i. spatial partitioning (`spatial_phase`, the 'x'/'y' mesh axes): on
+   this card over Gloo, NestedUNet wDS under data=1,x=2 (2 ranks, 3 steps)
+   and UNet under x=2,y=2 (4 ranks, 1 step), full width, 96x96, global
+   batch 16, fp32, each rank (`--spatial-worker`) against the one-process
+   step (dp_phase's gates), 30 launches of K1 in its sums-only mode,
+   `bn_finish`, K2 and K3 and 10 of K4 per NestedUNet step (18 and 4 for
+   UNet), halo bytes and host ms in the halo exchange and `gather_bands`
+   per step, the step's p50 (a correctness run); then `train.main --mesh
+   x=2` over 2 processes (`--gloo-train`) on dp_cli's narrow folder
+   against `--mesh data=1`;
 12. a JSON line of the kernels (launches over every path above; `cli`: the
    CLI path's own; `remat_step`: per fp32 step in each --remat mode; `dp`:
-   dp_phase's; `artifact`: K4's launches by export_phase's artifacts), then
+   dp_phase's; `spatial`: spatial_phase's; `artifact`: K4's launches by
+   export_phase's artifacts), then
    the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `python3 chip_smoke.py --dp-cards N` runs only the data-parallel check over
 N cards of one host (NCCL, one process a card): each rank's fp32 step on
 its 16/N rows against the one-process step, and the bf16 step's p50 at 16
-rows a rank beside one card's.
+rows a rank beside one card's; with N >= 4 also NestedUNet wDS under
+data=2,x=2 over NCCL (each rank against the one-process step) and `train
+--mesh data=2,x=2` over 4 processes against `--mesh data=1`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -424,23 +437,33 @@ def hmma_counts(build, name):
     return counts
 
 
+def _activities(host_ops):
+    """The profiler's activities: the card's kernels and copies, and the
+    host's operators only where they are listed (tracing them is what makes
+    a window of a large arch slow to read back)."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+
+
 def profile_batches(pred, request, precision, host_ops=0):
     """Device time by kernel over a few served batches (torch.profiler), the
     share of the window in which some kernel or copy ran, and with host_ops
     > 0 the host's busiest operators (self CPU time); returns (wall, device
     busy) ms per batch."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     batches = 3
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_activities(host_ops)) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(batches):
             pred.predict_u8(request)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
+    events = prof.key_averages()  # aggregated once: slow for the large archs' traces
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     print(f"profile {precision}: {batches} batches, wall {wall_ms / batches:.3f} ms/batch, "
@@ -450,7 +473,7 @@ def profile_batches(pred, request, precision, host_ops=0):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms / batches:8.3f} ms/batch {100 * ms / busy_ms:5.1f}%  "
               f"x{e.count // batches:<3d} {e.key[:110]}")
-    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)[:host_ops]
     for e in host:
         print(f"  host {e.self_cpu_time_total / 1e3 / batches:8.3f} ms/batch "
@@ -874,16 +897,17 @@ def profile_steps(step, batch, gen, precision, card, steps=5, host_ops=0):
     """Device time by kernel over a few train steps (torch.profiler), and
     with host_ops > 0 the host's busiest operators (self CPU time);
     returns (wall, device busy) ms per step."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_activities(host_ops)) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             step(*batch, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
+    events = prof.key_averages()  # aggregated once: slow for the large archs' traces
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     print(f"train profile {precision}: {steps} steps, wall {wall_ms / steps:.3f} ms/step, "
@@ -893,7 +917,7 @@ def profile_steps(step, batch, gen, precision, card, steps=5, host_ops=0):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms / steps:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
               f"x{e.count // steps:<3d} {e.key[:110]}")
-    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)[:host_ops]
     for e in host:
         print(f"  host {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step "
@@ -1425,9 +1449,9 @@ def cli_phase(bn, df, card):
             raise AssertionError(f"cli: no {f} in {model_dir}")
 
     # 3. resume, under the profiler: the device-busy share of a CLI epoch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_activities(0)) as prof:
         r, wall, counts = counted("resume", lambda: train.main(
             argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume", "true"]), 1)
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
@@ -1854,7 +1878,7 @@ def canet_cli_phase(bn, df, card):
     decoder-fusion node). Returns the launches."""
     import shutil
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from pytorch_nested_unet_tpu_torch import train_canet, val
     from pytorch_nested_unet_tpu_torch.data import image_io
@@ -1885,7 +1909,7 @@ def canet_cli_phase(bn, df, card):
     argv = ["--data_dir", data_dir, "--output_dir", out_dir, "--img_ext", ".png",
             "--epochs", "1", "--precision", "bf16", "--device", "cuda"]
     reset_counts(bn, df)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_activities(0)) as prof:
         t0 = time.perf_counter()
         r = train_canet.main(argv)
         torch.cuda.synchronize()
@@ -1980,7 +2004,7 @@ def refine_phase(bn, df, card):
     full, on a 1200x1600 image (area down for the global pass, 900x900
     tiles) and a 96x96 one (bicubic up to 900, one 96x96 tile), with the
     tiles run, the device-busy share and peak memory. No K1-K4 launches."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from pytorch_nested_unet_tpu_torch.refinement import Refiner, driver
 
@@ -2048,7 +2072,7 @@ def refine_phase(bn, df, card):
                     torch.cuda.synchronize()
                     times.append((time.perf_counter() - t0) * 1e3)
                 tiles = (r.tiles_run + len(guided_tiles) - n0) // 3
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=_activities(0)) as prof:
                     t0 = time.perf_counter()
                     fn()
                     torch.cuda.synchronize()
@@ -2453,22 +2477,23 @@ def _dp_batch(n=BATCH):
     return np.resize(x, (n, *x.shape[1:])), np.resize(y, (n, *y.shape[1:]))
 
 
-def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda"):
-    """Full-width NestedUNet wDS from seed 11 on `device` and its SGD train
-    step (under `mesh`, data-parallel); `moved`: every weight multiplied by
-    1 + moved * N(0, 1) (seeded), to measure how far rounding moves the
-    step."""
+def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda",
+              arch="NestedUNet", noise_seed=12):
+    """Full-width NestedUNet wDS (or UNet) from seed 11 on `device` and its
+    SGD train step (under `mesh`, data-parallel or on bands); `moved`: every
+    weight multiplied by 1 + moved * N(0, 1) (drawn from `noise_seed`), to
+    measure how far rounding moves the step."""
     from pytorch_nested_unet_tpu_torch.models import create_model
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
     from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
 
-    m = create_model("NestedUNet", 1, 3, True, dtype=dtype,
-                     generator=torch.Generator().manual_seed(11))
+    ds = arch == "NestedUNet"
+    m = create_model(arch, 1, 3, ds, dtype=dtype, generator=torch.Generator().manual_seed(11))
     # the conv biases that feed a BN at 0, as in cpu_step_phase: at their
     # init they dominate the first conv's output, and var = E[x^2] - mean^2
     # then turns the rounding of a BN sum split over ranks into a 3% move of
     # a deep conv's gradient (the step would be held to summation order)
-    noise = torch.Generator().manual_seed(12)
+    noise = torch.Generator().manual_seed(noise_seed)
     with torch.no_grad():
         for name, p in m.named_parameters():
             if name.endswith(("conv1.bias", "conv2.bias")):
@@ -2477,7 +2502,7 @@ def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda"):
                 p.mul_(1 + moved * torch.randn(p.shape, generator=noise))
     m = m.to(device)
     return m, make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
-                              "BCEDiceLoss", True, augment, mesh)
+                              "BCEDiceLoss", ds, augment, mesh)
 
 
 def _dp_result(m, metrics):
@@ -2529,22 +2554,56 @@ def _p50_p95(step, batch, gen, steps=20):
     return times[len(times) // 2], times[min(len(times) - 1, int(len(times) * 0.95))]
 
 
-def _dp_reference(device="cuda"):
+# What the gradient gates of dp_ranks and spatial_ranks are set from: the
+# one-process step under a 1e-7 change of every weight (three seeds of the
+# change) and over its global batch in two other orders (every sum over the
+# batch, a BN's among them, then adds in another order, as it does when the
+# step is split over ranks). At full width the step is chaotic at init
+# (ReLU masks flip), and one reading of a gradient varies 2-3x between
+# seeds, so a gradient is held to GATE_FACTOR x its largest reading.
+MOVEMENT_READINGS = (("weights", 12), ("weights", 13), ("weights", 14), ("order", 1),
+                     ("order", 2))
+GATE_FACTOR = 4
+
+
+def _dp_reference(device="cuda", arch="NestedUNet"):
     """The non-distributed fp32 step over the global batch of 16 (augment
     none) and how far it moves: against itself run again (it is not
     deterministic on the card: bilinear upsampling's backward adds with
-    atomics) and under a 1e-7 change of every weight (at full width the step
-    is chaotic at init: ReLU masks flip, a deep conv's gradient moves by
-    ~2e-3). Returns (result, {gradient: run-to-run spread}, {gradient:
-    movement})."""
+    atomics) and under each of MOVEMENT_READINGS ("weights", seed: every
+    weight moved by 1e-7 N(0, 1) from that seed; "order", seed: the batch
+    permuted by that seed). Returns (result, {gradient: run-to-run spread},
+    {gradient: its largest movement}, {reading: {gradient: movement}})."""
     x, y = _dp_batch()
-    batch = (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
-    runs = []
-    for moved in (0.0, 0.0, 1e-7):
-        m, step = _dp_build(moved=moved, device=device)
-        runs.append(_dp_result(m, step(*batch, torch.Generator(device).manual_seed(0))))
+
+    def run(order=None, **build):
+        idx = np.arange(BATCH) if order is None else np.random.default_rng(order).permutation(BATCH)
+        batch = (torch.from_numpy(x[idx]).to(device), torch.from_numpy(y[idx]).to(device))
+        m, step = _dp_build(device=device, arch=arch, **build)
+        out = _dp_result(m, step(*batch, torch.Generator(device).manual_seed(0)))
         del m, step
-    return runs[0], _dp_rel(runs[1], runs[0]), _dp_rel(runs[2], runs[0])
+        return out
+
+    plain = run()
+    readings = {f"{kind} {seed}": _dp_rel(run(order=seed) if kind == "order" else
+                                          run(moved=1e-7, noise_seed=seed), plain)
+                for kind, seed in MOVEMENT_READINGS}
+    movement = {n: max(r[n] for r in readings.values()) for n in plain[1]}
+    return plain, _dp_rel(run(), plain), movement, readings
+
+
+def _with_reading(reference, label, reading):
+    """`reference` (from _dp_reference) with one more movement reading
+    ({gradient: movement}) under `label`: a data-parallel split's own
+    deviation off the one-process step, measured in the same call."""
+    plain, spread, movement, readings = reference
+    return (plain, spread, {n: max(v, reading[n]) for n, v in movement.items()},
+            {**readings, label: reading})
+
+
+def _readings_of(readings, name):
+    """A gradient's movement under each of MOVEMENT_READINGS, for a line."""
+    return ", ".join(f"{k} {r[name]:.3g}" for k, r in readings.items())
 
 
 def dp_worker(rank, world, port, out_dir, backend, device, steps):
@@ -2595,44 +2654,57 @@ def dp_worker(rank, world, port, out_dir, backend, device, steps):
     return 0
 
 
-def dp_ranks(world, backend, reference, card, steps=10, device=None):
-    """Run `world` dp_worker processes (over NCCL each on its own card,
-    cuda:RANK; over Gloo all on `device`, default the first card) and hold
-    each rank's fp32 step against the one-process step over 16
-    (`reference`, from _dp_reference): loss and running statistics within
-    1e-5, each gradient within 1e-4 or 4x its movement under a 1e-7 weight
-    change, where that is more (a rank adds each BN's sums in another
-    order; cpu_step_phase's step_floor rule), DP_LAUNCHES per step. Returns
-    the ranks' outputs."""
-    plain, _, movement = reference
-    os.makedirs(DP_ROOT, exist_ok=True)
-    for f in os.listdir(DP_ROOT):
-        os.remove(os.path.join(DP_ROOT, f))
+def _free_port():
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+        return sock.getsockname()[1]
+
+
+def _run_ranks(argvs, what, envs=None, cwd=None):
+    """One process per argv (with envs[rank] as its environment), all
+    started together; returns their outputs and the wall seconds, raising if
+    one fails or outlasts 600 s (whatever is left is killed)."""
     t0 = time.perf_counter()
     procs = []
     try:
-        for rank in range(world):
-            dev = f"cuda:{rank}" if backend == "nccl" else (device or "cuda:0")
+        for rank, argv in enumerate(argvs):
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-worker", str(rank), str(world),
-                 str(port), DP_ROOT, backend, dev, str(steps)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                argv, env=envs[rank] if envs else None, cwd=cwd, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall = time.perf_counter() - t0
     for rank, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"dp rank {rank} of {world} ({backend}) failed:\n{log[-3000:]}")
+            raise AssertionError(f"{what} rank {rank} of {len(argvs)} failed:\n{log[-3000:]}")
+    return logs, time.perf_counter() - t0
+
+
+def dp_ranks(world, backend, reference, card, steps=10, device=None):
+    """Run `world` dp_worker processes (over NCCL each on its own card,
+    cuda:RANK; over Gloo all on `device`, default the first card) and hold
+    each rank's fp32 step against the one-process step over 16
+    (`reference`, from _dp_reference): loss and running statistics within
+    1e-5, each gradient within 1e-4 or GATE_FACTOR x its largest movement
+    over MOVEMENT_READINGS, where that is more (a rank adds each BN's sums
+    in another order; cpu_step_phase's step_floor rule), DP_LAUNCHES per
+    step. Returns the ranks' outputs."""
+    plain, _, movement, readings = reference
+    os.makedirs(DP_ROOT, exist_ok=True)
+    for f in os.listdir(DP_ROOT):
+        os.remove(os.path.join(DP_ROOT, f))
+    port = _free_port()
+    _, wall = _run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--dp-worker", str(rank), str(world),
+          str(port), DP_ROOT, backend,
+          f"cuda:{rank}" if backend == "nccl" else (device or "cuda:0"), str(steps)]
+         for rank in range(world)], f"dp ({backend})")
     outs = []
-    gate = {n: max(1e-4, 4 * v) for n, v in movement.items()}
+    gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
     for rank in range(world):
         r = torch.load(os.path.join(DP_ROOT, f"rank{rank}.pt"), weights_only=False)
         if r["launches"] != DP_LAUNCHES:
@@ -2646,9 +2718,10 @@ def dp_ranks(world, backend, reference, card, steps=10, device=None):
               f"one fp32 step against the one-process step over {BATCH}: loss off by "
               f"{loss_err:.3g} (1e-5), running stats by {stats_err:.3g} (1e-5), gradients: "
               f"nearest its gate {worst} at {rel:.3g} (gate {tol:.3g}), largest {largest[0]} "
-              f"at {largest[1]:.3g} (its gate {gate[largest[0]]:.3g}); the step's own "
-              f"movement under a 1e-7 weight change: median "
-              f"{np.median(list(movement.values())):.3g}, max {max(movement.values()):.3g} "
+              f"at {largest[1]:.3g} (its gate {gate[largest[0]]:.3g}); {worst}'s readings "
+              f"({_readings_of(readings, worst)}); the step's largest movement over them: "
+              f"median {np.median(list(movement.values())):.3g}, max "
+              f"{max(movement.values()):.3g} "
               f"| launches per step {r['launches']} | fp32 p50 of {steps} steps "
               f"{r['p50']:.3f} ms"
               + (" (a correctness run: Gloo stages each all-reduce through host memory)"
@@ -2660,7 +2733,7 @@ def dp_ranks(world, backend, reference, card, steps=10, device=None):
     return outs
 
 
-def dp_phase(bn, df, card):
+def dp_phase(bn, df, card, reference):
     """Data-parallel NestedUNet wDS (full width, 96x96, global batch 16):
     (a) a world of one process over NCCL (`--mesh data=1`'s path): one fp32
     step (augment none) against the non-distributed step from the same
@@ -2669,8 +2742,9 @@ def dp_phase(bn, df, card):
     not deterministic on the card), DP_LAUNCHES per step; then the step's
     p50 / p95 and busy share in fp32 and bf16 beside the plain step's
     (plain, mesh, mesh, plain); (b) two ranks on the one card over Gloo
-    (`dp_ranks`), each stepping on its 8 rows. Returns {precision:
-    launches} over every step driven here and by the ranks."""
+    (`dp_ranks`), each stepping on its 8 rows. `reference`: _dp_reference().
+    Returns {precision: launches} over every step driven here and by the
+    ranks."""
     import torch.distributed as dist
 
     from pytorch_nested_unet_tpu_torch.parallel import initialize_single_process, make_mesh
@@ -2678,8 +2752,7 @@ def dp_phase(bn, df, card):
     x, y = _dp_batch()
     batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
     gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
-    reference = _dp_reference()
-    plain, spread, _ = reference
+    plain, spread = reference[:2]
     floor_worst = max(spread, key=spread.get)
     floor = spread[floor_worst]
     totals = {"fp32": bn_want(0), "bf16": bn_want(0)}
@@ -2748,48 +2821,38 @@ DP_CLI_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs"
                            "dp_cli")
 
 
-def _dp_cli_launch(world, args, out_of_rank, device_of_rank):
+def _dp_cli_launch(world, args, out_of_rank, device_of_rank, gloo=False):
     """train.main as `world` processes with torchrun's variables (RANK,
     WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); returns their
-    outputs, raising if one fails."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    procs = []
-    try:
-        for rank in range(world):
-            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
-                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "pytorch_nested_unet_tpu_torch.train", *args,
-                 "--output_dir", out_of_rank(rank), "--device", device_of_rank(rank)],
-                env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"dp cli rank {rank} of {world} failed:\n{out[-3000:]}")
-    return outs
+    outputs, raising if one fails. `gloo`: each process joins a Gloo world
+    first (`--gloo-train`), so that ranks can share a card (train.main
+    takes NCCL for CUDA devices)."""
+    port = _free_port()
+    entry = ([os.path.abspath(__file__), "--gloo-train"] if gloo
+             else ["-m", "pytorch_nested_unet_tpu_torch.train"])
+    return _run_ranks(
+        [[sys.executable, *entry, *args, "--output_dir", out_of_rank(rank), "--device",
+          device_of_rank(rank)] for rank in range(world)], "cli",
+        envs=[dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)) for rank in range(world)],
+        cwd=os.path.dirname(os.path.abspath(__file__)))[0]
 
 
-def dp_cli(world, card, device="cuda"):
-    """The folder CLI data-parallel over `world` processes, as
-    tests/test_torch_multihost.py runs it on the CPU: a narrow UNet
-    (nb_filter 4..64, 32x32, batch 8, fp32, Adam, augment full) on 24
-    seeded PNG pairs, `--mesh data=N` for 2 epochs with each rank writing
-    to its own --output_dir (no shared filesystem), then `--resume` to a
-    3rd; then one process with `--mesh data=1` on the same schedule
-    (`--resume` re-seeds the shuffle). Holds the two log.csv's to
-    the JAX multi-host test's bounds (loss rtol 2e-4 / atol 2e-5, IoU atol
-    0.02), checks that rank 0 alone wrote the capsule and that every rank
-    resumed from epoch 1. `device`: "cuda" gives rank r cuda:r (NCCL);
-    "cpu" runs the ranks on the CPU over Gloo."""
+def _rank0_capsule(world, out_of_rank, what):
+    """Raise unless rank 0 alone wrote the run's capsule; returns its dir."""
+    capsule = ("config.yml", "log.csv", "model.pth", "last.pth")
+    run0 = os.path.join(out_of_rank(0), "run")
+    written = [r for r in range(1, world) for f in capsule
+               if os.path.exists(os.path.join(out_of_rank(r), "run", f))]
+    if not all(os.path.isfile(os.path.join(run0, f)) for f in capsule) or written:
+        raise AssertionError(f"{what}: rank 0's capsule {os.listdir(run0)}, other ranks wrote "
+                             f"{written}")
+    return run0
+
+
+def _dp_cli_set():
+    """24 seeded 32x32 PNG pairs under DP_CLI_ROOT/inputs, written anew;
+    returns the narrow UNet's train arguments on them."""
     import shutil
 
     from pytorch_nested_unet_tpu_torch.data import image_io
@@ -2808,10 +2871,30 @@ def dp_cli(world, card, device="cuda"):
                                         f"im{i:02d}.png"), img)
         image_io.write_png(os.path.join(DP_CLI_ROOT, "inputs", "synth", "masks", "0",
                                         f"im{i:02d}.png"), mask)
-    args = ["--data_dir", os.path.join(DP_CLI_ROOT, "inputs"), "--dataset", "synth",
+    return ["--data_dir", os.path.join(DP_CLI_ROOT, "inputs"), "--dataset", "synth",
             "--arch", "UNet", "--arch_kwargs", '{"nb_filter": [4, 8, 16, 32, 64]}', "--name",
             "run", "--input_w", "32", "--input_h", "32", "--batch_size", "8", "--lr", "1e-2",
             "--precision", "fp32"]
+
+
+def _read_log(run_dir):
+    with open(os.path.join(run_dir, "log.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def dp_cli(world, card, device="cuda"):
+    """The folder CLI data-parallel over `world` processes, as
+    tests/test_torch_multihost.py runs it on the CPU: a narrow UNet
+    (nb_filter 4..64, 32x32, batch 8, fp32, Adam, augment full) on 24
+    seeded PNG pairs, `--mesh data=N` for 2 epochs with each rank writing
+    to its own --output_dir (no shared filesystem), then `--resume` to a
+    3rd; then one process with `--mesh data=1` on the same schedule
+    (`--resume` re-seeds the shuffle). Holds the two log.csv's to
+    the JAX multi-host test's bounds (loss rtol 2e-4 / atol 2e-5, IoU atol
+    0.02), checks that rank 0 alone wrote the capsule and that every rank
+    resumed from epoch 1. `device`: "cuda" gives rank r cuda:r (NCCL);
+    "cpu" runs the ranks on the CPU over Gloo."""
+    args = _dp_cli_set()
     outs_of = lambda r: os.path.join(DP_CLI_ROOT, f"out{r}")  # noqa: E731
     dev_of = (lambda r: f"cuda:{r}") if device == "cuda" else (lambda r: "cpu")  # noqa: E731
     t0 = time.perf_counter()
@@ -2822,13 +2905,7 @@ def dp_cli(world, card, device="cuda"):
             f"mesh: {{'data': {world}}}" not in outs[0]:
         raise AssertionError(f"dp cli: rank 0 printed no multi-host / mesh line:\n"
                              f"{outs[0][-2000:]}")
-    capsule = ("config.yml", "log.csv", "model.pth", "last.pth")
-    run0 = os.path.join(outs_of(0), "run")
-    written = [r for r in range(1, world) for f in capsule
-               if os.path.exists(os.path.join(outs_of(r), "run", f))]
-    if not all(os.path.isfile(os.path.join(run0, f)) for f in capsule) or written:
-        raise AssertionError(f"dp cli: rank 0's capsule {os.listdir(run0)}, other ranks wrote "
-                             f"{written}")
+    run0 = _rank0_capsule(world, outs_of, "dp cli")
     outs = _dp_cli_launch(world, args + ["--mesh", f"data={world}", "--epochs", "3",
                                          "--resume", "true"], outs_of, dev_of)
     if not all("resumed from epoch 1" in out for out in outs):
@@ -2844,11 +2921,7 @@ def dp_cli(world, card, device="cuda"):
         if one.returncode != 0:
             raise AssertionError(f"dp cli one process failed:\n{one.stdout[-3000:]}")
 
-    def read_log(run_dir):
-        with open(os.path.join(run_dir, "log.csv")) as f:
-            return list(csv.DictReader(f))
-
-    a, b = read_log(run0), read_log(os.path.join(DP_CLI_ROOT, "one", "run"))
+    a, b = _read_log(run0), _read_log(os.path.join(DP_CLI_ROOT, "one", "run"))
     worst = {}
     for col, rtol, atol in (("loss", 2e-4, 2e-5), ("val_loss", 2e-4, 2e-5), ("iou", 0, 0.02),
                             ("val_iou", 0, 0.02)):
@@ -2869,7 +2942,11 @@ def dp_cards(world):
     its 16/N rows held against the one-process step over 16 on the first
     card (dp_ranks' gates), then each rank's bf16 step p50 at 16 rows a
     rank (global 16N) beside the one-card bf16 step's at 16; then the
-    folder CLI over the N cards (`dp_cli`)."""
+    folder CLI over the N cards (`dp_cli`); with N >= 4 then NestedUNet wDS
+    under data=2,x=2 (`spatial_ranks`; its gradient gates also read the
+    N-way data split's own deviation, as one more MOVEMENT_READINGS entry:
+    both add every BN sum in N partial sums) and `train --mesh data=2,x=2`
+    (`spatial_cli`) over NCCL."""
     from pytorch_nested_unet_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2887,8 +2964,224 @@ def dp_cards(world):
     del m, step
     print(f"dp one card, bf16 step at {BATCH}: p50 {p50:.3f} ms (p95 {p95:.3f}) | card: {card}",
           flush=True)
-    dp_ranks(world, "nccl", reference, card)
+    dp_outs = dp_ranks(world, "nccl", reference, card)
     dp_cli(world, card)
+    if world >= 4:
+        split = {n: max(_dp_rel(r["result"], reference[0])[n] for r in dp_outs)
+                 for n in reference[2]}
+        run = "NestedUNet data=2,x=2"
+        spatial_ranks([run], "nccl", {run: _with_reading(reference, f"dp data={world}", split)},
+                      card)
+        spatial_cli(4, "data=2,x=2", card, gloo=False)
+    return 0
+
+
+# Spatial partitioning (the 'x'/'y' mesh axes): (arch, --mesh spec, ranks,
+# steps, launches per rank per step). NestedUNet wDS's 30 BN layers through
+# K1's sums-only mode, bn_finish, K2 and K3 and its 10 K4 nodes; UNet's 18
+# and 4. On one card over Gloo (NCCL refuses two ranks on one device);
+# `--dp-cards 4` adds data=2,x=2 over NCCL, a card a rank. Each gradient is
+# held as dp_ranks holds it (GATE_FACTOR x its largest movement over
+# MOVEMENT_READINGS, and under `--dp-cards` the data split's own deviation):
+# a band's BN sums and the gathered heads' sums add in another order, as a
+# data split's do. data=2,x=2 over NCCL exceeds this gate by 4% at one
+# level-3 gradient (ROADMAP.md queue 3, F3).
+SPATIAL_RUNS = {
+    "NestedUNet x=2": ("NestedUNet", "data=1,x=2", 2, 3, DP_LAUNCHES),
+    "UNet x=2,y=2": ("UNet", "x=2,y=2", 4, 1, {**bn_want(18, 18), "multipart_conv3x3": 4}),
+    "NestedUNet data=2,x=2": ("NestedUNet", "data=2,x=2", 4, 3, DP_LAUNCHES),
+}
+SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
+                            "spatial")
+
+
+def _spatial_slug(run):
+    return run.replace(" ", "_").replace(",", "_")
+
+
+def spatial_worker(rank, world, port, out_dir, backend, device, runs):
+    """One rank of one or more spatial runs (SPATIAL_RUNS' entries named in
+    `runs`, ';'-joined, in order; a run of fewer ranks than the world takes
+    the first ranks): the fp32 step of the full-width arch (augment none,
+    TF32 off) on this rank's band of its rows of the global batch of 16 at
+    96x96, its launches and halo statistics, then the rest of the run's
+    steps timed. Written to <run>_rank<rank>.pt."""
+    import torch.distributed as dist
+
+    from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
+    from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
+    from pytorch_nested_unet_tpu_torch.parallel import (batch_sharding, halo,
+                                                        initialize_distributed, make_mesh,
+                                                        parse_mesh_spec)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend=backend, device=dev, world_size=world, rank=rank,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        for run in runs.split(";"):
+            arch, spec, ranks, steps, _ = SPATIAL_RUNS[run]
+            # every rank creates every group (new_group is collective)
+            group = dist.group.WORLD if ranks == world else dist.new_group(list(range(ranks)))
+            if rank >= ranks:
+                continue
+            names, sizes = parse_mesh_spec(spec)
+            mesh = make_mesh(sizes, names, group=group)
+            x, y = _dp_batch()
+            rows = batch_sharding(mesh, BATCH)
+            batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
+            m, step = _dp_build(mesh, device=dev, arch=arch)
+            reset_counts(bn, df)
+            halo.reset_stats()
+            result = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
+            torch.cuda.synchronize()
+            first, stats = launch_counts(bn, df), dict(halo.STATS)
+            halo.reset_stats()
+            times = []
+            for _ in range(steps - 1):
+                t0 = time.perf_counter()
+                step(*batch, torch.Generator(dev).manual_seed(0))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            # the first step also pays the collectives' set-up (NCCL creates
+            # its communicators at their first use)
+            steady = {k: v / len(times) for k, v in halo.STATS.items()} if times else None
+            out = {"result": result, "launches": first, "halo": stats, "steady": steady,
+                   "backend": dist.get_backend(), "total": launch_counts(bn, df),
+                   "p50": float(np.median(times)) if times else None}
+            torch.save(out, os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"))
+            del m, step
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spatial_ranks(runs, backend, references, card):
+    """Run SPATIAL_RUNS' `runs` in one set of spatial_worker processes (as
+    many as the largest run needs; over Gloo all on the first card, over
+    NCCL rank r on cuda:r) and hold each rank's fp32 step against the
+    one-process step over the global batch (`references[run]`, from
+    _dp_reference): loss and running statistics within 1e-5, each gradient
+    within 1e-4 or GATE_FACTOR x its largest movement over
+    MOVEMENT_READINGS, the run's launches per step (SPATIAL_RUNS). Prints each rank's
+    halo bytes and host ms in halo exchange and gather_bands per step, and
+    its step p50. Returns {run: the ranks' outputs}."""
+    world = max(SPATIAL_RUNS[run][2] for run in runs)
+    out_dir = os.path.join(SPATIAL_ROOT, _spatial_slug(runs[0]) if len(runs) == 1 else "all")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    port = _free_port()
+    _, wall = _run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--spatial-worker", str(rank), str(world),
+          str(port), out_dir, backend, f"cuda:{rank}" if backend == "nccl" else "cuda:0",
+          ";".join(runs)] for rank in range(world)], f"spatial ({backend})")
+    results = {}
+    for run in runs:
+        arch, spec, ranks, steps, want = SPATIAL_RUNS[run]
+        plain, _, movement, readings = references[run]
+        gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
+        results[run] = []
+        for rank in range(ranks):
+            r = torch.load(os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"),
+                           weights_only=False)
+            if r["launches"] != want:
+                raise AssertionError(f"spatial {run} rank {rank}: launches {r['launches']} per "
+                                     f"step, expected {want}")
+            loss_err, stats_err, worst, rel, tol = _dp_compare(
+                r["result"], plain, 1e-5, 1e-5, gate, f"spatial {run} rank {rank}")
+            h, st = r["halo"], r["steady"]
+            p50 = f"{r['p50']:.3f} ms" if r["p50"] is not None else "not measured (1 step)"
+            later = (f" ({st['halo_s'] * 1e3:.1f} a later step)" if st else "",
+                     f" ({st['gather_s'] * 1e3:.1f} a later step)" if st else "")
+            print(f"spatial {run} rank {rank} of {ranks} ({r['backend']}, {arch} full width, "
+                  f"global batch {BATCH} at {SIZE}x{SIZE}, fp32), one step against the "
+                  f"one-process step: loss off by {loss_err:.3g} (1e-5), running stats by "
+                  f"{stats_err:.3g} (1e-5), gradient nearest its gate {worst} at {rel:.3g} (gate "
+                  f"{tol:.3g}: 1e-4 or {GATE_FACTOR}x its largest reading; readings "
+                  f"{_readings_of(readings, worst)}) | "
+                  f"launches per step {r['launches']} | per step: halo "
+                  f"{h['halo_bytes'] / 1e6:.3f} MB sent, {h['halo_s'] * 1e3:.1f} host ms in "
+                  f"halo_exchange the first step{later[0]}, gather_bands "
+                  f"{h['gather_bytes'] / 1e6:.3f} MB, {h['gather_s'] * 1e3:.1f} host ms"
+                  f"{later[1]} | step p50 {p50} of {steps - 1} after the first"
+                  + (" (a correctness run: Gloo stages every halo through host memory)"
+                     if r["backend"] == "gloo" else "")
+                  + f" | wall of the {world} ranks' runs {wall:.1f} s | card: {card}", flush=True)
+            results[run].append(r)
+    return results
+
+
+def spatial_cli(world, spec, card, gloo):
+    """`train.main --mesh <spec>` over `world` processes on the narrow UNet
+    (dp_cli's folder and arguments) for 1 epoch, then `--mesh data=1` in one
+    process: rank 0 alone writes the capsule and the two log.csv's agree
+    within the JAX CLI test's bounds (loss 3e-3, IoU 3e-2:
+    tests/test_train_cli_round2.py). `gloo`: every rank on the first card
+    over Gloo; else rank r on cuda:r over NCCL."""
+    args = _dp_cli_set() + ["--epochs", "1"]
+    root = os.path.join(DP_CLI_ROOT, "spatial")
+    outs_of = lambda r: os.path.join(root, f"out{r}")  # noqa: E731
+    dev_of = (lambda r: "cuda:0" if gloo else f"cuda:{r}")  # noqa: E731
+    t0 = time.perf_counter()
+    outs = _dp_cli_launch(world, args + ["--mesh", spec], outs_of, dev_of, gloo)
+    wall = time.perf_counter() - t0
+    if "(spatial H/W partitioning on)" not in outs[0]:
+        raise AssertionError(f"spatial cli: rank 0 printed no spatial mesh line:\n"
+                             f"{outs[0][-2000:]}")
+    run0 = _rank0_capsule(world, outs_of, "spatial cli")
+    from pytorch_nested_unet_tpu_torch import train
+
+    # the one-process run in this process: no second start-up
+    train.main(args + ["--mesh", "data=1", "--output_dir", os.path.join(root, "one"),
+                       "--device", "cuda:0"])
+    a, b = _read_log(run0), _read_log(os.path.join(root, "one", "run"))
+    worst = {}
+    for col, rtol, atol in (("loss", 3e-3, 3e-3), ("val_loss", 3e-3, 3e-3), ("iou", 0, 3e-2),
+                            ("val_iou", 0, 3e-2)):
+        x, y = (np.array([float(r[col]) for r in t]) for t in (a, b))
+        if len(x) != 1 or len(y) != 1 or not np.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"spatial cli: {col} under --mesh {spec} {x} vs one process {y}")
+        worst[col] = float(np.abs(x - y).max())
+    print(f"spatial cli: train.main --mesh {spec} over {world} processes "
+          f"({'Gloo, one card' if gloo else 'NCCL, a card each'}), narrow UNet 32x32 batch 8 "
+          f"fp32, 1 epoch in {wall:.1f} s of wall (rank 0 alone wrote the capsule); log.csv "
+          f"against --mesh data=1 in one process, max abs diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" | card: {card}", flush=True)
+
+
+def spatial_phase(bn, df, card, reference):
+    """Spatial partitioning on the one card over Gloo: UNet under x=2,y=2 (4
+    ranks, 1 step, the corners) and NestedUNet wDS under data=1,x=2 (2 of
+    the same ranks, 3 steps; `reference`: its one-process step from
+    _dp_reference), each rank against the one-process step
+    (`spatial_ranks`), then
+    `train --mesh x=2` over 2 processes (`spatial_cli`). Returns {"fp32":
+    launches} of every rank's steps."""
+    t0 = time.perf_counter()
+    totals = {**bn_want(0), "multipart_conv3x3": 0}
+    # the 4-rank run first: the 2-rank run's group is then made by all 4
+    references = {"UNet x=2,y=2": _dp_reference(arch="UNet"), "NestedUNet x=2": reference}
+    for outs in spatial_ranks(list(references), "gloo", references, card).values():
+        for r in outs:
+            for k, v in r["total"].items():
+                totals[k] += v
+    spatial_cli(2, "x=2", card, gloo=True)
+    print(f"spatial phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"fp32": totals}
+
+
+def gloo_train(argv):
+    """`python3 chip_smoke.py --gloo-train ARGS`: train.main(ARGS) in a Gloo
+    world joined from torchrun's variables first (train.main then keeps it),
+    so several ranks can share one card."""
+    from pytorch_nested_unet_tpu_torch import train
+    from pytorch_nested_unet_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(backend="gloo")
+    train.main(argv)
     return 0
 
 
@@ -2902,6 +3195,11 @@ def main():
         return dp_worker(int(rank), int(world), int(port), out_dir, backend, device, int(steps))
     if sys.argv[1:2] == ["--dp-cards"]:
         return dp_cards(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--spatial-worker"]:
+        rank, world, port, out_dir, backend, device, run = sys.argv[2:9]
+        return spatial_worker(int(rank), int(world), int(port), out_dir, backend, device, run)
+    if sys.argv[1:2] == ["--gloo-train"]:
+        return gloo_train(sys.argv[2:])
     from pytorch_nested_unet_tpu_torch.ops import _build
     from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
     from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
@@ -2909,6 +3207,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
@@ -2933,51 +3232,72 @@ def main():
     if not f32_fns or any(hmma[fn] for fn in f32_fns):
         raise AssertionError(f"K4 fp32: FP32-core kernels missing or with HMMA: {hmma}")
 
-    k4 = kernel_phase(df, dev)
-    k4_host_us(df, dev)
-    runs = [path_phase(bn, df, card)]
-    bn_kernels_per_call(bn, dev)
-    bnk = bn_kernel_phase(bn, dev)
-    finish = bn_finish_phase(bn, dev)
-    k4_backward_phase(df, dev)
-    runs.append(train_phase(bn, df, card))
-    cpu_step_phase()
-    runs.append(path_phase(bn, df, card, "UNetRNN", False, k4_per_batch=0))
-    runs.append(train_phase(bn, df, card, "UNetRNN", False, UNETRNN_BN_PER_STEP, 0))
+    walls = {}
+
+    def timed(fn, *args, **kwargs):
+        """fn(*args, **kwargs), its wall added to `walls` under its name and
+        its first string argument other than the card's line (the arch)."""
+        label = " ".join([fn.__name__] + [a for a in args if isinstance(a, str) and a != card][:1])
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+
+    k4 = timed(kernel_phase, df, dev)
+    timed(k4_host_us, df, dev)
+    runs = [timed(path_phase, bn, df, card)]
+    timed(bn_kernels_per_call, bn, dev)
+    bnk = timed(bn_kernel_phase, bn, dev)
+    finish = timed(bn_finish_phase, bn, dev)
+    timed(k4_backward_phase, df, dev)
+    runs.append(timed(train_phase, bn, df, card))
+    timed(cpu_step_phase)
+    runs.append(timed(path_phase, bn, df, card, "UNetRNN", False, k4_per_batch=0))
+    runs.append(timed(train_phase, bn, df, card, "UNetRNN", False, UNETRNN_BN_PER_STEP, 0))
     unetrnn_train = runs[-1]
-    runs.append({"bf16": arch_sweep_phase(bn, df, card)})
-    cpu_step_phase("UNetRNN", False, zero_bn_fed_biases=True, conv_gap=True)
-    runs.append(path_phase(bn, df, card, "VGG16RNN", False, k4_per_batch=0))
-    runs.append(train_phase(bn, df, card, "VGG16RNN", False, VGG16RNN_BN_PER_STEP, 0))
+    runs.append({"bf16": timed(arch_sweep_phase, bn, df, card)})
+    timed(cpu_step_phase, "UNetRNN", False, zero_bn_fed_biases=True, conv_gap=True)
+    runs.append(timed(path_phase, bn, df, card, "VGG16RNN", False, k4_per_batch=0))
+    runs.append(timed(train_phase, bn, df, card, "VGG16RNN", False, VGG16RNN_BN_PER_STEP, 0))
     vgg_train = runs[-1]
-    cpu_step_phase("VGG16RNN", False, zero_bn_fed_biases=True, conv_gap=True, card_convs=True)
-    runs.append(path_phase(bn, df, card, "ResNet50RNN", False, k4_per_batch=0))
-    runs.append(train_phase(bn, df, card, "ResNet50RNN", False, RESNET_RNN_BN_PER_STEP, 0))
-    cli = cli_phase(bn, df, card)
+    timed(cpu_step_phase, "VGG16RNN", False, zero_bn_fed_biases=True, conv_gap=True,
+          card_convs=True)
+    runs.append(timed(path_phase, bn, df, card, "ResNet50RNN", False, k4_per_batch=0))
+    runs.append(timed(train_phase, bn, df, card, "ResNet50RNN", False, RESNET_RNN_BN_PER_STEP,
+                      0))
+    cli = timed(cli_phase, bn, df, card)
     runs.append({"bf16": cli})
-    export = export_phase(bn, df, card)
+    export = timed(export_phase, bn, df, card)
     runs.append(export)
-    runs.append({"bf16": pretrained_phase(bn, df, card)})
-    runs.append(path_phase(bn, df, card, "AttU_Net", False, k4_per_batch=0))
-    runs.append(train_phase(bn, df, card, "AttU_Net", False, 0, 0))
-    runs.append({"bf16": canet_cli_phase(bn, df, card)})
-    runs.append(path_phase(bn, df, card, "UNetRNNPSP", False, k4_per_batch=0))
-    runs.append(train_phase(bn, df, card, "UNetRNNPSP", False, UNETRNN_BN_PER_STEP, 0))
-    cpu_step_phase("UNetRNNPSP", False, zero_bn_fed_biases=True, conv_gap=True, step_floor=True)
-    runs.append({"fp32": refine_phase(bn, df, card)})
-    runs.append({"bf16": refine_cli_phase(bn, df, card)})
-    remat = remat_phase(bn, df, card)
+    runs.append({"bf16": timed(pretrained_phase, bn, df, card)})
+    runs.append(timed(path_phase, bn, df, card, "AttU_Net", False, k4_per_batch=0))
+    runs.append(timed(train_phase, bn, df, card, "AttU_Net", False, 0, 0))
+    runs.append({"bf16": timed(canet_cli_phase, bn, df, card)})
+    runs.append(timed(path_phase, bn, df, card, "UNetRNNPSP", False, k4_per_batch=0))
+    runs.append(timed(train_phase, bn, df, card, "UNetRNNPSP", False, UNETRNN_BN_PER_STEP, 0))
+    timed(cpu_step_phase, "UNetRNNPSP", False, zero_bn_fed_biases=True, conv_gap=True,
+          step_floor=True)
+    runs.append({"fp32": timed(refine_phase, bn, df, card)})
+    runs.append({"bf16": timed(refine_cli_phase, bn, df, card)})
+    remat = timed(remat_phase, bn, df, card)
     runs.append({"fp32": {k: sum(c[k] for c in remat.values()) for k in launch_counts(bn, df)}})
-    dp = dp_phase(bn, df, card)
+    reference = timed(_dp_reference)
+    dp = timed(dp_phase, bn, df, card, reference)
     runs.append(dp)
-    new_arch_counts()
+    spatial = timed(spatial_phase, bn, df, card, reference)
+    runs.append(spatial)
+    timed(new_arch_counts)
     for arch, (_, _, gflop) in NEW_ARCHS.items():
-        runs.append(path_phase(bn, df, card, arch, False, k4_per_batch=0, gflop=gflop))
-        runs.append(train_phase(bn, df, card, arch, False, 0, 0))
-    cpu_step_phase("DoubleUnet", False, zero_bn_fed_biases=True, conv_gap=True, plain_bn=True)
-    cpu_step_phase("DeepLab", False, conv_gap=True, step_floor=True, plain_bn=True,
-                   no_dropout=True)
-    runs.append({"bf16": deeplab_cli_phase(bn, df, card)})
+        runs.append(timed(path_phase, bn, df, card, arch, False, k4_per_batch=0, gflop=gflop))
+        runs.append(timed(train_phase, bn, df, card, arch, False, 0, 0))
+    timed(cpu_step_phase, "DoubleUnet", False, zero_bn_fed_biases=True, conv_gap=True,
+          plain_bn=True)
+    timed(cpu_step_phase, "DeepLab", False, conv_gap=True, step_floor=True, plain_bn=True,
+          no_dropout=True)
+    runs.append({"bf16": timed(deeplab_cli_phase, bn, df, card)})
+    print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
     # launches of each kernel per dtype over every path driven above
     launches = {name: {k: sum(r[name][k] for r in runs if name in r)
                        for k in launch_counts(bn, df)} for name in DTYPE_NAME.values()}
@@ -2995,6 +3315,7 @@ def main():
         if dtype == torch.float32:  # per fp32 step of remat_phase, in each --remat mode
             entry["remat_step"] = {mode: c["multipart_conv3x3"] for mode, c in remat.items()}
         entry["dp"] = {"launches": dp[name]["multipart_conv3x3"]}
+        entry["spatial"] = {"launches": spatial.get(name, {}).get("multipart_conv3x3", 0)}
         entry["artifact"] = {"launches": export["artifact"][name]}
         if dtype == torch.bfloat16:  # the CLI path runs bf16, at the 10 nodes' shapes
             entry["cli"] = {"launches": cli["multipart_conv3x3"],
@@ -3022,6 +3343,7 @@ def main():
         if dtype == torch.bfloat16:  # the CLI path: NestedUNet's training-step shapes
             entry["cli"] = {"launches": cli[fn], **{key: agg[key] for key in timed}}
         entry["dp"] = {"launches": dp[DTYPE_NAME[dtype]][fn]}
+        entry["spatial"] = {"launches": spatial.get(DTYPE_NAME[dtype], {}).get(fn, 0)}
         kernels.append(entry)
     for dtype, agg in finish.items():
         name = DTYPE_NAME[dtype]
@@ -3029,7 +3351,8 @@ def main():
             "name": f"bn_finish[{name}]", "route": "cuda",
             "source": "pytorch_nested_unet_tpu_torch/ops/csrc/fused_bn.cu",
             "replaces": "pytorch_nested_unet_tpu/ops/fused_bn.py:145",
-            "launches": launches[name]["bn_finish"], **{key: agg[key] for key in timed}})
+            "launches": launches[name]["bn_finish"], **{key: agg[key] for key in timed},
+            "spatial": {"launches": spatial.get(name, {}).get("bn_finish", 0)}})
     print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 NestedUNet "
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
@@ -3042,14 +3365,17 @@ def main():
           "epoch included, are in the totals); "
           "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
           "and policy; dp: launches in dp_phase's data-parallel steps, world 1 over NCCL and "
-          "2 ranks over Gloo; bn_finish: its 30 instances of one batch-16 NestedUNet step, "
+          "2 ranks over Gloo; spatial: launches in spatial_phase's steps on bands (NestedUNet "
+          "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; fp32); "
+          "bn_finish: its 30 instances of one batch-16 NestedUNet step, "
           "on float32 sums in either dtype, launched only by data-parallel steps); "
           "max_abs_err: over the path's own shapes; launches: over every path "
           "driven (NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN, AttU_Net and UNetRNNPSP "
           "serving and training, the arch sweep, the CLIs, the serving artifacts and "
           "train --profile, --pretrained_backbone, "
           "train_canet, the Refiner (none), train_isic_ca with val/infer --refine, the "
-          "--remat steps, the data-parallel steps, DoubleUnet and DeepLab serving and training "
+          "--remat steps, the data-parallel and spatial steps, DoubleUnet and DeepLab "
+          "serving and training "
           "and the DeepLab CLIs (none)); card:")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,15 @@ class MultipartConv3x3(nn.Module):
     once and made again only when the weights change (a step, a load, a move
     to another device). Under `torch.export` that copy, made before the
     trace, is what the exported program holds.
+
+    `halo` = (rows, cols), 0 or 1 each, set on the 'x'/'y' mesh axes
+    (`parallel.mesh.spatial_partition`): the parts carry that many of their
+    neighbours' rows (and columns) beyond the band, the kernel runs on them
+    with its padding of 1, and the output's first and last `rows` rows and
+    `cols` columns are dropped.
     """
+
+    halo = (0, 0)
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None):
@@ -61,8 +69,13 @@ class MultipartConv3x3(nn.Module):
         parts = tuple(p.to(dt) for p in parts)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (self.weight, self.bias, *parts)):
-            return conv3x3_parts(parts, self.weight, self.bias)
-        return multipart_conv3x3(parts, self.packed_weight(dt), self.bias)
+            y = conv3x3_parts(parts, self.weight, self.bias)
+        else:
+            y = multipart_conv3x3(parts, self.packed_weight(dt), self.bias)
+        rows, cols = self.halo
+        if rows or cols:
+            y = y[:, rows:y.shape[1] - rows, cols:y.shape[2] - cols].contiguous()
+        return y
 
 
 REMAT_MODES = ("none", "full", "policy")

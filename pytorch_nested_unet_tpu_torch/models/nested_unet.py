@@ -13,6 +13,10 @@ recomputes the BN + ReLU elementwise math (see blocks.VGGBlock). Per train
 step K1 launches 30 times under "none" and "policy" and 60 under "full"
 (its recompute runs K1 again, without the running statistics), K2 and K3
 30 times under each, and K4 10 times, 20 under "full".
+
+Under the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`; remat
+"none" only) it runs on this rank's band: its convs, K4 and upsamples take
+halos, its pools stay local.
 """
 
 from typing import Optional, Sequence
@@ -23,7 +27,7 @@ import torch.nn as nn
 from ..ops.init import init_convs_
 from ..ops.layers import TorchConv
 from ..ops.pool import max_pool2x2
-from ..ops.resize import upsample2x
+from ..ops.resize import Upsample2x
 from .blocks import VGGBlock
 
 
@@ -48,6 +52,7 @@ class NestedUNet(nn.Module):
         nb = tuple(int(c) for c in nb_filter)
         self.deep_supervision = deep_supervision
         self.dtype = dtype
+        self.up = Upsample2x()
         self.remat = remat_mode(remat)
         kw = {"dtype": dtype, "remat": self.remat}
         # Registration order follows the reference module's __init__.
@@ -66,7 +71,7 @@ class NestedUNet(nn.Module):
     def forward(self, x: torch.Tensor):
         if self.dtype is not None:
             x = x.to(self.dtype)
-        up = upsample2x
+        up = self.up
         x0_0 = self.conv0_0(x)
         x1_0 = self.conv1_0(max_pool2x2(x0_0))
         x0_1 = self.conv0_1((x0_0, up(x1_0)))

@@ -366,7 +366,10 @@ class BNReLUTrain(torch.autograd.Function):
     With a process `group`, the statistics are those of every rank's rows
     (equal row counts): K1's sums all-reduced, then `bn_finish` over the
     global row count; in backward K2's output all-reduced for K3, while
-    dgamma and dbeta stay this rank's own.
+    dgamma and dbeta stay this rank's own. Under the 'x'/'y' mesh axes the
+    group is the whole world and a rank's rows are its band's pixels; the
+    train and eval steps assert that every rank holds an equal band
+    (`training.loop`), so the global count is rows * world size.
     """
 
     @staticmethod

@@ -33,7 +33,15 @@ def _pair(v: IntPair) -> Tuple[int, int]:
 class TorchConv(nn.Module):
     """conv2d with symmetric padding, stride, dilation and groups; the weight
     is [out, in / groups, kh, kw], the bias [out] (absent when `use_bias` is
-    False)."""
+    False).
+
+    `halo` = (rows, cols): how many rows above and below and columns left
+    and right the input carries beyond the output's band. On an axis with a
+    halo the conv runs with no padding; the halo's rows are the image's or
+    zeros past its edge. (0, 0), the default, is a whole image; the 'x'/'y'
+    mesh axes set it (`parallel.mesh.spatial_partition`)."""
+
+    halo = (0, 0)
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
                  padding: IntPair = 0, dtype: Optional[torch.dtype] = None,
@@ -54,8 +62,10 @@ class TorchConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        rows, cols = self.halo
+        padding = (0 if rows else self.padding[0], 0 if cols else self.padding[1])
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), stride=self.stride,
-                     padding=self.padding, dilation=self.dilation, groups=self.groups)
+                     padding=padding, dilation=self.dilation, groups=self.groups)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dt)

@@ -7,8 +7,11 @@ package writes that as two dense contractions for the TPU's matrix unit; here
 it is the operator itself, run on the channels_last view of the NHWC tensor.
 """
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from .pool import adaptive_avg_pool
@@ -46,6 +49,69 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
 def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """2x bilinear upsample, the decoder's feed (reference archs_backup.py:93)."""
     return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners)
+
+
+@functools.lru_cache(maxsize=64)  # a few band geometries a model; no copy per call
+def _band_taps(n: int, n0: int, full: int, halo: int, device):
+    """For the 2n output positions [2*n0, 2*(n0 + n)) of a 2x align-corners
+    resize of a `full`-long axis: the two source indices of each, local to a
+    band of n positions from n0 with `halo` more on each side, and the
+    weight of the second. Positions and weights as F.interpolate takes them:
+    src = i * (full - 1) / (2 * full - 1) in float32."""
+    scale = np.float32((full - 1) / (2 * full - 1)) if full > 1 else np.float32(0)
+    src = np.arange(2 * n0, 2 * (n0 + n), dtype=np.float32) * scale
+    i0 = np.floor(src).astype(np.int64)
+    lam = (src - i0).astype(np.float32)
+    i1 = np.minimum(i0 + 1, full - 1)
+    local0, local1 = i0 - n0 + halo, i1 - n0 + halo
+    if local0.min() < 0 or local1.max() >= n + 2 * halo:
+        raise ValueError(f"upsample2x_band: a band of {n} at {n0} of {full} needs a wider "
+                         f"halo than {halo}")
+    return (torch.from_numpy(local0).to(device), torch.from_numpy(local1).to(device),
+            torch.from_numpy(lam).to(device))
+
+
+def upsample2x_band(x: torch.Tensor, h0: int, full_h: int, w0: int, full_w: int,
+                    halo_rows: int = 0, halo_cols: int = 0) -> torch.Tensor:
+    """The band [2*h0, 2*(h0 + h)) x [2*w0, 2*(w0 + w)) of `upsample2x` of a
+    whole (B, full_h, full_w, C) map, from its band (B, h, w, C) given with
+    `halo_rows` rows of its neighbours above and below and `halo_cols`
+    columns left and right (zeros past the map's edge, which no output reads).
+    Align-corners positions are global: output row i reads source position
+    i * (full_h - 1) / (2 * full_h - 1) of the whole map, within half a row of
+    i / 2, so a halo of 1 suffices. Computed in float32, cast to x's dtype;
+    the result is NHWC-contiguous."""
+    y = x.to(torch.float32)
+    for dim, n0, full, halo in ((1, h0, full_h, halo_rows), (2, w0, full_w, halo_cols)):
+        n = y.shape[dim] - 2 * halo
+        i0, i1, lam = _band_taps(n, n0, full, halo, x.device)
+        shape = [1, 1, 1, 1]
+        shape[dim] = -1
+        lam = lam.reshape(shape)
+        a, b = y.index_select(dim, i0), y.index_select(dim, i1)
+        y = a + (b - a) * lam
+    return y.to(x.dtype).contiguous()
+
+
+class Upsample2x(nn.Module):
+    """`upsample2x` (align corners) as a model's module, so that it can run
+    on bands. `band` = ((i, nx), (j, ny)): this band's index and the band
+    count on H and on W; `halo` = (rows, cols): how many neighbour rows and
+    columns the input carries beyond the band. Both are set on the 'x'/'y'
+    mesh axes (`parallel.mesh.spatial_partition`); the output is then the
+    band's rows and columns of the whole map's upsample
+    (`upsample2x_band`)."""
+
+    band = ((0, 1), (0, 1))
+    halo = (0, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.band == ((0, 1), (0, 1)):
+            return upsample2x(x)
+        (i, nx), (j, ny) = self.band
+        rows, cols = self.halo
+        h, w = x.shape[1] - 2 * rows, x.shape[2] - 2 * cols
+        return upsample2x_band(x, i * h, nx * h, j * w, ny * w, rows, cols)
 
 
 def resize_area(x: torch.Tensor, out_hw) -> torch.Tensor:

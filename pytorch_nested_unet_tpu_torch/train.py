@@ -57,10 +57,18 @@ the metrics are the global batch's, the gradients are averaged, and only rank
 cuda:LOCAL_RANK (a bare `--device cuda`), the backend NCCL (Gloo for the
 CPU). Without --mesh a multi-process run gets a 'data' mesh over all ranks;
 `--mesh data=1` in one process runs the same collective path over a world of
-one. The JAX CLI's 'x', 'y' and 'model' mesh axes and --spatial_partition
-are not ported (ROADMAP.md queue 1, A11b and A11c): the CLI exits with a
-message when given them. Its --fused_bn(_mode) (the port's BN always runs its
-CUDA kernels), --checkpoint_backend and --platform have no counterpart;
+one.
+
+Spatial partitioning, UNet and NestedUNet: `--mesh data=D,x=X[,y=Y]` (D*X*Y
+processes) or `--spatial_partition true` (('data', 'x') = (world / 2, 2))
+gives each rank a band of its data rows' images, rows [i*H/X, (i+1)*H/X)
+and columns [j*W/Y, (j+1)*W/Y); convs and upsamples take halos, BN moments,
+loss and metrics are the whole global batch's, as the JAX CLI's
+(train.py:255-304). The bands must stay whole through the 4 pools: H a
+multiple of 16*X and W of 16*Y. Other archs, uneven bands and --remat
+under x/y exit with a message naming ROADMAP.md (queue 1, A11b), as does
+the 'model' axis (A11c). Its --fused_bn(_mode) (the port's BN always runs
+its CUDA kernels), --checkpoint_backend and --platform have no counterpart;
 argparse rejects them.
 
 `--profile DIR` traces the training part of the run's first epoch with
@@ -370,7 +378,7 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
                    data_rng=np.random.default_rng(seed),
                    generator=torch.Generator(device=dev).manual_seed(seed + 1),
                    early_stopping=early_stopping, skip_nonfinite=skip_nonfinite,
-                   is_main=mesh is None or mesh.index == 0, profile=profile)
+                   is_main=mesh is None or mesh.rank == 0, profile=profile)
 
 
 def build_datasets(config):
@@ -458,7 +466,7 @@ def train_folder(config: dict, mesh=None) -> dict:
     """The folder CLI's run (train.py:328-765 of the JAX package): see the
     module docstring. `config` is parse_args' dict; `mesh` a
     parallel.mesh.Mesh for a data-parallel run (`main` builds it)."""
-    is_main = mesh is None or mesh.index == 0
+    is_main = mesh is None or mesh.rank == 0
     if config["name"] is None:
         tag = "wDS" if config["deep_supervision"] else "woDS"
         config["name"] = f"{config['dataset']}_{config['arch']}_{tag}"
@@ -623,11 +631,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch on a background thread, 'auto' picks by the set's size "
                         "against device memory")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="data-parallel mesh over the processes, e.g. 'data=2' (torchrun "
-                        "starts them); without it a multi-process run gets 'data' over all. "
-                        "The 'x', 'y' and 'model' axes are not ported (ROADMAP.md)")
+                   help="mesh over the processes (torchrun starts them), e.g. 'data=4,x=2': "
+                        "'data' shards the batch, 'x'/'y' shard H/W (UNet, NestedUNet; "
+                        "implies --spatial_partition); without it a multi-process run gets "
+                        "'data' over all. The 'model' axis is not ported (ROADMAP.md)")
     p.add_argument("--spatial_partition", default=False, type=str2bool,
-                   help="not ported (ROADMAP.md queue 1, A11b): true exits with a message")
+                   help="also shard H over the mesh (halo exchange around the convs). "
+                        "Without --mesh the processes are laid out as ('data', 'x') with "
+                        "2-way H partitioning; exits if their count is odd")
     p.add_argument("--skip_nonfinite", default=0, type=int)
     p.add_argument("--accum_steps", default=1, type=int)
     p.add_argument("--remat", default=False, type=_remat_mode,
@@ -657,32 +668,54 @@ def parse_args(argv=None) -> dict:
 
 
 def _mesh_axes(config):
-    """(names, sizes) of --mesh, or None; exits on a refused flag: a bad
-    spec, an axis that is not ported, --spatial_partition."""
-    if config["spatial_partition"]:
-        sys.exit("--spatial_partition: " + pmesh.NOT_PORTED.format("x"))
-    if not config.get("mesh"):
-        return None
-    try:
-        names, sizes = pmesh.parse_mesh_spec(config["mesh"])
-    except ValueError as e:
-        sys.exit(f"--mesh: {e}")
-    for name in names:
-        if name not in pmesh.PORTED_AXES:
-            sys.exit("--mesh: " + pmesh.NOT_PORTED.format(name))
-    return names, sizes
+    """(names, sizes) of --mesh, or None; exits on a refused flag: a bad spec,
+    the 'model' axis, --spatial_partition without an 'x'/'y' axis in --mesh,
+    and under x/y an arch, a --remat mode or an input size that is not
+    ported (checked here, before any process group is formed)."""
+    spatial = config["spatial_partition"]
+    axes = None
+    if config.get("mesh"):
+        try:
+            names, sizes = pmesh.parse_mesh_spec(config["mesh"])
+        except ValueError as e:
+            sys.exit(f"--mesh: {e}")
+        for name in names:
+            if name not in pmesh.PORTED_AXES:
+                sys.exit("--mesh: " + pmesh.NOT_PORTED.format(name))
+        has_spatial_axes = bool(set(pmesh.SPATIAL_AXES) & set(names))
+        if spatial and not has_spatial_axes:
+            sys.exit("--spatial_partition with --mesh requires an 'x' or 'y' axis in the spec")
+        spatial = has_spatial_axes
+        axes = names, sizes
+    if spatial:
+        shape = dict(zip(*axes)) if axes else {"x": 2}
+        h, w = config["input_h"], config["input_w"]
+        if h % shape.get("x", 1) or w % shape.get("y", 1):
+            sys.exit(f"input {h}x{w} not divisible by the spatial mesh axes {shape}")
+        try:
+            pmesh.check_spatial(config["arch"], config["remat"], (h, w), shape)
+        except ValueError as e:
+            sys.exit(f"--mesh / --spatial_partition: {e}")
+    return axes
 
 
 def _build_mesh(config, axes, world: int):
-    """The data mesh (JAX train.py:255-304, the 'data' axis): --mesh's axes
-    must cover the processes and the batch divide over 'data'; without
-    --mesh a multi-process run gets 'data' over all ranks and one process
+    """The mesh (JAX train.py:255-304): --mesh's axes must cover the
+    processes and the batch divide over 'data'; --spatial_partition without
+    --mesh lays an even world out as ('data', 'x') = (world / 2, 2); without
+    either a multi-process run gets 'data' over all ranks and one process
     none. Exits with a message otherwise."""
     if axes is not None:
         names, sizes = axes
         total = int(np.prod(sizes))
         if total != world:
             sys.exit(f"--mesh '{config['mesh']}' needs {total} processes, have {world}")
+    elif config["spatial_partition"]:
+        if world < 2 or world % 2:
+            sys.exit(f"--spatial_partition needs an even process count >= 2 to factor into "
+                     f"('data', 'x'); have {world} process(es) -- use --mesh to lay the axes "
+                     f"out explicitly")
+        names, sizes = ("data", "x"), (world // 2, 2)
     elif world > 1:
         names, sizes = ("data",), (world,)
     else:
@@ -691,7 +724,7 @@ def _build_mesh(config, axes, world: int):
     if config["batch_size"] % mesh.size:
         sys.exit(f"batch_size {config['batch_size']} not divisible by the mesh 'data' axis "
                  f"size {mesh.size}")
-    print(f"mesh: {mesh.shape}")
+    print(f"mesh: {mesh.shape}" + (" (spatial H/W partitioning on)" if mesh.spatial else ""))
     return mesh
 
 

@@ -96,7 +96,7 @@ def load_training_state(model_dir: str, model, optimizer, mesh=None):
         return _restore(torch.load(path, map_location="cpu", weights_only=True), path,
                         model, optimizer)
     state = err = None
-    if mesh.index == 0 and os.path.exists(path):
+    if mesh.rank == 0 and os.path.exists(path):
         state = torch.load(path, map_location="cpu", weights_only=True)
         try:
             _restore(state, path, model, optimizer)
@@ -108,6 +108,6 @@ def load_training_state(model_dir: str, model, optimizer, mesh=None):
     if not flag:
         return None
     state = broadcast_object(state, group=mesh.group)
-    if mesh.index != 0:
+    if mesh.rank != 0:
         _restore(state, path, model, optimizer)
     return int(state["epoch"]), float(state["best_iou"]), int(state["trigger"])

@@ -17,6 +17,14 @@ averages the gradients across ranks; the metrics are the global batch's (the
 loss the mean of the ranks' losses, IoU and accuracy from the ranks' pixel
 counts added, the eval loss from the ranks' weighted sums added), the same on
 every rank.
+
+Under the 'x'/'y' axes as well (`mesh.spatial`; UNet and NestedUNet) a rank
+augments its data rows at full size (rot90, flip and contrast's per-image
+mean see the whole image), then takes its band (`batch_sharding(...,
+spatial=True)`); the model runs on the band (parallel/mesh.py), its heads
+are gathered (`parallel.halo.gather_bands`) so the loss and the metrics are
+the whole images', and the metrics are reduced over the data group only:
+every rank of a data row holds the same counts.
 """
 
 from typing import Callable, Dict
@@ -28,7 +36,8 @@ from ..data.augment import augment_batch, eval_transform, parse_augment_spec
 from ..losses import get_loss, get_weighted_loss, get_weighted_loss_sums
 from ..metrics import (accuracy_counts, accuracy_from_counts, iou_counts, iou_from_counts,
                        iou_score, iou_score_weighted, pixel_accuracy)
-from ..parallel.mesh import batch_sharding, shard_train_step
+from ..parallel.halo import gather_bands
+from ..parallel.mesh import batch_sharding, shard_train_step, spatial_partition
 
 
 def _as_heads(outputs):
@@ -36,11 +45,48 @@ def _as_heads(outputs):
 
 
 def _all_reduce_sum(values, mesh):
-    """Float64 sums of a small vector over the mesh's ranks."""
+    """Float64 sums of a small vector over the mesh's data rows."""
     v = torch.stack([t.to(torch.float64).reshape(()) for t in values])
-    if mesh.group is not None:
-        dist.all_reduce(v, group=mesh.group)
+    if mesh.data_group is not None:
+        dist.all_reduce(v, group=mesh.data_group)
     return v
+
+
+def _assert_equal_bands(images, mesh):
+    """Raise unless every rank holds a batch of this shape: the BNs count
+    rows * world size pixels (ops/fused_bn.py). One small all-reduce."""
+    if mesh.group is None:
+        return
+    n = torch.tensor([images.numel(), -images.numel()], dtype=torch.int64,
+                     device=images.device)
+    dist.all_reduce(n, op=dist.ReduceOp.MAX, group=mesh.group)
+    if int(n[0]) != -int(n[1]):
+        raise ValueError(f"spatial step: ranks hold bands of {-int(n[1])} to {int(n[0])} "
+                         "values; every band must be equal")
+
+
+class _Bands:
+    """The band a spatial step takes of its full-size batch, checked equal on
+    every rank at the first call."""
+
+    def __init__(self, mesh):
+        self.mesh, self.checked = mesh, False
+
+    def __call__(self, global_batch, images):
+        band = batch_sharding(self.mesh, global_batch, spatial=True, hw=images.shape[1:3])
+        images = band.take(images)
+        if not self.checked:
+            _assert_equal_bands(images, self.mesh)
+            self.checked = True
+        return images
+
+
+def _heads(model, images, mesh):
+    """The model's heads; under 'x'/'y' each gathered to the whole image."""
+    heads = _as_heads(model(images))
+    if mesh is not None and mesh.spatial:
+        heads = [gather_bands(o, mesh) for o in heads]
+    return heads
 
 
 def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
@@ -53,12 +99,15 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
     training.optim.Optimizer (or any object with zero_grad/step). Puts `model`
     in train mode. With `mesh` (a parallel.mesh.Mesh), `model` and
     `optimizer` go on it (`shard_train_step`) and the batch is this rank's
-    rows of a global batch of B * ranks (see the module docstring).
+    rows of a global batch of B * 'data' ranks, at full size (see the module
+    docstring).
     """
     loss_fn = get_loss(loss_name)
     ops = parse_augment_spec(augment)
+    bands = None
     if mesh is not None:
         shard_train_step(model, optimizer, mesh)
+        bands = _Bands(mesh) if mesh.spatial else None
 
     def step(images_u8, masks_u8, generator) -> Dict[str, torch.Tensor]:
         model.train()
@@ -67,8 +116,10 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
             global_batch = images_u8.shape[0] * mesh.size
             shard = (global_batch, batch_sharding(mesh, global_batch))
         images, masks = augment_batch(images_u8, masks_u8, ops, generator, shard)
+        if bands is not None:
+            images = bands(global_batch, images)
         optimizer.zero_grad()
-        heads = _as_heads(model(images))
+        heads = _heads(model, images, mesh)
         loss = sum(loss_fn(o, masks) for o in heads) / len(heads)
         loss.backward()
         optimizer.step()
@@ -93,10 +144,15 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
     so a padded last batch scores like the reference's batch-weighted meter.
     Runs the eval forward without gradients and restores the model's mode.
     With `mesh`, the batch and its weights are this rank's rows of a global
-    batch, and the metrics are the global batch's.
+    batch, and the metrics are the global batch's; under 'x'/'y' the model
+    runs on this rank's band of them (put on the mesh here too).
     """
     wloss_fn = get_weighted_loss(loss_name)
     wloss_sums, wloss_finish = get_weighted_loss_sums(loss_name)
+    bands = None
+    if mesh is not None and mesh.spatial:
+        spatial_partition(model, mesh)
+        bands = _Bands(mesh)
 
     @torch.no_grad()
     def eval_step(images_u8, masks_u8, weights) -> Dict[str, torch.Tensor]:
@@ -104,7 +160,9 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
         model.eval()
         try:
             images, masks = eval_transform(images_u8, masks_u8)
-            heads = _as_heads(model(images))
+            if bands is not None:
+                images = bands(images.shape[0] * mesh.size, images)
+            heads = _heads(model, images, mesh)
             if mesh is None:
                 loss = sum(wloss_fn(o, masks, weights) for o in heads) / len(heads)
                 return {"loss": loss, "iou": iou_score_weighted(heads[-1], masks, weights),

@@ -18,7 +18,11 @@ per update, so it costs a host sync when it is on.
 Under a data mesh (`mesh`, set by `parallel.mesh.shard_train_step`) the
 gradients are averaged across ranks once per update, after the K micro-batches
 are accumulated and before the finiteness test, which therefore reads the
-same averaged gradients on every rank, so every rank skips together.
+same averaged gradients on every rank, so every rank skips together. The
+all-reduce runs over the whole world and divides by the 'data' size
+(`parallel.mesh.all_reduce_mean_`): under the 'x'/'y' axes each rank of a
+data row holds its band's share of the gradient of the same loss, so the
+bands' shares are summed and the data rows' gradients averaged.
 
 `LRSchedule` is the host-side per-epoch controller of the reference's four
 schedulers.

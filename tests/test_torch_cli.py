@@ -250,12 +250,18 @@ def test_folder_cli_exits_on_empty_or_small_sets(tmp_path):
     _write_set(tmp_path / "inputs" / "small", n=5)
     with pytest.raises(SystemExit, match="batch_size 16 exceeds"):
         ptrain.main(base + ["--dataset", "small"])
-    # the 'x', 'y' and 'model' mesh axes and --spatial_partition are not
-    # ported: refused with a message, never run on one process in silence
-    for flags in (["--mesh", "x=2"], ["--mesh", "data=1,model=2"],
-                  ["--spatial_partition", "true"]):
-        with pytest.raises(SystemExit, match="not ported.*ROADMAP.md"):
+    # what is not ported is refused with a message, never run on one process
+    # in silence: the 'model' axis; under the 'x'/'y' axes bands that the 4
+    # pools would split (32 rows over x=4), another arch, --remat; and
+    # --spatial_partition on an odd process count
+    for flags, match in ((["--mesh", "data=1,model=2"], "'model' mesh axis is not ported"),
+                         (["--mesh", "x=4"], "multiple of 16 \\* x = 64"),
+                         (["--mesh", "x=2", "--arch", "UNetRNN"], "not UNetRNN"),
+                         (["--mesh", "x=2", "--remat", "full"], "--remat full")):
+        with pytest.raises(SystemExit, match=match + ".*ROADMAP.md"):
             ptrain.main(base + ["--dataset", "small"] + flags)
+    with pytest.raises(SystemExit, match="--spatial_partition needs an even process count"):
+        ptrain.main(base + ["--dataset", "small", "--spatial_partition", "true"])
     with pytest.raises(SystemExit, match="needs 2 processes, have 1"):
         ptrain.main(base + ["--dataset", "small", "--mesh", "data=2"])
     with pytest.raises(SystemExit):  # nor --fused_bn: the port's BN always runs K1-K3

@@ -88,9 +88,19 @@ def test_one_process_mesh_and_its_refusals():
     mesh = tmesh.make_mesh()
     assert mesh.shape == {"data": 1} and mesh.group is None and mesh.index == 0
     assert tmesh.batch_sharding(mesh, 6) == slice(0, 6)
-    for names in (("x",), ("model",), ("data", "y")):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+    # the 'x'/'y' axes are ported (tests/test_torch_spatial.py); 'model' is not
+    spatial = tmesh.make_mesh((1, 1), ("data", "y"))
+    assert spatial.spatial and tmesh.batch_sharding(spatial, 6) == slice(0, 6)
+    for names in (("model",), ("data", "model")):
+        with pytest.raises(ValueError, match="'model' mesh axis is not ported.*ROADMAP.md"):
             tmesh.make_mesh((1,) * len(names), names)
+    # under x/y: bands that the 4 pools would split, another arch, --remat
+    with pytest.raises(ValueError, match="multiple of 16 \\* x = 64.*ROADMAP.md"):
+        tmesh.check_spatial("UNet", None, (32, 32), {"x": 4})
+    with pytest.raises(ValueError, match="not UNetRNN.*ROADMAP.md"):
+        tmesh.check_spatial("UNetRNN", None, (32, 32), {"x": 2})
+    with pytest.raises(ValueError, match="--remat policy.*ROADMAP.md"):
+        tmesh.check_spatial("NestedUNet", "policy", (32, 32), {"x": 2})
     with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         tmesh.make_mesh((2,))
 
