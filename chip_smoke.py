@@ -130,7 +130,8 @@
    global row count against their plain versions, and `bn_finish`'s time
    over a step's 30 instances against its bound) and `dp_phase`
    (NestedUNet wDS, full width, 96x96, global batch 16: a world of one
-   process over NCCL against the non-distributed step, 30 launches of K1
+   process over NCCL bitwise the non-distributed step, both under
+   deterministic algorithms (`deterministic`), 30 launches of K1
    in its sums-only mode, `bn_finish`, K2 and K3 and 10 of K4 per step, its
    p50 / p95 and busy share beside the plain step's in fp32 and bf16; then
    two ranks on this card over Gloo, two processes of this script run as
@@ -145,23 +146,41 @@
    per step, the step's p50 (a correctness run); then `train.main --mesh
    x=2` over 2 processes (`--gloo-train`) on dp_cli's narrow folder
    against `--mesh data=1`;
+11j. the 'model' mesh axis (`model_phase`): on this card over Gloo,
+   NestedUNet wDS under data=2,model=2 (4 ranks, `--model-worker`; full
+   width, 96x96, global batch 16, fp32, SGD) against data=2 on two of the
+   same ranks, bitwise, both under deterministic algorithms (where the
+   data=2 step is not deterministic, dp_ranks' gates against the
+   one-process step), 30/30/30/30/10 launches
+   of K1 (sums-only), bn_finish, K2, K3 and K4 per rank and step, the
+   'model' peers bitwise alike after 3 steps and an eval step, each
+   rank's bytes of parameters and optimizer state between steps beside the
+   arithmetic 36.89 MB (73.31 MB replicated), a step's peak device memory,
+   the bf16 step's p50 beside data=2's; then `train.main --mesh
+   data=2,model=2 --checkpoint_backend orbax` for 2 epochs and `--resume`
+   of its sharded directory under `--mesh data=4` (`model_cli`) against
+   `--mesh data=1` on the same schedule;
 12. a JSON line of the kernels (launches over every path above; `cli`: the
    CLI path's own; `remat_step`: per fp32 step in each --remat mode; `dp`:
-   dp_phase's; `spatial`: spatial_phase's; `artifact`: K4's launches by
-   export_phase's artifacts), then
+   dp_phase's; `spatial`: spatial_phase's; `model`: model_phase's;
+   `artifact`: K4's launches by export_phase's artifacts), then
    the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `python3 chip_smoke.py --dp-cards N` runs only the data-parallel check over
 N cards of one host (NCCL, one process a card): each rank's fp32 step on
 its 16/N rows against the one-process step, and the bf16 step's p50 at 16
-rows a rank beside one card's; with N >= 4 also NestedUNet wDS under
-data=2,x=2 over NCCL (each rank against the one-process step) and `train
---mesh data=2,x=2` over 4 processes against `--mesh data=1`.
+rows a rank beside one card's; with N >= 4 then the 'model' axis
+(data=2,model=2 and data=1,x=2,model=2 against data=2 and data=1,x=2, as
+in 11j), the folder CLI, `train --mesh data=2,x=2` over 4 processes
+against `--mesh data=1`, and last NestedUNet wDS under data=2,x=2 (each
+rank against the one-process step, with the band step's own movement
+readings), whose gate fails over NCCL (ROADMAP.md F3).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
+import contextlib
 import copy
 import csv
 import json
@@ -171,8 +190,14 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# cuBLAS gives the same sums on every run only with a fixed workspace, which
+# torch asks for before it runs a matmul under deterministic algorithms
+# (`deterministic`); set before the first cuBLAS call, and inherited by the
+# worker processes
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # H100 SXM data sheet (dense): bf16 tensor-core rate, float32 rate outside the
 # tensor cores (TF32 is off here, so float32 work is held to it), HBM3 rate.
@@ -2477,6 +2502,22 @@ def _dp_batch(n=BATCH):
     return np.resize(x, (n, *x.shape[1:])), np.resize(y, (n, *y.shape[1:]))
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Torch's deterministic algorithms (cuDNN's deterministic convolutions,
+    the port's matmul adjoint of the bilinear resize, no atomics) inside
+    the block: a step then gives the same bits on every run, so two paths
+    that should compute the same step can be held to each other bitwise."""
+    was = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic = was[1]
+
+
 def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda",
               arch="NestedUNet", noise_seed=12):
     """Full-width NestedUNet wDS (or UNet) from seed 11 on `device` and its
@@ -2501,8 +2542,10 @@ def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda",
             elif moved:
                 p.mul_(1 + moved * torch.randn(p.shape, generator=noise))
     m = m.to(device)
-    return m, make_train_step(m, build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4),
-                              "BCEDiceLoss", ds, augment, mesh)
+    opt = build_optimizer(m.parameters(), "SGD", 1e-3, 0.9, 1e-4)
+    step = make_train_step(m, opt, "BCEDiceLoss", ds, augment, mesh)
+    step.optimizer = opt
+    return m, step
 
 
 def _dp_result(m, metrics):
@@ -2737,9 +2780,9 @@ def dp_phase(bn, df, card, reference):
     """Data-parallel NestedUNet wDS (full width, 96x96, global batch 16):
     (a) a world of one process over NCCL (`--mesh data=1`'s path): one fp32
     step (augment none) against the non-distributed step from the same
-    weights, loss and running statistics within 1e-6, gradients within 1e-5
-    (or twice the plain step's own run-to-run spread, measured first: it is
-    not deterministic on the card), DP_LAUNCHES per step; then the step's
+    weights, both under deterministic algorithms (`deterministic`; the card's
+    step is not deterministic without them): loss, running statistics and
+    gradients bitwise equal, DP_LAUNCHES per step; then the step's
     p50 / p95 and busy share in fp32 and bf16 beside the plain step's
     (plain, mesh, mesh, plain); (b) two ranks on the one card over Gloo
     (`dp_ranks`), each stepping on its 8 rows. `reference`: _dp_reference().
@@ -2752,7 +2795,7 @@ def dp_phase(bn, df, card, reference):
     x, y = _dp_batch()
     batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
     gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
-    plain, spread = reference[:2]
+    spread = reference[1]
     floor_worst = max(spread, key=spread.get)
     floor = spread[floor_worst]
     totals = {"fp32": bn_want(0), "bf16": bn_want(0)}
@@ -2766,25 +2809,31 @@ def dp_phase(bn, df, card, reference):
     initialize_single_process("nccl")
     try:
         mesh = make_mesh()
-        reset_counts(bn, df)
-        m, step = _dp_build(mesh)
-        got = _dp_result(m, step(*batch, gen()))
-        torch.cuda.synchronize()
-        per_step = launch_counts(bn, df)
-        count("fp32")
+        with deterministic():
+            reset_counts(bn, df)
+            m, step = _dp_build(mesh)
+            got = _dp_result(m, step(*batch, gen()))
+            torch.cuda.synchronize()
+            per_step = launch_counts(bn, df)
+            count("fp32")
+            del m, step
+            m, step = _dp_build()
+            want = _dp_result(m, step(*batch, gen()))
+            del m, step
         if per_step != DP_LAUNCHES:
             raise AssertionError(f"dp world 1: launches {per_step} per step, expected "
                                  f"{DP_LAUNCHES}")
-        loss_err, stats_err, worst, rel, _ = _dp_compare(got, plain, 1e-6, 1e-6,
-                                                         max(1e-5, 2 * floor),
-                                                         "dp world 1 (NCCL)")
+        pairs = [(torch.tensor(got[0]), torch.tensor(want[0]))] + [
+            (v, want[i][n]) for i in (1, 2) for n, v in got[i].items()]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            diff = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+            raise AssertionError(f"dp world 1 (NCCL): under deterministic algorithms the step "
+                                 f"differs from the non-distributed step by {diff:.3g}")
         print(f"dp world 1 ({dist.get_backend()}), one fp32 step (batch {BATCH}, "
-              f"{SIZE}x{SIZE}) against the non-distributed step: loss off by {loss_err:.3g} "
-              f"(1e-6), running stats by {stats_err:.3g} (1e-6), worst gradient {worst} at "
-              f"{rel:.3g} relative L2 (gate {max(1e-5, 2 * floor):.3g}: 1e-5 or twice the "
-              f"plain step's run-to-run spread, {floor_worst} at {floor:.3g}) | launches per "
-              f"step {per_step} | card: {card}", flush=True)
-        del m, step
+              f"{SIZE}x{SIZE}) under deterministic algorithms: bitwise the non-distributed "
+              f"step under them (loss, running stats, every gradient; without them the plain "
+              f"step moves run to run, {floor_worst} by {floor:.3g} relative L2) | launches "
+              f"per step {per_step} | card: {card}", flush=True)
         for precision, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
             rows = []
             reset_counts(bn, df)
@@ -2942,11 +2991,16 @@ def dp_cards(world):
     its 16/N rows held against the one-process step over 16 on the first
     card (dp_ranks' gates), then each rank's bf16 step p50 at 16 rows a
     rank (global 16N) beside the one-card bf16 step's at 16; then the
-    folder CLI over the N cards (`dp_cli`); with N >= 4 then NestedUNet wDS
+    folder CLI over the N cards (`dp_cli`); with N >= 4 the 'model' axis
+    runs before it (`model_ranks`: NestedUNet wDS under data=2,model=2 and
+    data=1,x=2,model=2 against data=2 and data=1,x=2 on two of the cards),
+    then `train --mesh data=2,x=2` (`spatial_cli`) and last NestedUNet wDS
     under data=2,x=2 (`spatial_ranks`; its gradient gates also read the
     N-way data split's own deviation, as one more MOVEMENT_READINGS entry:
-    both add every BN sum in N partial sums) and `train --mesh data=2,x=2`
-    (`spatial_cli`) over NCCL."""
+    both add every BN sum in N partial sums; it also prints the band step's
+    own movement under the weight readings, F3's evidence) over NCCL. That
+    last check fails its gate by ~4% (ROADMAP.md F3), so it runs after
+    every other."""
     from pytorch_nested_unet_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2965,14 +3019,18 @@ def dp_cards(world):
     print(f"dp one card, bf16 step at {BATCH}: p50 {p50:.3f} ms (p95 {p95:.3f}) | card: {card}",
           flush=True)
     dp_outs = dp_ranks(world, "nccl", reference, card)
+    if world >= 4:
+        model_ranks(list(MODEL_RUNS), "nccl", reference, card)
     dp_cli(world, card)
     if world >= 4:
+        spatial_cli(4, "data=2,x=2", card, gloo=False)
+        # last: its gate fails over NCCL (ROADMAP.md F3), which must hide no
+        # other check
         split = {n: max(_dp_rel(r["result"], reference[0])[n] for r in dp_outs)
                  for n in reference[2]}
         run = "NestedUNet data=2,x=2"
         spatial_ranks([run], "nccl", {run: _with_reading(reference, f"dp data={world}", split)},
                       card)
-        spatial_cli(4, "data=2,x=2", card, gloo=False)
     return 0
 
 
@@ -2993,6 +3051,10 @@ SPATIAL_RUNS = {
 }
 SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
                             "spatial")
+# The band runs whose workers also step under MOVEMENT_READINGS' weight
+# changes (the seeds), to read how far the band step moves against its own
+# unperturbed step: printed beside the gate, not added to it (F3)
+BAND_READINGS = {"NestedUNet data=2,x=2": (12, 13, 14)}
 
 
 def _spatial_slug(run):
@@ -3051,8 +3113,22 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
             out = {"result": result, "launches": first, "halo": stats, "steady": steady,
                    "backend": dist.get_backend(), "total": launch_counts(bn, df),
                    "p50": float(np.median(times)) if times else None}
-            torch.save(out, os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"))
             del m, step
+            if run in BAND_READINGS:
+                # the band step's own movement under MOVEMENT_READINGS' weight
+                # changes, against its own unperturbed step, and that step
+                # once more on a fresh model (ROADMAP.md F3); rank 0 keeps
+                # the steps to hold them against the one-process step too
+                out["band_readings"], kept = {}, {}
+                for label, build in ([(f"weights {seed}", {"moved": 1e-7, "noise_seed": seed})
+                                      for seed in BAND_READINGS[run]] + [("again", {})]):
+                    m, step = _dp_build(mesh, device=dev, arch=arch, **build)
+                    kept[label] = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
+                    out["band_readings"][label] = _dp_rel(kept[label], result)
+                    del m, step
+                if rank == 0:
+                    out["band_steps"] = kept
+            torch.save(out, os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
     return 0
@@ -3090,6 +3166,8 @@ def spatial_ranks(runs, backend, references, card):
             if r["launches"] != want:
                 raise AssertionError(f"spatial {run} rank {rank}: launches {r['launches']} per "
                                      f"step, expected {want}")
+            if "band_steps" in r:
+                _print_band_readings(run, r, plain, gate, movement, readings, card)
             loss_err, stats_err, worst, rel, tol = _dp_compare(
                 r["result"], plain, 1e-5, 1e-5, gate, f"spatial {run} rank {rank}")
             h, st = r["halo"], r["steady"]
@@ -3112,6 +3190,46 @@ def spatial_ranks(runs, backend, references, card):
                   + f" | wall of the {world} ranks' runs {wall:.1f} s | card: {card}", flush=True)
             results[run].append(r)
     return results
+
+
+def _print_band_readings(run, r, plain, gate, movement, readings, card):
+    """F3's evidence (rank 0: every rank holds the same averaged gradients):
+    a gradient's deviation off the one-process step beside its gate, its
+    one-process readings, the band step's own movement under the same
+    weight changes and the unperturbed step again on a fresh model (each
+    against the first band step, then against the one-process step), for
+    the gradient
+    nearest its gate and the two that the band step moves most; then how
+    many gradients the band step moves more than the one-process step moves
+    under the same changes."""
+    rel = _dp_rel(r["result"], plain)
+    weights = {k: b for k, b in r["band_readings"].items() if k.startswith("weights")}
+    later = {k: _dp_rel(res, plain) for k, res in r["band_steps"].items()}
+    band_max = {n: max(b[n] for b in weights.values()) for n in rel}
+    # the one-process step's movement under the same weight changes (a
+    # gradient that neither step moves, a BN-fed bias's, has no ratio)
+    same = {n: max(readings[k][n] for k in weights) for n in rel}
+    ratio = {n: band_max[n] / same[n] for n in rel if same[n] > 0}
+    names = [max(rel, key=lambda n: rel[n] / gate[n])]
+    names += [n for n in sorted(band_max, key=band_max.get, reverse=True) if n not in names][:2]
+    for n in names:
+        print(f"F3 band readings, spatial {run}: {n} off the one-process step by {rel[n]:.3g} "
+              f"(gate {gate[n]:.3g}, unchanged); one-process readings "
+              f"({_readings_of(readings, n)}); the band step's own movement against its first "
+              f"step (" + ", ".join(f"{k} {b[n]:.3g}" for k, b in r["band_readings"].items())
+              + f"), largest under a weight change {band_max[n]:.3g} = "
+              f"{ratio.get(n, float('nan')):.2f}x the one-process step's ({same[n]:.3g}); "
+              f"those later band steps off the one-process step ("
+              + ", ".join(f"{k} {v[n]:.3g}" for k, v in later.items())
+              + f") | card: {card}", flush=True)
+    again = max(later["again"][n] / gate[n] for n in rel)
+    print(f"F3 band readings, spatial {run}: the band step moves "
+          f"{sum(v > 1 for v in ratio.values())} of {len(ratio)} gradients more than the "
+          f"one-process step moves under the same weight changes (median ratio "
+          f"{np.median(list(ratio.values())):.3g}, max {max(ratio.values()):.3g}); against the "
+          f"one-process step the first band step reaches {max(rel[n] / gate[n] for n in rel):.3g} "
+          f"of a gate, the same step again on a fresh model {again:.3g} | card: {card}",
+          flush=True)
 
 
 def spatial_cli(world, spec, card, gloo):
@@ -3173,6 +3291,346 @@ def spatial_phase(bn, df, card, reference):
     return {"fp32": totals}
 
 
+# The 'model' mesh axis: (--mesh spec, the spec without 'model'). Each run's
+# step (NestedUNet wDS, full width, 96x96, global batch 16) is held to the
+# step without 'model' on the first two ranks of the same workers: the
+# gather is a copy and the SGD update elementwise, so the numbers are that
+# step's wherever the step itself is deterministic.
+MODEL_RUNS = {
+    "NestedUNet data=2,model=2": ("data=2,model=2", "data=2"),
+    "NestedUNet data=1,x=2,model=2": ("data=1,x=2,model=2", "data=1,x=2"),
+}
+MODEL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
+                          "model")
+# Parameters plus SGD momentum of NestedUNet wDS in fp32 on one rank
+# (9,163,428 parameters, 9,105,408 of them in the 24 weights the JAX rule
+# shards): arithmetic, not measured
+MODEL_STATE_MB = {1: 73.31, 2: 36.89, 4: 18.67}
+
+
+def _model_run(mesh, dev, bn, df):
+    """One fp32 step (augment none) of _dp_build's model under `mesh` on this
+    rank's rows: its result (loss, the averaged gradients, read before the
+    'model' axis frees them, running statistics), every parameter after the
+    update (gathered), launches, the rank's bytes of parameters and
+    optimizer state between steps, what the 'model' axis shards, and the
+    step's peak device memory."""
+    from pytorch_nested_unet_tpu_torch.parallel import batch_sharding
+    from pytorch_nested_unet_tpu_torch.parallel.mesh import full_weights, tensor_parallel_of
+    from pytorch_nested_unet_tpu_torch.training.optim import state_bytes
+
+    x, y = _dp_batch()
+    rows = batch_sharding(mesh, BATCH)
+    batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
+    m, step = _dp_build(mesh, device=dev)
+    opt, kept = step.optimizer, {}
+    update = opt.step
+
+    def update_keeping():
+        update()
+        kept.update({n: p.grad.to("cpu", torch.float32, copy=True)
+                     for n, p in m.named_parameters()})
+
+    opt.step = update_keeping
+    reset_counts(bn, df)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = step(*batch, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    tp = tensor_parallel_of(m)
+    whole = sum(p.numel() for p in m.parameters())
+    sharded = 0 if tp is None else sum(p.numel() for p in tp.shards)
+    out = {"result": (float(metrics["loss"]), kept,
+                      {n: b.to("cpu", copy=True) for n, b in m.named_buffers()}),
+           "launches": launch_counts(bn, df), "bytes": state_bytes(m, opt), "peak": peak,
+           "n_sharded": 0 if tp is None else len(tp.shards),
+           # parameters and momentum, fp32: the replicated ones whole, the sharded 1/M
+           "want_bytes": 8 * (whole - sharded + sharded // mesh.shape.get("model", 1))}
+    with full_weights(m):
+        out["params"] = {n: p.detach().to("cpu", copy=True) for n, p in m.named_parameters()}
+    del m, step
+    return out
+
+
+def _model_peer_state(mesh, dev, steps=3):
+    """`steps` fp32 train steps (augment full) and an eval step of
+    _dp_build's model under `mesh`: each step's metrics and a digest of what
+    this rank holds that its 'model' peers must hold bitwise alike (every
+    parameter gathered, the running statistics, the momentum whole)."""
+    import hashlib
+
+    from pytorch_nested_unet_tpu_torch.parallel import batch_sharding
+    from pytorch_nested_unet_tpu_torch.parallel.mesh import full_weights
+    from pytorch_nested_unet_tpu_torch.training.loop import make_eval_step
+
+    x, y = _dp_batch()
+    rows = batch_sharding(mesh, BATCH)
+    batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
+    m, step = _dp_build(mesh, augment="full", device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    metrics = [step(*batch, gen) for _ in range(steps)]
+    metrics.append(make_eval_step(m, "BCEDiceLoss", True, mesh)(
+        *batch, torch.ones(len(batch[0]), device=dev)))
+    momentum = [v for st in step.optimizer.state_dict()["inner"]["state"].values()
+                for v in st.values() if torch.is_tensor(v)]
+    digest = hashlib.sha256()
+    with full_weights(m):
+        for t in (*m.parameters(), *m.buffers(), *momentum):
+            digest.update(t.detach().to("cpu", copy=True).numpy().tobytes())
+    del m, step
+    return {"digest": digest.hexdigest(),
+            "metrics": [[float(v) for v in d.values()] for d in metrics]}
+
+
+def model_worker(rank, world, port, out_dir, backend, device, runs, steps):
+    """One rank of the 'model' axis runs (MODEL_RUNS' entries named in
+    `runs`, ';'-joined): the run's step on every rank, its 3 steps and an
+    eval step (`_model_peer_state`), then the step without 'model' twice on
+    ranks 0-1 (a group of the same workers; twice to read whether it is
+    deterministic; the single steps under deterministic algorithms, the
+    peers' steps without), then the bf16 step's p50 over `steps` (augment
+    full, global batch 16) with and without 'model'. Written to
+    <run>_rank<rank>.pt."""
+    import torch.distributed as dist
+
+    from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
+    from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
+    from pytorch_nested_unet_tpu_torch.parallel import (batch_sharding, initialize_distributed,
+                                                        make_mesh, parse_mesh_spec)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend=backend, device=dev, world_size=world, rank=rank,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        pair = dist.new_group([0, 1])  # every rank creates every group
+        for run in runs.split(";"):
+            out, meshes = {"backend": dist.get_backend()}, {}
+            for kind, spec in zip(("tp", "ref"), MODEL_RUNS[run]):
+                if kind == "tp" or rank < 2:
+                    names, sizes = parse_mesh_spec(spec)
+                    meshes[kind] = make_mesh(sizes, names, group=None if kind == "tp" else pair)
+            with deterministic():
+                out["tp"] = _model_run(meshes["tp"], dev, bn, df)
+            out["peers"] = _model_peer_state(meshes["tp"], dev)
+            if rank < 2:
+                with deterministic():
+                    out["ref"] = _model_run(meshes["ref"], dev, bn, df)
+                    out["ref2"] = _model_run(meshes["ref"], dev, bn, df)
+            x, y = _dp_batch()
+            for kind, mesh in meshes.items():
+                rows = batch_sharding(mesh, BATCH)
+                m, step = _dp_build(mesh, torch.bfloat16, "full", device=dev)
+                reset_counts(bn, df)
+                out[f"{kind}_bf16"] = (*_p50_p95(step, (torch.from_numpy(x[rows]).to(dev),
+                                                        torch.from_numpy(y[rows]).to(dev)),
+                                                 torch.Generator(dev).manual_seed(0), steps),
+                                       launch_counts(bn, df))
+                del m, step
+            torch.save(out, os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _bitwise(a, b):
+    """(whether two _model_run outputs are bitwise equal in loss, running
+    statistics, gradients and updated parameters, the largest difference)."""
+    pairs = [(torch.tensor(a["result"][0]), torch.tensor(b["result"][0]))]
+    for i in (1, 2):
+        pairs += [(v, b["result"][i][n]) for n, v in a["result"][i].items()]
+    pairs += [(v, b["params"][n]) for n, v in a["params"].items()]
+    diff = max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+    return all(torch.equal(x, y) for x, y in pairs), diff
+
+
+def _model_peers(run, spec, outs, card):
+    """Raise unless the ranks that differ only in their 'model' coordinate
+    hold bitwise the same state after _model_peer_state's steps and read the
+    same metrics; print it, and whether the other ranks do too."""
+    from pytorch_nested_unet_tpu_torch.parallel import parse_mesh_spec
+
+    names, sizes = parse_mesh_spec(spec)
+    groups = {}
+    for rank in range(len(outs)):
+        coords = dict(zip(names, np.unravel_index(rank, sizes)))
+        groups.setdefault(tuple(int(v) for a, v in coords.items() if a != "model"),
+                          []).append(rank)
+    for ranks in groups.values():
+        first = outs[ranks[0]]["peers"]
+        for r in ranks[1:]:
+            if outs[r]["peers"] != first:
+                raise AssertionError(f"model {run}: 'model' peers {ranks[0]} and {r} differ after "
+                                     f"3 steps and an eval step (metrics {first['metrics']} vs "
+                                     f"{outs[r]['peers']['metrics']})")
+    alike = all(o["peers"] == outs[0]["peers"] for o in outs)
+    print(f"model {run} peers: after 3 fp32 steps (augment full) and an eval step every group "
+          f"of 'model' peers ({sorted(groups.values())}) holds bitwise the same parameters "
+          f"(gathered), running statistics and momentum, and read the same train and eval "
+          f"metrics; the groups {'hold the same too' if alike else 'differ from each other'} "
+          f"| card: {card}", flush=True)
+
+
+def model_ranks(runs, backend, reference, card, steps=10):
+    """Run MODEL_RUNS' `runs` in one set of 4 model_worker processes (over
+    Gloo all on the first card, over NCCL rank r on cuda:r) and check each:
+    K1 (sums-only) / bn_finish / K2 / K3 / K4 launches 30/30/30/30/10 per
+    rank and step; the 'model' peers bitwise alike after 3 steps and an
+    eval step (`_model_peers`); the step bitwise the step without 'model'
+    on ranks 0-1 (where that step is not deterministic itself, i.e. its two
+    runs differ, each rank is held to dp_ranks' gates against the
+    one-process step instead); each rank's bytes of parameters and optimizer state between
+    steps equal to the replicated ones less (M-1)/M of the sharded ones,
+    printed beside the arithmetic MODEL_STATE_MB; the step's peak device
+    memory; the bf16 p50 with and without 'model'. Returns {precision:
+    launches} over every step the ranks drove."""
+    from pytorch_nested_unet_tpu_torch.parallel import parse_mesh_spec
+
+    plain, _, movement, readings = reference
+    gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
+    world = 4
+    out_dir = os.path.join(MODEL_ROOT, backend)
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    port = _free_port()
+    _, wall = _run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--model-worker", str(rank), str(world),
+          str(port), out_dir, backend, f"cuda:{rank}" if backend == "nccl" else "cuda:0",
+          ";".join(runs), str(steps)] for rank in range(world)], f"model ({backend})")
+    totals = {"fp32": {**bn_want(0), "multipart_conv3x3": 0},
+              "bf16": {**bn_want(0), "multipart_conv3x3": 0}}
+    for run in runs:
+        spec, ref_spec = MODEL_RUNS[run]
+        outs = [torch.load(os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"),
+                           weights_only=False) for rank in range(world)]
+        ref, ref2 = outs[0]["ref"], outs[0]["ref2"]
+        deterministic, spread = _bitwise(ref, ref2)
+        _model_peers(run, spec, outs, card)
+        for rank, o in enumerate(outs):
+            runs_here = [o["tp"]] + ([o["ref"], o["ref2"]] if rank < 2 else [])
+            for r in runs_here:
+                if r["launches"] != DP_LAUNCHES:
+                    raise AssertionError(f"model {run} rank {rank}: launches {r['launches']} per "
+                                         f"step, expected {DP_LAUNCHES}")
+                for k, v in r["launches"].items():
+                    totals["fp32"][k] += v
+            for kind in ("tp", "ref"):
+                for k, v in o.get(f"{kind}_bf16", (0, 0, {}))[2].items():
+                    totals["bf16"][k] += v
+            tp = o["tp"]
+            if tp["bytes"] != tp["want_bytes"] or not tp["n_sharded"]:
+                raise AssertionError(f"model {run} rank {rank}: {tp['bytes']} bytes of state "
+                                     f"between steps ({tp['n_sharded']} weights sharded), "
+                                     f"expected {tp['want_bytes']}")
+            same, diff = _bitwise(tp, ref)
+            if same:
+                verdict = (f"bitwise the {ref_spec} step (loss, statistics, gradients, "
+                           f"parameters; both under deterministic algorithms)")
+            elif deterministic:
+                raise AssertionError(f"model {run} rank {rank}: the step differs from the "
+                                     f"deterministic {ref_spec} step by {diff:.3g}")
+            else:
+                loss_err, stats_err, worst, rel, tol = _dp_compare(
+                    tp["result"], plain, 1e-5, 1e-5, gate, f"model {run} rank {rank}")
+                verdict = (f"not bitwise the {ref_spec} step (largest difference {diff:.3g}), "
+                           f"nor is the {ref_spec} step itself run to run ({spread:.3g}: the "
+                           f"card's step is not deterministic), so held to dp_ranks' gates "
+                           f"against the one-process step: loss off by {loss_err:.3g} (1e-5), "
+                           f"statistics {stats_err:.3g} (1e-5), gradient nearest its gate "
+                           f"{worst} at {rel:.3g} (gate {tol:.3g}; readings "
+                           f"{_readings_of(readings, worst)})")
+            m = dict(zip(*parse_mesh_spec(spec)))["model"]
+            tp_bf16, ref_bf16 = o["tp_bf16"], outs[min(rank, 1)]["ref_bf16"]
+            print(f"model {run} rank {rank} of {world} ({o['backend']}; NestedUNet wDS full "
+                  f"width, global batch {BATCH} at {SIZE}x{SIZE}, fp32, SGD): {verdict} | "
+                  f"launches per step {tp['launches']} | {tp['n_sharded']} weights sharded; "
+                  f"parameters + optimizer state between steps {tp['bytes'] / 1e6:.2f} MB on this "
+                  f"rank (arithmetic {MODEL_STATE_MB[m]:.2f} MB), {ref['bytes'] / 1e6:.2f} MB "
+                  f"under {ref_spec} (arithmetic {MODEL_STATE_MB[1]:.2f} MB) | peak device "
+                  f"memory of a step {tp['peak'] / 2**20:.1f} MiB ({ref['peak'] / 2**20:.1f} MiB "
+                  f"under {ref_spec}) | bf16 step p50 {tp_bf16[0]:.3f} ms (p95 "
+                  f"{tp_bf16[1]:.3f}) vs {ref_bf16[0]:.3f} ms (p95 {ref_bf16[1]:.3f}) under "
+                  f"{ref_spec}, {steps} steps, augment full, global batch {BATCH} (a correctness "
+                  f"run, timed only to be written down"
+                  + ("; Gloo stages every collective through host memory and the ranks share "
+                     "one card" if o["backend"] == "gloo" else "")
+                  + f") | all ranks' wall {wall:.1f} s | card: {card}", flush=True)
+    return totals
+
+
+def model_cli(card, device="cuda"):
+    """`train.main --mesh data=2,model=2 --checkpoint_backend orbax` over 4
+    processes on this card (Gloo, `--gloo-train`; one output directory) for
+    2 epochs on dp_cli's narrow folder (the narrow UNet's 3 kernels of at
+    least 16,384 elements shard; every epoch's best-model save and resume
+    state gather the slices on every rank), then `--resume` of that sharded
+    directory under `--mesh data=4` to a 3rd epoch; against `--mesh data=1`
+    in this process on the same schedule (2 epochs, then `--resume` from
+    last.pth: --resume re-seeds the shuffle, so an uninterrupted run draws
+    another third epoch), log.csv within dp_cli's bounds (loss rtol 2e-4 / atol
+    2e-5, IoU atol 0.02). `device` "cpu" runs it all on the CPU."""
+    import shutil
+
+    from pytorch_nested_unet_tpu_torch import train
+
+    args = _dp_cli_set()
+    root = os.path.join(DP_CLI_ROOT, "model")
+    shared = os.path.join(root, "shared")
+    t0 = time.perf_counter()
+    dev = "cuda:0" if device == "cuda" else "cpu"
+    outs = _dp_cli_launch(4, args + ["--mesh", "data=2,model=2", "--epochs", "2",
+                                     "--checkpoint_backend", "orbax"],
+                          lambda r: shared, lambda r: dev, gloo=True)
+    found = re.search(r"tensor parallel: (\d+) kernels sharded over 'model'=2", outs[0])
+    run = os.path.join(shared, "run")
+    if not found or not os.path.isfile(os.path.join(run, "orbax_last", ".metadata")) or \
+            not os.path.isfile(os.path.join(run, "model.pth")) or \
+            os.path.exists(os.path.join(run, "last.pth")):
+        raise AssertionError(f"model cli: no tensor-parallel line, no best model or no sharded "
+                             f"checkpoint ({os.listdir(run)}):\n{outs[0][-2000:]}")
+    outs = _dp_cli_launch(4, args + ["--mesh", "data=4", "--epochs", "3", "--resume", "true",
+                                     "--checkpoint_backend", "orbax"],
+                          lambda r: shared, lambda r: dev, gloo=True)
+    wall = time.perf_counter() - t0
+    if not all("resumed from epoch 1" in out for out in outs):
+        raise AssertionError("model cli: a rank did not resume from the sharded directory")
+    one = os.path.join(root, "one")
+    shutil.rmtree(one, ignore_errors=True)
+    for extra in (["--epochs", "2"], ["--epochs", "3", "--resume", "true"]):
+        train.main(args + ["--mesh", "data=1", "--output_dir", one, "--device", dev, *extra])
+    a, b = _read_log(run), _read_log(os.path.join(one, "run"))
+    worst = {}
+    for col, rtol, atol in (("loss", 2e-4, 2e-5), ("val_loss", 2e-4, 2e-5), ("iou", 0, 0.02),
+                            ("val_iou", 0, 0.02)):
+        x, y = (np.array([float(r[col]) for r in t]) for t in (a, b))
+        if len(x) != 3 or len(y) != 3 or not np.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"model cli: {col} {x} vs one process {y}")
+        worst[col] = float(np.abs(x - y).max())
+    print(f"model cli: train.main --mesh data=2,model=2 --checkpoint_backend orbax over 4 "
+          f"processes (Gloo, {'one card' if device == 'cuda' else 'CPU'}; "
+          f"{found.group(1)} kernels sharded), narrow UNet 32x32 "
+          f"batch 8 fp32, 2 epochs, then --resume of its sharded directory under --mesh data=4 "
+          f"to a 3rd (every rank resumed), {wall:.1f} s of wall; log.csv against --mesh data=1 "
+          f"in one process on the same schedule, max abs diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" | card: {card}", flush=True)
+
+
+def model_phase(bn, df, card, reference):
+    """The 'model' mesh axis on this card over Gloo: NestedUNet wDS under
+    data=2,model=2 (4 ranks; `model_ranks`), then the CLI with the sharded
+    checkpoint restored under data=4 (`model_cli`). `reference`:
+    _dp_reference(). Returns {precision: launches} of the ranks' steps."""
+    t0 = time.perf_counter()
+    totals = model_ranks(["NestedUNet data=2,model=2"], "gloo", reference, card, steps=5)
+    model_cli(card)
+    print(f"model phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals
+
+
 def gloo_train(argv):
     """`python3 chip_smoke.py --gloo-train ARGS`: train.main(ARGS) in a Gloo
     world joined from torchrun's variables first (train.main then keeps it),
@@ -3186,6 +3644,8 @@ def gloo_train(argv):
 
 
 def main():
+    if sys.argv[1:2] == ["--gloo-train"]:  # a CLI rank; `--device` says where
+        return gloo_train(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -3198,8 +3658,10 @@ def main():
     if sys.argv[1:2] == ["--spatial-worker"]:
         rank, world, port, out_dir, backend, device, run = sys.argv[2:9]
         return spatial_worker(int(rank), int(world), int(port), out_dir, backend, device, run)
-    if sys.argv[1:2] == ["--gloo-train"]:
-        return gloo_train(sys.argv[2:])
+    if sys.argv[1:2] == ["--model-worker"]:
+        rank, world, port, out_dir, backend, device, runs, steps = sys.argv[2:10]
+        return model_worker(int(rank), int(world), int(port), out_dir, backend, device, runs,
+                            int(steps))
     from pytorch_nested_unet_tpu_torch.ops import _build
     from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
     from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
@@ -3287,6 +3749,8 @@ def main():
     runs.append(dp)
     spatial = timed(spatial_phase, bn, df, card, reference)
     runs.append(spatial)
+    model = timed(model_phase, bn, df, card, reference)
+    runs.append(model)
     timed(new_arch_counts)
     for arch, (_, _, gflop) in NEW_ARCHS.items():
         runs.append(timed(path_phase, bn, df, card, arch, False, k4_per_batch=0, gflop=gflop))
@@ -3316,6 +3780,7 @@ def main():
             entry["remat_step"] = {mode: c["multipart_conv3x3"] for mode, c in remat.items()}
         entry["dp"] = {"launches": dp[name]["multipart_conv3x3"]}
         entry["spatial"] = {"launches": spatial.get(name, {}).get("multipart_conv3x3", 0)}
+        entry["model"] = {"launches": model[name]["multipart_conv3x3"]}
         entry["artifact"] = {"launches": export["artifact"][name]}
         if dtype == torch.bfloat16:  # the CLI path runs bf16, at the 10 nodes' shapes
             entry["cli"] = {"launches": cli["multipart_conv3x3"],
@@ -3344,6 +3809,7 @@ def main():
             entry["cli"] = {"launches": cli[fn], **{key: agg[key] for key in timed}}
         entry["dp"] = {"launches": dp[DTYPE_NAME[dtype]][fn]}
         entry["spatial"] = {"launches": spatial.get(DTYPE_NAME[dtype], {}).get(fn, 0)}
+        entry["model"] = {"launches": model[DTYPE_NAME[dtype]][fn]}
         kernels.append(entry)
     for dtype, agg in finish.items():
         name = DTYPE_NAME[dtype]
@@ -3352,7 +3818,8 @@ def main():
             "source": "pytorch_nested_unet_tpu_torch/ops/csrc/fused_bn.cu",
             "replaces": "pytorch_nested_unet_tpu/ops/fused_bn.py:145",
             "launches": launches[name]["bn_finish"], **{key: agg[key] for key in timed},
-            "spatial": {"launches": spatial.get(name, {}).get("bn_finish", 0)}})
+            "spatial": {"launches": spatial.get(name, {}).get("bn_finish", 0)},
+            "model": {"launches": model[name]["bn_finish"]}})
     print("times: multipart_conv3x3 sums over the 10 decoder nodes of one batch-16 NestedUNet "
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
@@ -3366,7 +3833,10 @@ def main():
           "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
           "and policy; dp: launches in dp_phase's data-parallel steps, world 1 over NCCL and "
           "2 ranks over Gloo; spatial: launches in spatial_phase's steps on bands (NestedUNet "
-          "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; fp32); "
+          "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; fp32); model: "
+          "launches in model_phase's steps (NestedUNet wDS data=2,model=2 on 4 ranks and "
+          "data=2 on 2 ranks, Gloo: one fp32 step each, twice without 'model'; bf16 the "
+          "timed steps); "
           "bn_finish: its 30 instances of one batch-16 NestedUNet step, "
           "on float32 sums in either dtype, launched only by data-parallel steps); "
           "max_abs_err: over the path's own shapes; launches: over every path "
@@ -3374,7 +3844,8 @@ def main():
           "serving and training, the arch sweep, the CLIs, the serving artifacts and "
           "train --profile, --pretrained_backbone, "
           "train_canet, the Refiner (none), train_isic_ca with val/infer --refine, the "
-          "--remat steps, the data-parallel and spatial steps, DoubleUnet and DeepLab "
+          "--remat steps, the data-parallel, spatial and 'model' axis steps, DoubleUnet "
+          "and DeepLab "
           "serving and training "
           "and the DeepLab CLIs (none)); card:")
     print(card)

@@ -25,6 +25,13 @@ import torch.nn.functional as F
 
 IntPair = Union[int, Tuple[int, int]]
 
+# The transposition that takes a JAX kernel to the port's weight, by rank:
+# a conv's HWIO (a transposed conv's (kh, kw, out, in)) to OIHW ([in, out,
+# kh, kw]), a dense kernel's (in, out) to (out, in). utils/convert.py
+# carries JAX kernels across with it, and parallel/mesh.py finds through it
+# the weight dim that is a JAX kernel's last axis.
+JAX_KERNEL_TO_PORT = {4: (3, 2, 0, 1), 2: (1, 0)}
+
 
 def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))

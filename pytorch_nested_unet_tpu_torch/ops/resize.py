@@ -20,13 +20,60 @@ A_CUBIC = -0.75  # torch's bicubic kernel parameter
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True) -> torch.Tensor:
-    """Resize (B,H,W,C) to (B,out_h,out_w,C); the result is NHWC-contiguous."""
+    """Resize (B,H,W,C) to (B,out_h,out_w,C); the result is NHWC-contiguous.
+    Under `torch.use_deterministic_algorithms(True)` the gradient is the
+    resize's adjoint as two matmuls (`_DeterministicBilinear`): the
+    operator's own backward adds with atomics on a card, so it differs run
+    to run, and torch refuses it in that mode."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     if tuple(x.shape[1:3]) == (out_h, out_w):
         return x
+    if x.requires_grad and torch.is_grad_enabled() and \
+            torch.are_deterministic_algorithms_enabled():
+        return _DeterministicBilinear.apply(x, out_h, out_w, align_corners)
+    return _interpolate(x, out_h, out_w, align_corners)
+
+
+def _interpolate(x, out_h, out_w, align_corners):
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
                       mode="bilinear", align_corners=align_corners)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=64)  # a few sizes a model
+def _bilinear_matrix(n_in: int, n_out: int, align_corners: bool, device, dtype):
+    """(n_out, n_in): the two weights of each output position of a bilinear
+    resize along one axis, at the float32 positions F.interpolate takes."""
+    o = np.arange(n_out, dtype=np.float32)
+    if align_corners:
+        src = o * (np.float32((n_in - 1) / (n_out - 1)) if n_out > 1 else np.float32(0))
+    else:
+        src = np.maximum(np.float32(n_in / n_out) * (o + np.float32(0.5)) - np.float32(0.5),
+                         np.float32(0))
+    i0 = np.floor(src).astype(np.int64)
+    lam = (src - i0).astype(np.float32)
+    a = np.zeros((n_out, n_in), np.float32)
+    np.add.at(a, (np.arange(n_out), i0), 1 - lam)
+    np.add.at(a, (np.arange(n_out), np.minimum(i0 + 1, n_in - 1)), lam)
+    return torch.from_numpy(a).to(device, dtype)
+
+
+class _DeterministicBilinear(torch.autograd.Function):
+    """`_interpolate` forward; backward the adjoint, W then H, as matmuls
+    (the same sums in the same order on every run)."""
+
+    @staticmethod
+    def forward(ctx, x, out_h, out_w, align_corners):
+        ctx.geometry = (x.shape[1], x.shape[2], align_corners)
+        return _interpolate(x, out_h, out_w, align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, align_corners = ctx.geometry
+        a_h = _bilinear_matrix(h, g.shape[1], align_corners, g.device, g.dtype)
+        a_w = _bilinear_matrix(w, g.shape[2], align_corners, g.device, g.dtype)
+        gx = torch.einsum("oh,bowc->bhwc", a_h, torch.einsum("pw,bopc->bowc", a_w, g))
+        return gx.contiguous(), None, None, None
 
 
 def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -19,13 +19,31 @@ the heads are gathered (`halo.gather_bands`) so the loss and the metrics are
 the whole image's. The gradients are then summed over the bands and averaged
 over 'data': one all-reduce over the world divided by the 'data' size.
 
+The 'model' axis (tensor-parallel state, the JAX package's
+`tensor_parallel_spec` and `state_shardings`): between steps each rank holds
+only its out-channel slice of every weight the JAX rule shards (a conv or
+dense kernel of at least `min_shardable` elements whose out-channel count
+the 'model' size divides) and of that weight's optimizer state; everything
+else is replicated. A train step gathers the weights over the 'model' peers
+first (`TensorParallel.gather`), so every op, K1-K4 among them, computes
+what it computes without the axis, and frees them after the update; the
+optimizer steps the slices (training/optim.py). The 'model' peers hold the
+same rows and bands: BN moments, dropout masks, the gradient average and the
+metrics run over the batch group (the ranks of this rank's 'model'
+coordinate), so a step's numbers are those of the mesh without 'model'. The
+peers would compute them alike only where every op rounds alike on every
+rank, which a card's backward (the upsample's atomics) does not promise: so
+the averaged gradients, the running statistics and the metrics are then
+taken from the peer at 'model' coordinate 0 (`agree_over_model_`), and every
+peer updates the replicated weights and takes each decision (best model,
+early stop, LR plateau) from the same bits.
+
 A `Mesh` lays the ranks of a `torch.distributed` group row-major over its
 axis sizes in the order given, as the JAX package lays devices out
-(`np.asarray(devices).reshape(axis_sizes)`). The JAX package's 'model' axis
-(tensor-parallel state, `tensor_parallel_spec`, `state_shardings`) is not
-ported yet (ROADMAP.md queue 1, A11c); `make_mesh` refuses it.
+(`np.asarray(devices).reshape(axis_sizes)`).
 """
 
+import contextlib
 import functools
 import weakref
 from dataclasses import dataclass
@@ -36,14 +54,24 @@ import torch
 import torch.distributed as dist
 
 from ..ops import fused_bn
-from ..ops.layers import BatchNorm, Dropout, FlaxBatchNorm, TorchConv
+from ..ops.layers import JAX_KERNEL_TO_PORT, BatchNorm, Dropout, FlaxBatchNorm, TorchConv
 from ..ops.resize import Upsample2x
 from .halo import halo_exchange
 
-PORTED_AXES = ("data", "x", "y")
+PORTED_AXES = ("data", "x", "y", "model")
 SPATIAL_AXES = ("x", "y")  # H over 'x', W over 'y'
-NOT_PORTED = ("the '{}' mesh axis is not ported (ROADMAP.md queue 1: A11c the 'model' "
-              "axis and --checkpoint_backend)")
+NOT_PORTED = "the '{}' mesh axis is not ported (the axes are " + ", ".join(
+    f"'{a}'" for a in PORTED_AXES) + ")"
+MIN_SHARDABLE = 16384  # the JAX package's tensor_parallel_spec default
+NOTHING_SHARDED = ("the 'model' axis (size {}) shards nothing in this arch — no kernel has "
+                   "out-channels divisible by it (or all are below the shardable size); drop "
+                   "the axis or change its size")
+
+
+class NothingSharded(ValueError):
+    """A 'model' axis that shards none of the model's weights."""
+
+
 # Archs whose every op is right on a band after a one-row halo (3x3 and 1x1
 # convs, 2x2 floor pools, 2x align-corners upsamples). Their 4 pools need
 # bands of a multiple of 16 rows and columns.
@@ -56,10 +84,15 @@ SPATIAL_QUEUED = ("ROADMAP.md queue 1, A11b: the other archs, uneven bands and -
 class Mesh:
     """Ranks of `group` (None: one process, no collectives) laid row-major
     over `axis_sizes`. `shape` maps axis names to sizes, as a JAX mesh's
-    does. Under 'x'/'y' it also holds two subgroups: `spatial_group`, the
-    ranks that share this rank's 'data' index (its image's bands), and
-    `data_group`, the ranks that hold the same band of other rows (None
-    where that is this rank alone)."""
+    does. Under 'model' it holds two subgroups: `model_group`, the ranks
+    that differ from this one only in the 'model' coordinate (they hold
+    the slices of one weight), and `batch_group`, the ranks of this rank's
+    'model' coordinate (BN moments, dropout masks, the gradient average).
+    Under 'x'/'y' it holds two more, both within the batch group:
+    `spatial_group`, the ranks that share this rank's 'data' index (its
+    image's bands), and `data_group`, the ranks that hold the same band of
+    other rows (the metrics' sums). A subgroup that is this rank alone is
+    None. `min_shardable` is the 'model' axis' smallest sharded weight."""
 
     def __init__(self, axis_names: Sequence[str], axis_sizes: Sequence[int], group=None):
         self.axis_names = tuple(axis_names)
@@ -67,12 +100,15 @@ class Mesh:
         self.group = group
         self.rank = dist.get_rank(group) if group is not None else 0
         self.coords = self.coords_of(self.rank)
-        self.data_group = group
-        self.spatial_group = None
+        self.batch_group = self.data_group = group
+        self.model_group = self.spatial_group = None
+        self.model_root = None  # the global rank of this rank's peer at 'model' coordinate 0
         # the ('x', 'y') band of each member of the spatial group, in its rank order
         self.spatial_coords = [self._band(self.coords)]
-        if self.spatial and group is not None:
-            self._spatial_groups()
+        self.min_shardable = MIN_SHARDABLE
+        self._device_mesh = None
+        if (self.spatial or self.tensor_parallel) and group is not None:
+            self._subgroups()
 
     @property
     def size(self) -> int:
@@ -88,6 +124,11 @@ class Mesh:
     def spatial(self) -> bool:
         """Whether H or W is partitioned ('x' or 'y' in the axes)."""
         return any(a in self.shape for a in SPATIAL_AXES)
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the state is sharded over a 'model' axis."""
+        return "model" in self.shape
 
     def partitioned(self, axis: str) -> bool:
         return self.shape.get(axis, 1) > 1
@@ -118,19 +159,26 @@ class Mesh:
     def _global(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
-    def _spatial_groups(self):
-        """Every rank creates every subgroup in the same order
-        (`new_group` is collective over the whole world)."""
+    def _subgroups(self):
+        """Every rank creates every subgroup in the same order (`new_group`
+        is collective over the whole world): the 'model' peers, the batch
+        groups, then under 'x'/'y' the bands of a data row and the rows of a
+        band, each keyed by the coordinates its members share."""
+        model = lambda c: c.get("model", 0)  # noqa: E731
+        kinds = []
+        if self.tensor_parallel:
+            kinds += [("model", lambda c: tuple(v for a, v in c.items() if a != "model")),
+                      ("batch", model)]
+        if self.spatial:
+            kinds += [("spatial", lambda c: (c.get("data", 0), model(c))),
+                      ("data", lambda c: (self._band(c), model(c)))]
         world = dist.get_world_size(self.group)
-        spatial, data = {}, {}
-        for r in range(world):
-            c = self.coords_of(r)
-            spatial.setdefault(c.get("data", 0), []).append(r)
-            data.setdefault(self._band(c), []).append(r)
-        mine_s, mine_d = self.index, self._band(self.coords)
-        self.spatial_coords = [self._band(self.coords_of(r)) for r in spatial[mine_s]]
-        self.spatial_group = self.data_group = None
-        for kind, members, mine in (("spatial", spatial, mine_s), ("data", data, mine_d)):
+        for kind, key_of in kinds:
+            members = {}
+            for r in range(world):
+                members.setdefault(key_of(self.coords_of(r)), []).append(r)
+            mine = key_of(self.coords)
+            setattr(self, f"{kind}_group", None)
             for key in sorted(members):
                 ranks = members[key]
                 if len(ranks) == 1:
@@ -139,6 +187,26 @@ class Mesh:
                      else dist.new_group([self._global(r) for r in ranks]))
                 if key == mine:
                     setattr(self, f"{kind}_group", g)
+            if kind == "model":
+                # row-major: the peer with the lowest rank is at 'model' coordinate 0
+                self.model_root = self._global(members[mine][0])
+            if kind == "spatial":
+                self.spatial_coords = [self._band(self.coords_of(r)) for r in members[mine]]
+        if not self.spatial:
+            self.data_group = self.batch_group
+
+    def device_mesh(self, device_type: str):
+        """This mesh as a `torch.distributed` DeviceMesh of the same shape
+        and axis names (the DTensor layout of the sharded checkpoints),
+        made at the first call on every rank (it creates groups of its
+        own). The mesh must span the whole world."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            self._device_mesh = init_device_mesh(
+                device_type, tuple(self.shape[a] for a in self.axis_names),
+                mesh_dim_names=self.axis_names)
+        return self._device_mesh
 
 
 def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
@@ -267,12 +335,174 @@ def replicated_sharding(mesh: Mesh, module: torch.nn.Module):
 
 
 def sync_batch_norm(module: torch.nn.Module, mesh: Mesh):
-    """Put every BN (and dropout) of `module` on the mesh's group: train-mode
-    moments over every rank's rows (under 'x'/'y' every band of every row),
-    dropout masks drawn for them all."""
+    """Put every BN (and dropout) of `module` on the mesh's batch group:
+    train-mode moments over every rank's rows (under 'x'/'y' every band of
+    every row), dropout masks drawn for them all. The 'model' peers hold the
+    same rows, so they stay out (each row would count twice, and the
+    running variance's n / (n - 1) would change)."""
     for m in module.modules():
         if isinstance(m, (fused_bn.FusedBatchNormReLU, BatchNorm, FlaxBatchNorm, Dropout)):
-            m.process_group = mesh.group
+            m.process_group = mesh.batch_group
+
+
+def tensor_parallel_spec(param: torch.Tensor, tp: int,
+                         min_shardable: int = MIN_SHARDABLE) -> Optional[int]:
+    """The dim of the port's tensor `param` that a 'model' axis of size `tp`
+    shards, or None (replicated): the JAX package's `tensor_parallel_spec`
+    on the JAX leaf that the tensor is. A conv (4-D) or dense (2-D) kernel of
+    at least `min_shardable` elements shards its last JAX axis when `tp`
+    divides it; that axis is the port weight's dim
+    `JAX_KERNEL_TO_PORT[rank].index(rank - 1)`: 0 of an OIHW conv weight,
+    of K4's weight and of an [out, in] dense weight, and 0 of a transposed
+    conv's [in, out, kh, kw] too, whose JAX kernel is (kh, kw, out, in), so
+    that the JAX rule splits its in-channels."""
+    perm = JAX_KERNEL_TO_PORT.get(param.dim())
+    if perm is None or param.numel() < min_shardable:
+        return None
+    dim = perm.index(param.dim() - 1)
+    return dim if param.shape[dim] % tp == 0 else None
+
+
+def state_shardings(module: torch.nn.Module, optimizer, tp: int,
+                    min_shardable: int = MIN_SHARDABLE) -> Tuple[Dict[str, int], int]:
+    """What a 'model' axis of size `tp` shards of `module`'s train state (the
+    JAX package's `state_shardings` over a TrainState): ({parameter name:
+    dim} of the sharded weights, N), N the sharded leaves the JAX package
+    counts and prints: each weight and its optimizer state's leaves of its
+    shape (`optimizer.param_shaped_leaves()`: SGD's momentum, Adam's two
+    moments, MultiSteps' accumulator, which the port keeps whole)."""
+    dims = {}
+    for name, p in module.named_parameters():
+        d = tensor_parallel_spec(p, tp, min_shardable)
+        if d is not None:
+            dims[name] = d
+    return dims, len(dims) * (1 + optimizer.param_shaped_leaves())
+
+
+class TensorParallel:
+    """A module's weights on the 'model' axis: for each weight `dims` names,
+    this rank's slice (`shards`; the block of the sharded dim that the JAX
+    package's layout gives this rank's 'model' coordinate), which the
+    optimizer steps (training/optim.py), and the weight itself either freed
+    (`free`: its storage resized to 0 bytes; a forward then raises) or
+    whole (`gather`: one all-gather of every slice over the 'model' peers).
+    A gather writes the weights in place, so their version counters move
+    (K4's packed weight is made again). `count`: the sharded leaves of the
+    train state as the JAX package counts them (`state_shardings`' N)."""
+
+    def __init__(self, module: torch.nn.Module, mesh: Mesh, dims: Dict[str, int],
+                 count: Optional[int] = None):
+        self.mesh, self.group, self.count = mesh, mesh.model_group, count
+        self.size, self.index = mesh.shape["model"], mesh.coords["model"]
+        named = dict(module.named_parameters())
+        self.dims = {named[n]: d for n, d in dims.items()}
+        self.names = {named[n]: n for n in dims}
+        with torch.no_grad():
+            self.shards = {p: self.rows(p.detach(), d).clone() for p, d in self.dims.items()}
+        self.freed = False
+        module.register_forward_pre_hook(self._check)
+
+    def rows(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of `t` along `dim` (a view)."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
+
+    def _check(self, module, args):
+        if self.freed:
+            raise RuntimeError("the 'model' axis' weights are freed between steps: gather them "
+                               "first (parallel.mesh.full_weights)")
+
+    @torch.no_grad()
+    def take_rows(self):
+        """Each slice from its whole weight (every rank holds the same)."""
+        for p, shard in self.shards.items():
+            shard.copy_(self.rows(p, self.dims[p]))
+
+    @torch.no_grad()
+    def free(self):
+        """Drop the whole weights and their gradients: between steps a rank
+        holds the slices alone, as the JAX layout does."""
+        for p, shard in self.shards.items():
+            p.grad = shard.grad = None  # a slice's gradient is a view of the whole one
+            p.untyped_storage().resize_(0)
+        self.freed = True
+
+    @torch.no_grad()
+    def materialize(self):
+        """The whole weights' storage back, its contents undefined."""
+        for p in self.dims:
+            p.untyped_storage().resize_(p.numel() * p.element_size())
+        self.freed = False
+
+    @torch.no_grad()
+    def gather(self):
+        """The whole weights from every peer's slices (a no-op when whole)."""
+        if not self.freed:
+            return
+        self.materialize()
+        for p, whole in zip(self.dims, self.all_gather(list(self.shards.values()),
+                                                       list(self.dims.values()))):
+            p.copy_(whole)
+
+    def all_gather(self, shards: Sequence[torch.Tensor], dims: Sequence[int]):
+        """The whole tensors of this rank's `shards` (each a block of its dim
+        in `dims`) from the 'model' peers' blocks: one all-gather of one
+        flat buffer (staged through host memory for CUDA tensors on Gloo),
+        each peer's block put back at its place along the dim."""
+        if self.group is None or not shards:
+            return list(shards)
+        flat = torch.cat([s.reshape(-1) for s in shards])
+        staged = flat.device.type != "cpu" and dist.get_backend(self.group) == "gloo"
+        src = flat.cpu() if staged else flat
+        parts = torch.empty((self.size, src.numel()), dtype=src.dtype, device=src.device)
+        dist.all_gather(list(parts.unbind(0)), src, group=self.group)
+        parts = parts.to(flat.device)
+        out, offset = [], 0
+        for s, d in zip(shards, dims):
+            blocks = parts[:, offset:offset + s.numel()].reshape(self.size, *s.shape)
+            out.append(torch.cat(blocks.unbind(0), d))
+            offset += s.numel()
+        return out
+
+
+_TENSOR_PARALLEL = weakref.WeakKeyDictionary()  # module -> its TensorParallel
+
+
+def tensor_parallel_of(module: torch.nn.Module) -> Optional[TensorParallel]:
+    """`module`'s TensorParallel, or None off the 'model' axis."""
+    return _TENSOR_PARALLEL.get(module)
+
+
+@contextlib.contextmanager
+def full_weights(module: torch.nn.Module):
+    """`module` with its weights whole inside the block: on the 'model' axis
+    with the weights freed, gathered first and freed after (a collective
+    every 'model' peer enters); otherwise nothing to do."""
+    tp = tensor_parallel_of(module)
+    if tp is None or not tp.freed:
+        yield
+        return
+    tp.gather()
+    try:
+        yield
+    finally:
+        tp.free()
+
+
+def load_full_state(module: torch.nn.Module, state):
+    """Load a whole (unsharded) state dict into `module`, strict; on the
+    'model' axis each rank then keeps its slices of the sharded weights (no
+    collective: every rank holds the whole state)."""
+    tp = tensor_parallel_of(module)
+    if tp is None:
+        module.load_state_dict(state, strict=True)
+        return
+    freed = tp.freed
+    tp.materialize()
+    module.load_state_dict(state, strict=True)
+    tp.take_rows()
+    if freed:
+        tp.free()
 
 
 def conv_halo(conv: TorchConv, mesh) -> Tuple[int, int]:
@@ -336,33 +566,87 @@ def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh):
-    """Average `tensors` (one dtype and device) across the mesh's ranks in
-    place, through one all-reduce of one flat buffer, so every rank adds them
-    in the same order. The all-reduce runs over the whole group and the sum is
-    divided by the 'data' size: under 'x'/'y' each rank of a data row holds
-    its band's share of the gradient of the same loss, so the bands' shares
-    are summed and the rows' gradients averaged."""
-    if mesh.group is None or not tensors:
-        return
+def _through_flat(tensors: Sequence[torch.Tensor], collective):
+    """Run `collective` on one flat buffer of `tensors` (one dtype and
+    device), then copy the result back into them."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.size)
+    collective(flat)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
 
 
-def shard_train_step(model: torch.nn.Module, optimizer, mesh: Mesh):
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh):
+    """Average `tensors` (one dtype and device) across the mesh's ranks in
+    place, through one all-reduce of one flat buffer, so every rank adds them
+    in the same order. The all-reduce runs over the batch group (the whole
+    group off the 'model' axis) and the sum is divided by the 'data' size:
+    under 'x'/'y' each rank of a data row holds its band's share of the
+    gradient of the same loss, so the bands' shares are summed and the rows'
+    gradients averaged. On a 'model' axis the average is then the one of the
+    peer at coordinate 0 (`agree_over_model_`)."""
+    if not tensors or (mesh.batch_group is None and mesh.model_group is None):
+        return
+
+    def mean(flat):
+        if mesh.batch_group is not None:
+            dist.all_reduce(flat, group=mesh.batch_group)
+            flat.div_(mesh.size)
+        _broadcast_from_model_root(flat, mesh)
+
+    _through_flat(tensors, mean)
+
+
+def _broadcast_from_model_root(flat: torch.Tensor, mesh: Mesh):
+    if mesh.model_group is not None:
+        dist.broadcast(flat, src=mesh.model_root, group=mesh.model_group)
+
+
+@torch.no_grad()
+def agree_over_model_(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]):
+    """On a 'model' axis, make `tensors` bitwise those of this rank's peer at
+    'model' coordinate 0: one broadcast over the 'model' peers per dtype and
+    device. The peers hold the same rows, but a card need not round their
+    computations alike, and each peer keeps its own copy of the replicated
+    state and takes its own decisions from the metrics. A no-op elsewhere."""
+    if mesh is None or mesh.model_group is None:
+        return
+    kinds = {}
+    for t in tensors:
+        kinds.setdefault((t.dtype, t.device), []).append(t)
+    for same in kinds.values():
+        _through_flat(same, functools.partial(_broadcast_from_model_root, mesh=mesh))
+
+
+def shard_train_step(model: torch.nn.Module, optimizer, mesh: Mesh) -> Optional[TensorParallel]:
     """Put a train step's model and optimizer on the mesh: parameters and
-    buffers replicated from rank 0, BN moments and dropout masks over every
-    rank's rows, under 'x'/'y' the model on bands (`spatial_partition`), and
-    the optimizer's gradients all-reduced once per update
-    (`training.optim.Optimizer`). The step itself takes this rank's rows, or
-    its band of them (`training.loop.make_train_step(..., mesh=mesh)`)."""
+    buffers replicated from rank 0, BN moments and dropout masks over the
+    batch group's rows, under 'x'/'y' the model on bands
+    (`spatial_partition`), the optimizer's gradients all-reduced once per
+    update (`training.optim.Optimizer`), and under 'model' the state
+    sharded (`state_shardings`; each rank keeps its slices of the rank 0
+    weights and of their optimizer state, the weights freed until the step
+    gathers them). The step itself takes this rank's rows, or its band of
+    them (`training.loop.make_train_step(..., mesh=mesh)`). Returns the
+    model's TensorParallel (its `count` the JAX package's N), or None off
+    the 'model' axis. Raises NothingSharded (a ValueError) when the 'model'
+    axis shards nothing, ValueError when the model is on one already."""
+    if tensor_parallel_of(model) is not None:
+        raise ValueError("the model's state is sharded over a 'model' axis already")
+    dims = count = None
+    if mesh.tensor_parallel:
+        dims, count = state_shardings(model, optimizer, mesh.shape["model"], mesh.min_shardable)
+        if not dims:
+            raise NothingSharded(NOTHING_SHARDED.format(mesh.shape["model"]))
     if mesh.spatial:
         spatial_partition(model, mesh)
     replicated_sharding(mesh, model)
     sync_batch_norm(model, mesh)
     optimizer.mesh = mesh
+    if not dims:
+        return None
+    tp = _TENSOR_PARALLEL[model] = TensorParallel(model, mesh, dims, count)
+    optimizer.shard(tp)
+    tp.free()
+    return tp

@@ -59,6 +59,14 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
 
 
+def spans_machines() -> bool:
+    """Whether the processes of this run sit on more than one machine:
+    torchrun's LOCAL_WORLD_SIZE (the processes of this machine) below its
+    WORLD_SIZE."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world)) != world
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 

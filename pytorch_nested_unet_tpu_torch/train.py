@@ -66,10 +66,23 @@ and columns [j*W/Y, (j+1)*W/Y); convs and upsamples take halos, BN moments,
 loss and metrics are the whole global batch's, as the JAX CLI's
 (train.py:255-304). The bands must stay whole through the 4 pools: H a
 multiple of 16*X and W of 16*Y. Other archs, uneven bands and --remat
-under x/y exit with a message naming ROADMAP.md (queue 1, A11b), as does
-the 'model' axis (A11c). Its --fused_bn(_mode) (the port's BN always runs
-its CUDA kernels), --checkpoint_backend and --platform have no counterpart;
-argparse rejects them.
+under x/y exit with a message naming ROADMAP.md (queue 1, A11b).
+
+Tensor parallelism: `--mesh data=D,model=M` (with 'x'/'y' too: D*X*Y*M
+processes) shards each conv and dense kernel of at least 16,384 elements
+whose out-channels M divides, and its optimizer state, over the M 'model'
+peers, as the JAX CLI does (train.py:457-472): between steps each rank
+holds its slices, a step gathers the weights first, and the numbers are
+those of the mesh without 'model'. The run prints `tensor parallel: N
+kernels sharded over 'model'=M` (N counts the weights and their optimizer
+state's leaves, as the JAX package counts them) and exits when the axis
+shards nothing. `--checkpoint_backend msgpack` (default) keeps last.pth,
+whole in every layout (every rank joins the gather, rank 0 writes);
+`orbax` writes the state as every rank's slices into
+models/<name>/orbax_last/ (torch.distributed.checkpoint, DTensors), one
+machine only, as the JAX CLI's orbax backend. Either restores under another
+mesh. The JAX CLI's --fused_bn(_mode) (the port's BN always runs its CUDA
+kernels) and --platform have no counterpart; argparse rejects them.
 
 `--profile DIR` traces the training part of the run's first epoch with
 torch.profiler (host, and the device on a card) on rank 0 only, into
@@ -82,6 +95,7 @@ fills their refinement trunk, `psp.feats`).
 
 import argparse
 import csv
+import functools
 import inspect
 import os
 import signal
@@ -229,14 +243,17 @@ def _write_profile(prof, profile_dir, epoch):
 def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols,
             data_rng, generator, early_stopping=-1, skip_nonfinite=0, start_epoch=0,
             best_iou=0.0, trigger=0, stop_requested=lambda: False, is_main=True,
-            profile=None) -> dict:
+            profile=None, save_state) -> dict:
     """The epoch loop shared by `fit` and the folder CLI: train, validate,
     step the plateau schedule, append to log.csv, write model.pth on a better
-    validation IoU and last.pth after every epoch (the files only where
-    `is_main`: rank 0 of a data-parallel run). With `profile` (a directory),
+    validation IoU and the resume state after every epoch (`save_state`,
+    from `_state_backend`; the files only where `is_main`: rank 0 of a
+    data-parallel run, though every rank joins the saves, which gather the
+    slices of a 'model' axis). With `profile` (a directory),
     the training part of the first epoch run is traced by torch.profiler on
     the main process into <profile>/epoch<N>.pt.trace.json (chrome trace
-    format; the writing is not in the epoch's train_s)."""
+    format; the writing is not in the epoch's train_s). On a 'model' axis the
+    weights are whole again at the end."""
     log_path = os.path.join(model_dir, "log.csv")
     train_s, val_s = [], []
     guard = bool(skip_nonfinite)
@@ -267,11 +284,14 @@ def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols
         if bad_steps:
             print(f"failure detection: {bad_steps} step(s) with non-finite loss this "
                   f"epoch; {nonfinite_count(opt)} update(s) skipped since start")
-        if guard and not params_all_finite(model.parameters()):
-            raise RuntimeError(f"non-finite parameters at epoch {epoch}: the "
-                               f"--skip_nonfinite tolerance was exhausted "
-                               f"({nonfinite_count(opt)} update(s) skipped); aborting "
-                               "without saving")
+        if guard:
+            with pmesh.full_weights(model):
+                finite = params_all_finite(model.parameters())
+            if not finite:
+                raise RuntimeError(f"non-finite parameters at epoch {epoch}: the "
+                                   f"--skip_nonfinite tolerance was exhausted "
+                                   f"({nonfinite_count(opt)} update(s) skipped); aborting "
+                                   "without saving")
 
         # ---- validate ----
         t1 = time.perf_counter()
@@ -297,14 +317,13 @@ def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols
             _write_log(log_path, log, cols)
 
         trigger += 1
-        if va["iou"].avg > best_iou:
+        if va["iou"].avg > best_iou:  # the global metric: every rank takes the branch
+            checkpoint.save_model(model_dir, model, write=is_main)
             if is_main:
-                checkpoint.save_model(model_dir, model)
                 print("=> saved best model")
             best_iou = va["iou"].avg
             trigger = 0
-        if is_main:
-            checkpoint.save_training_state(model_dir, model, opt, epoch, best_iou, trigger)
+        save_state(model_dir, model, opt, epoch, best_iou, trigger)
         if 0 <= early_stopping <= trigger:
             print("=> early stopping")
             break
@@ -312,6 +331,9 @@ def _epochs(model, opt, sched, feed, *, model_dir, epochs, batch_size, log, cols
             print(f"=> stopped by a signal at epoch {epoch}; continue with --resume true")
             break
 
+    tp = pmesh.tensor_parallel_of(model)
+    if tp is not None:
+        tp.gather()
     print(f"best val iou: {best_iou:.4f}")
     return {"best_iou": best_iou, "log": log, "model_dir": model_dir, "model": model,
             "train_s": train_s, "val_s": val_s}
@@ -340,8 +362,9 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
     `.pth` poured into the model's ResNet trunk after the init. remat: the
     --remat mode, given to the archs that have the option (an arch_kwargs
     `remat` wins). mesh: a parallel.mesh.Mesh to train data-parallel on
-    (`batch_size` is then the global batch; only rank 0 writes). profile: a
-    directory for a torch.profiler trace of the first epoch's training.
+    (`batch_size` is then the global batch; only rank 0 writes; a 'model'
+    axis that shards nothing raises ValueError). profile: a directory for a
+    torch.profiler trace of the first epoch's training.
     """
     arch_kwargs = {**remat_kwargs(arch, remat), **parse_arch_kwargs(arch, arch_kwargs)}
     if precision not in PRECISIONS:
@@ -373,12 +396,14 @@ def fit(train_images, train_masks, val_images, val_masks, *, name: str = "run",
                        DeviceDataStore(tr_x, tr_y, dev), DeviceDataStore(va_x, va_y, dev),
                        batch_size, dev, mesh)
     cols = _log_cols(log_acc)
+    is_main = mesh is None or mesh.rank == 0
     return _epochs(model, opt, sched, feed, model_dir=model_dir, epochs=epochs,
                    batch_size=batch_size, log={k: [] for k in cols}, cols=cols,
                    data_rng=np.random.default_rng(seed),
                    generator=torch.Generator(device=dev).manual_seed(seed + 1),
                    early_stopping=early_stopping, skip_nonfinite=skip_nonfinite,
-                   is_main=mesh is None or mesh.rank == 0, profile=profile)
+                   is_main=is_main, profile=profile,
+                   save_state=_state_backend("msgpack", mesh, is_main)[0])
 
 
 def build_datasets(config):
@@ -462,6 +487,38 @@ def _read_log(log_path, cols, rows):
     return log
 
 
+def _state_backend(backend, mesh, is_main):
+    """(save, load) of the resume state: `msgpack` last.pth (whole; rank 0
+    writes), `orbax` the sharded directory orbax_last/ (every rank writes
+    its slices)."""
+    if backend == "orbax":
+        return (lambda d, model, opt, *rest: checkpoint.save_training_state_sharded(
+            d, model, opt, mesh, *rest), checkpoint.load_training_state_sharded)
+    return (functools.partial(checkpoint.save_training_state, write=is_main),
+            checkpoint.load_training_state)
+
+
+def _feed(config, model, opt, ops, train_ds, val_ds, data_rng, dev, mesh):
+    """The folder CLI's epochs over the host loaders or the device store,
+    the train step put on `mesh`."""
+    bs, size_hw = config["batch_size"], (config["input_h"], config["input_w"])
+    if resolve_pipeline(config, len(train_ds) + len(val_ds), dev) == "host":
+        rows = slice(None) if mesh is None else pmesh.batch_sharding(mesh, bs)
+        return _HostFeed(model, opt, config["loss"], config["deep_supervision"], ops,
+                         HostPrefetchLoader(train_ds, bs, size_hw, True, True, rng=data_rng,
+                                            rows=rows),
+                         HostPrefetchLoader(val_ds, bs, size_hw, False, False, rng=data_rng,
+                                            rows=rows),
+                         bs, dev, mesh)
+    t0 = time.perf_counter()
+    stores = [DeviceDataStore(*ds.load_all(size_hw)[:2], dev) for ds in (train_ds, val_ds)]
+    n = len(train_ds) + len(val_ds)
+    print(f"decoded {n} images at {size_hw[0]}x{size_hw[1]} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return _DeviceFeed(model, opt, config["loss"], config["deep_supervision"], ops,
+                       stores[0], stores[1], bs, dev, mesh)
+
+
 def train_folder(config: dict, mesh=None) -> dict:
     """The folder CLI's run (train.py:328-765 of the JAX package): see the
     module docstring. `config` is parse_args' dict; `mesh` a
@@ -480,7 +537,6 @@ def train_folder(config: dict, mesh=None) -> dict:
         save_config(config, model_dir)
 
     dev = resolve_device(config["device"])
-    size_hw = (config["input_h"], config["input_w"])
     bs = config["batch_size"]
     model = checkpoint.build_from_config(
         config, generator=torch.Generator().manual_seed(config["seed"]))
@@ -503,10 +559,25 @@ def train_folder(config: dict, mesh=None) -> dict:
     sched = LRSchedule(config["scheduler"], config["lr"], config["epochs"], config["min_lr"],
                        config["factor"], config["patience"],
                        [int(e) for e in str(config["milestones"]).split(",")], config["gamma"])
+
+    # re-seeded from --seed on resume as well (the JAX CLI does the same)
+    data_rng = np.random.default_rng(config["seed"])
+    generator = torch.Generator(device=dev).manual_seed(config["seed"] + 1)
+    ops = parse_augment_spec(config["augment"])
+    try:
+        feed = _feed(config, model, opt, ops, train_ds, val_ds, data_rng, dev, mesh)
+    except pmesh.NothingSharded as e:
+        sys.exit(f"--mesh: {e}")
+    tp = pmesh.tensor_parallel_of(model)
+    if tp is not None:  # N: the weights' and their optimizer state's leaves, as JAX counts
+        print(f"tensor parallel: {tp.count} kernels sharded over 'model'={tp.size}")
+
+    # resumed once the state is laid out on the mesh: each rank reads its slices
+    save_state, load_state = _state_backend(config["checkpoint_backend"], mesh, is_main)
     start_epoch, best_iou, trigger = 0, 0.0, 0
     if config["resume"]:
         try:
-            restored = checkpoint.load_training_state(model_dir, model, opt, mesh)
+            restored = load_state(model_dir, model, opt, mesh)
         except ValueError as e:
             sys.exit(f"--resume: {e}")
         if restored:
@@ -518,27 +589,6 @@ def train_folder(config: dict, mesh=None) -> dict:
     log = {k: [] for k in cols}
     if config["resume"] and os.path.exists(log_path):
         log = _read_log(log_path, cols, start_epoch)
-
-    # re-seeded from --seed on resume as well (the JAX CLI does the same)
-    data_rng = np.random.default_rng(config["seed"])
-    generator = torch.Generator(device=dev).manual_seed(config["seed"] + 1)
-    ops = parse_augment_spec(config["augment"])
-    if resolve_pipeline(config, len(train_ds) + len(val_ds), dev) == "host":
-        rows = slice(None) if mesh is None else pmesh.batch_sharding(mesh, bs)
-        feed = _HostFeed(model, opt, config["loss"], config["deep_supervision"], ops,
-                         HostPrefetchLoader(train_ds, bs, size_hw, True, True, rng=data_rng,
-                                            rows=rows),
-                         HostPrefetchLoader(val_ds, bs, size_hw, False, False, rng=data_rng,
-                                            rows=rows),
-                         bs, dev, mesh)
-    else:
-        t0 = time.perf_counter()
-        stores = [DeviceDataStore(*ds.load_all(size_hw)[:2], dev) for ds in (train_ds, val_ds)]
-        n = len(train_ds) + len(val_ds)
-        print(f"decoded {n} images at {size_hw[0]}x{size_hw[1]} in "
-              f"{time.perf_counter() - t0:.2f} s")
-        feed = _DeviceFeed(model, opt, config["loss"], config["deep_supervision"], ops,
-                           stores[0], stores[1], bs, dev, mesh)
 
     # finish the epoch, write last.pth and exit 0 on SIGTERM / SIGINT
     stop = {"flag": False}
@@ -560,7 +610,7 @@ def train_folder(config: dict, mesh=None) -> dict:
                        skip_nonfinite=config["skip_nonfinite"], start_epoch=start_epoch,
                        best_iou=best_iou, trigger=trigger,
                        stop_requested=lambda: stop["flag"], is_main=is_main,
-                       profile=config["profile"])
+                       profile=config["profile"], save_state=save_state)
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
@@ -633,12 +683,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None, metavar="SPEC",
                    help="mesh over the processes (torchrun starts them), e.g. 'data=4,x=2': "
                         "'data' shards the batch, 'x'/'y' shard H/W (UNet, NestedUNet; "
-                        "implies --spatial_partition); without it a multi-process run gets "
-                        "'data' over all. The 'model' axis is not ported (ROADMAP.md)")
+                        "implies --spatial_partition), 'model' shards the large kernels' "
+                        "out-channels and their optimizer state; without it a multi-process "
+                        "run gets 'data' over all")
     p.add_argument("--spatial_partition", default=False, type=str2bool,
                    help="also shard H over the mesh (halo exchange around the convs). "
                         "Without --mesh the processes are laid out as ('data', 'x') with "
                         "2-way H partitioning; exits if their count is odd")
+    p.add_argument("--checkpoint_backend", default="msgpack", choices=["msgpack", "orbax"],
+                   help="resume state: 'msgpack' last.pth (whole in every layout, rank 0 "
+                        "writes) or 'orbax' the sharded directory orbax_last/ (every rank "
+                        "writes its slices; one machine); either restores under another mesh")
     p.add_argument("--skip_nonfinite", default=0, type=int)
     p.add_argument("--accum_steps", default=1, type=int)
     p.add_argument("--remat", default=False, type=_remat_mode,
@@ -669,9 +724,13 @@ def parse_args(argv=None) -> dict:
 
 def _mesh_axes(config):
     """(names, sizes) of --mesh, or None; exits on a refused flag: a bad spec,
-    the 'model' axis, --spatial_partition without an 'x'/'y' axis in --mesh,
-    and under x/y an arch, a --remat mode or an input size that is not
-    ported (checked here, before any process group is formed)."""
+    an unknown axis, --spatial_partition without an 'x'/'y' axis in --mesh,
+    under x/y an arch, a --remat mode or an input size that is not ported,
+    and --checkpoint_backend orbax across machines (checked here, before any
+    process group is formed)."""
+    if config["checkpoint_backend"] == "orbax" and multihost.spans_machines():
+        # every rank writes its slices into one directory: one filesystem
+        sys.exit("--checkpoint_backend orbax is single-host only; use msgpack under multi-host")
     spatial = config["spatial_partition"]
     axes = None
     if config.get("mesh"):

@@ -25,6 +25,16 @@ spatial=True)`); the model runs on the band (parallel/mesh.py), its heads
 are gathered (`parallel.halo.gather_bands`) so the loss and the metrics are
 the whole images', and the metrics are reduced over the data group only:
 every rank of a data row holds the same counts.
+
+Under the 'model' axis (`mesh.tensor_parallel`) the state is sharded
+(parallel/mesh.py): a train step gathers the weights over the 'model' peers
+before its forward and frees them after the update (under `--remat full`
+the recompute in backward reads them whole, before the update); an eval
+step gathers them and frees them again at its end. The 'model' peers take
+the same rows and bands, and the metrics are reduced over the batch group;
+the running statistics and the metrics are then those of the peer at 'model'
+coordinate 0 (`parallel.mesh.agree_over_model_`), as the averaged gradients
+are, so the peers' replicated state and their decisions stay bitwise alike.
 """
 
 from typing import Callable, Dict
@@ -37,7 +47,8 @@ from ..losses import get_loss, get_weighted_loss, get_weighted_loss_sums
 from ..metrics import (accuracy_counts, accuracy_from_counts, iou_counts, iou_from_counts,
                        iou_score, iou_score_weighted, pixel_accuracy)
 from ..parallel.halo import gather_bands
-from ..parallel.mesh import batch_sharding, shard_train_step, spatial_partition
+from ..parallel.mesh import (agree_over_model_, batch_sharding, full_weights, shard_train_step,
+                             spatial_partition)
 
 
 def _as_heads(outputs):
@@ -45,10 +56,12 @@ def _as_heads(outputs):
 
 
 def _all_reduce_sum(values, mesh):
-    """Float64 sums of a small vector over the mesh's data rows."""
+    """Float64 sums of a small vector over the mesh's data rows (on a 'model'
+    axis, the sums of the peer at coordinate 0)."""
     v = torch.stack([t.to(torch.float64).reshape(()) for t in values])
     if mesh.data_group is not None:
         dist.all_reduce(v, group=mesh.data_group)
+    agree_over_model_([v], mesh)
     return v
 
 
@@ -104,9 +117,9 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
     """
     loss_fn = get_loss(loss_name)
     ops = parse_augment_spec(augment)
-    bands = None
+    bands = tp = None
     if mesh is not None:
-        shard_train_step(model, optimizer, mesh)
+        tp = shard_train_step(model, optimizer, mesh)
         bands = _Bands(mesh) if mesh.spatial else None
 
     def step(images_u8, masks_u8, generator) -> Dict[str, torch.Tensor]:
@@ -118,11 +131,16 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
         images, masks = augment_batch(images_u8, masks_u8, ops, generator, shard)
         if bands is not None:
             images = bands(global_batch, images)
+        if tp is not None:
+            tp.gather()
         optimizer.zero_grad()
         heads = _heads(model, images, mesh)
         loss = sum(loss_fn(o, masks) for o in heads) / len(heads)
         loss.backward()
         optimizer.step()
+        if tp is not None:
+            agree_over_model_(list(model.buffers()), mesh)
+            tp.free()
         final = heads[-1].detach()
         if mesh is None:
             return {"loss": loss.detach(), "iou": iou_score(final, masks),
@@ -145,7 +163,8 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
     Runs the eval forward without gradients and restores the model's mode.
     With `mesh`, the batch and its weights are this rank's rows of a global
     batch, and the metrics are the global batch's; under 'x'/'y' the model
-    runs on this rank's band of them (put on the mesh here too).
+    runs on this rank's band of them (put on the mesh here too); under
+    'model' on its weights gathered for the step.
     """
     wloss_fn = get_weighted_loss(loss_name)
     wloss_sums, wloss_finish = get_weighted_loss_sums(loss_name)
@@ -162,7 +181,8 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
             images, masks = eval_transform(images_u8, masks_u8)
             if bands is not None:
                 images = bands(images.shape[0] * mesh.size, images)
-            heads = _heads(model, images, mesh)
+            with full_weights(model):
+                heads = _heads(model, images, mesh)
             if mesh is None:
                 loss = sum(wloss_fn(o, masks, weights) for o in heads) / len(heads)
                 return {"loss": loss, "iou": iou_score_weighted(heads[-1], masks, weights),

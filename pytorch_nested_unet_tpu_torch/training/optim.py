@@ -19,10 +19,26 @@ Under a data mesh (`mesh`, set by `parallel.mesh.shard_train_step`) the
 gradients are averaged across ranks once per update, after the K micro-batches
 are accumulated and before the finiteness test, which therefore reads the
 same averaged gradients on every rank, so every rank skips together. The
-all-reduce runs over the whole world and divides by the 'data' size
-(`parallel.mesh.all_reduce_mean_`): under the 'x'/'y' axes each rank of a
-data row holds its band's share of the gradient of the same loss, so the
-bands' shares are summed and the data rows' gradients averaged.
+all-reduce runs over the batch group (the whole world off a 'model' axis)
+and divides by the 'data' size (`parallel.mesh.all_reduce_mean_`): under the
+'x'/'y' axes each rank of a data row holds its band's share of the gradient
+of the same loss, so the bands' shares are summed and the data rows'
+gradients averaged.
+
+Under a 'model' axis (`shard`, from `parallel.mesh.shard_train_step`) the
+inner torch optimizer steps this rank's slice of each sharded weight
+(`TensorParallel.shards`) in place of the weight, so its momentum or Adam
+moments are slices too: the whole gradients are averaged over the batch
+group and then taken from the 'model' peer at coordinate 0, so they are
+bitwise equal on every peer; the finiteness test reads them whole
+(every rank skips together), and each slice takes its rows of its weight's
+gradient. The update is elementwise, so the slices are the rows of the
+update the unsharded optimizer makes. The `accum_steps` accumulator stays
+whole (the JAX package shards MultiSteps' accumulator with the weights;
+`param_shaped_leaves` counts it as the JAX package does). `state_dict()`
+gives the whole layout (the slices' state gathered over the 'model' peers:
+a collective), which restores under any mesh; `state_dict(full=False)` this
+rank's own, for the sharded checkpoints.
 
 `LRSchedule` is the host-side per-epoch controller of the reference's four
 schedulers.
@@ -62,10 +78,45 @@ class Optimizer:
         self._acc = None
         self._mini_step = 0
         self.mesh = None  # a parallel.mesh.Mesh: gradients averaged across its ranks
+        self.tp = None  # a parallel.mesh.TensorParallel: the slices stepped instead
+        self.targets = self.params  # what the inner optimizer steps, one per parameter
 
     @property
     def param_groups(self):
         return self.inner.param_groups
+
+    def param_shaped_leaves(self) -> int:
+        """Leaves of the JAX package's optimizer state per parameter that
+        have its shape: SGD's momentum (none at momentum 0), Adam's two
+        moments, MultiSteps' accumulator."""
+        if isinstance(self.inner, torch.optim.Adam):
+            n = 2
+        else:
+            n = int(self.inner.defaults["momentum"] != 0)
+        return n + int(self.accum_steps > 1)
+
+    def shard(self, tp):
+        """Step `tp`'s slices in place of the weights they are rows of, the
+        state kept so far cut to them (`tp`: parallel.mesh.TensorParallel)."""
+        state = self.inner.state_dict()
+        self.tp = tp
+        self.targets = [tp.shards.get(p, p) for p in self.params]
+        self.inner = type(self.inner)(self.targets, **self.inner.defaults)
+        self.inner.load_state_dict(self._local(state))
+
+    def _local(self, state):
+        """A whole-layout inner state dict cut to this rank's slices: each
+        per-parameter state tensor of a sharded parameter's shape (Adam's
+        scalar step stays)."""
+        if self.tp is None:
+            return state
+        out = dict(state, state={})
+        for i, st in state["state"].items():
+            p = self.params[i]
+            out["state"][i] = {k: self.tp.rows(v, self.tp.dims[p]).clone()
+                               if p in self.tp.shards and torch.is_tensor(v)
+                               and v.shape == p.shape else v for k, v in st.items()}
+        return out
 
     def layout(self) -> dict:
         """What fixes the structure of the state: the update rule and which
@@ -74,20 +125,44 @@ class Optimizer:
                 "skip_nonfinite": bool(self.skip_nonfinite),
                 "accum_steps": self.accum_steps > 1}
 
-    def state_dict(self) -> dict:
-        return {"layout": self.layout(), "inner": self.inner.state_dict(),
+    def state_dict(self, full: bool = True) -> dict:
+        """The state; `full`: in the whole layout (under a 'model' axis the
+        slices' state gathered over the peers, which every peer must call),
+        else with this rank's slices as they are."""
+        inner = self.inner.state_dict()
+        if full and self.tp is not None:
+            inner = self._whole(inner)
+        return {"layout": self.layout(), "inner": inner,
+                "sharded": not full and self.tp is not None,
                 "notfinite_run": self.notfinite_run, "total_notfinite": self.total_notfinite,
                 "acc": self._acc, "mini_step": self._mini_step}
+
+    def _whole(self, state):
+        """An inner state dict of slices in the whole layout: one all-gather
+        of every sliced state tensor, in the parameters' order."""
+        sliced = [(i, k) for i, st in sorted(state["state"].items()) for k, v in st.items()
+                  if self.params[i] in self.tp.shards and torch.is_tensor(v) and v.dim()
+                  and v.shape == self.targets[i].shape]
+        wholes = self.tp.all_gather([state["state"][i][k] for i, k in sliced],
+                                    [self.tp.dims[self.params[i]] for i, _ in sliced])
+        out = dict(state, state={i: dict(st) for i, st in state["state"].items()})
+        for (i, k), v in zip(sliced, wholes):
+            out["state"][i][k] = v
+        return out
 
     def load_state_dict(self, state: dict):
         """Restore a state_dict() of an optimizer with the same layout; the
         hyperparameters stay this optimizer's (the JAX package rebuilds its
-        chain from the flags and restores only its state)."""
+        chain from the flags and restores only its state). A whole-layout
+        state goes onto this optimizer's 'model' axis, if it has one, as
+        each rank's slices; a sharded one (`state_dict(full=False)`) must
+        have been cut for this rank's slices."""
         if state["layout"] != self.layout():
             raise ValueError(f"optimizer state layout {state['layout']} differs from this "
                              f"optimizer's {self.layout()}")
         hyper = [{k: v for k, v in g.items() if k != "params"} for g in self.inner.param_groups]
-        self.inner.load_state_dict(state["inner"])
+        self.inner.load_state_dict(state["inner"] if state.get("sharded")
+                                   else self._local(state["inner"]))
         for group, h in zip(self.inner.param_groups, hyper):
             group.update(h)
         self.notfinite_run = int(state["notfinite_run"])
@@ -97,6 +172,8 @@ class Optimizer:
         self._mini_step = int(state["mini_step"])
 
     def zero_grad(self):
+        for p in self.params:
+            p.grad = None
         self.inner.zero_grad(set_to_none=True)
 
     def _grads(self):
@@ -126,8 +203,8 @@ class Optimizer:
                 self.total_notfinite += 1
                 if self.notfinite_run <= self.skip_nonfinite:
                     return
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        for p, t, g in zip(self.params, self.targets, grads):
+            t.grad = g if t is p else self.tp.rows(g, self.tp.dims[p])
         self.inner.step()
 
 
@@ -153,6 +230,21 @@ def nonfinite_count(opt) -> Optional[int]:
     """Skipped (non-finite) updates since the start, or None when
     `skip_nonfinite` is off."""
     return opt.total_notfinite if opt.skip_nonfinite else None
+
+
+def state_bytes(module: torch.nn.Module, opt: Optimizer) -> int:
+    """Bytes this rank holds of `module`'s parameters and `opt`'s state (a
+    JAX TrainState's params and opt_state): every distinct storage among the
+    parameters (a weight freed on the 'model' axis holds none), the slices
+    `opt` steps, their per-parameter state and the gradient accumulator."""
+    tensors = [*module.parameters(), *opt.targets, *(opt._acc or ()),
+               *(v for st in opt.inner.state.values() for v in st.values() if torch.is_tensor(v))]
+    storages = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.nbytes():
+            storages[(st.data_ptr(), t.device)] = st.nbytes()
+    return sum(storages.values())
 
 
 def params_all_finite(params) -> bool:

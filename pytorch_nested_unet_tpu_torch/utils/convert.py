@@ -47,6 +47,7 @@ from ..models.dual_deeplab import DeepLab
 from ..models.ghost import UNetRNNGhost
 from ..models.psp_hybrid import _PSPTail
 from ..models.rdc import GATES, _UNetRNNBase
+from ..ops.layers import JAX_KERNEL_TO_PORT
 
 # flax leaf -> torch leaf for batch-norm parameters and statistics
 _BN_LEAVES = {"scale": "weight", "bias": "bias",
@@ -267,8 +268,8 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
             if path and path[-1] in ("conv", "dense"):
                 base = ".".join(path[:-1])
                 if k == "kernel":
-                    out[base + ".weight"] = torch.from_numpy(arr.transpose(
-                        (3, 2, 0, 1) if path[-1] == "conv" else (1, 0)).copy())
+                    out[base + ".weight"] = torch.from_numpy(
+                        arr.transpose(JAX_KERNEL_TO_PORT[arr.ndim]).copy())
                 elif k == "bias":
                     out[base + ".bias"] = torch.from_numpy(arr.copy())
                 else:
@@ -276,7 +277,8 @@ def state_dict_from_jax(variables: Mapping, arch: str = "NestedUNet") -> Dict[st
             elif k in _BN_LEAVES or k == "gamma":
                 out[".".join(path) + "." + _BN_LEAVES.get(k, k)] = torch.from_numpy(arr.copy())
             elif k == "kernel" and arr.ndim == 2:
-                out[".".join(path) + ".weight"] = torch.from_numpy(arr.T.copy())
+                out[".".join(path) + ".weight"] = torch.from_numpy(
+                    arr.transpose(JAX_KERNEL_TO_PORT[2]).copy())
             elif arr.ndim == 1 and not path:
                 out[k] = torch.from_numpy(arr.copy())
             else:

@@ -30,7 +30,7 @@ from pytorch_nested_unet_tpu_torch.utils.config import load_config, str2bool
 KW = '{"nb_filter": [4, 8, 16, 32, 64]}'
 NAME = "synth_NestedUNet_wDS"
 # flags of the JAX CLI the port does not have (ROADMAP.md queue 1)
-JAX_ONLY = {"fused_bn", "fused_bn_mode", "checkpoint_backend", "platform"}
+JAX_ONLY = {"fused_bn", "fused_bn_mode", "platform"}
 
 
 def _write_set(root, n=14, size=32):
@@ -251,19 +251,23 @@ def test_folder_cli_exits_on_empty_or_small_sets(tmp_path):
     with pytest.raises(SystemExit, match="batch_size 16 exceeds"):
         ptrain.main(base + ["--dataset", "small"])
     # what is not ported is refused with a message, never run on one process
-    # in silence: the 'model' axis; under the 'x'/'y' axes bands that the 4
-    # pools would split (32 rows over x=4), another arch, --remat; and
-    # --spatial_partition on an odd process count
-    for flags, match in ((["--mesh", "data=1,model=2"], "'model' mesh axis is not ported"),
-                         (["--mesh", "x=4"], "multiple of 16 \\* x = 64"),
+    # in silence: an axis the JAX package does not have; under the 'x'/'y'
+    # axes bands that the 4 pools would split (32 rows over x=4), another
+    # arch, --remat; --spatial_partition on an odd process count; and a
+    # 'model' axis the processes do not cover (tests/test_torch_model_axis.py
+    # runs it)
+    with pytest.raises(SystemExit, match="'pipe' mesh axis is not ported"):
+        ptrain.main(base + ["--dataset", "small", "--mesh", "data=1,pipe=2"])
+    for flags, match in ((["--mesh", "x=4"], "multiple of 16 \\* x = 64"),
                          (["--mesh", "x=2", "--arch", "UNetRNN"], "not UNetRNN"),
                          (["--mesh", "x=2", "--remat", "full"], "--remat full")):
         with pytest.raises(SystemExit, match=match + ".*ROADMAP.md"):
             ptrain.main(base + ["--dataset", "small"] + flags)
     with pytest.raises(SystemExit, match="--spatial_partition needs an even process count"):
         ptrain.main(base + ["--dataset", "small", "--spatial_partition", "true"])
-    with pytest.raises(SystemExit, match="needs 2 processes, have 1"):
-        ptrain.main(base + ["--dataset", "small", "--mesh", "data=2"])
+    for spec in ("data=2", "data=1,model=2"):
+        with pytest.raises(SystemExit, match="needs 2 processes, have 1"):
+            ptrain.main(base + ["--dataset", "small", "--mesh", spec])
     with pytest.raises(SystemExit):  # nor --fused_bn: the port's BN always runs K1-K3
         ptrain.parse_args(base + ["--fused_bn", "true"])
 

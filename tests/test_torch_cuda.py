@@ -563,3 +563,128 @@ def test_attention_archs_serve_on_the_card_like_the_cpu(cuda, arch, kw):
     loss = step(imgs, imgs[..., :1], torch.Generator(device=cuda))["loss"]
     assert torch.isfinite(loss)
     assert (dict(bn.LAUNCHES), df.LAUNCHES) == before
+
+
+def test_train_step_is_bitwise_repeatable_under_deterministic_algorithms(cuda, monkeypatch):
+    """Under torch.use_deterministic_algorithms(True) the narrow NestedUNet
+    wDS fp32 step runs on the card (the bilinear upsample's gradient is
+    the port's matmul adjoint; F.interpolate's backward adds with atomics
+    and torch refuses it in that mode) and gives the same loss, gradients
+    and running statistics bit for bit on every run."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    g = torch.Generator().manual_seed(4)
+    imgs = torch.randint(0, 256, (4, 32, 32, 3), generator=g, dtype=torch.uint8).to(cuda)
+    masks = (torch.rand(4, 32, 32, 1, generator=g) > 0.6).to(torch.uint8).mul(255).to(cuda)
+
+    def run():
+        m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW,
+                         generator=torch.Generator().manual_seed(3)).to(cuda)
+        opt = build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
+        loss = make_train_step(m, opt, "BCEDiceLoss", True, "none")(
+            imgs, masks, torch.Generator(cuda).manual_seed(0))["loss"]
+        return [loss.detach().cpu()] + [t.detach().cpu() for t in
+                                        [*(p.grad for p in m.parameters()), *m.buffers()]]
+
+    torch.use_deterministic_algorithms(True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        first, second = run(), run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = was
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+_MODEL_AXIS_WORKER = """
+import sys
+import torch
+from pytorch_nested_unet_tpu_torch.models import create_model
+from pytorch_nested_unet_tpu_torch.parallel import initialize_distributed, make_mesh
+from pytorch_nested_unet_tpu_torch.parallel.mesh import full_weights, tensor_parallel_of
+from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
+from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer, state_bytes
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", rank)
+torch.cuda.set_device(dev)
+initialize_distributed(backend="nccl", device=dev, world_size=2, rank=rank,
+                       init_method=f"tcp://127.0.0.1:{port}")
+m = create_model("NestedUNet", 1, 3, True, nb_filter=(4, 8, 16, 32, 64),
+                 generator=torch.Generator().manual_seed(3)).to(dev)
+opt = build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
+mesh = make_mesh((2,), ("model",))
+mesh.min_shardable = 512
+step = make_train_step(m, opt, "BCEDiceLoss", True, "none", mesh)
+g = torch.Generator().manual_seed(4)
+imgs = torch.randint(0, 256, (4, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
+masks = (torch.rand(4, 32, 32, 1, generator=g) > 0.6).to(torch.uint8).mul(255).to(dev)
+loss = step(imgs, masks, torch.Generator(dev).manual_seed(0))["loss"].item()
+tp = tensor_parallel_of(m)
+nbytes = state_bytes(m, opt)
+with full_weights(m):
+    params = {n: p.detach().cpu() for n, p in m.named_parameters()}
+for _ in range(2):
+    step(imgs, masks, torch.Generator(dev).manual_seed(0))
+with full_weights(m):
+    later = {n: t.detach().cpu() for n, t in [*m.named_parameters(), *m.named_buffers()]}
+torch.save({"loss": loss, "params": params, "sharded": len(tp.shards), "bytes": nbytes,
+            "later": later}, out)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_model_axis_on_two_cards_matches_one_card(cuda, tmp_path):
+    """The narrow NestedUNet wDS step under a 'model' = 2 mesh over NCCL, a
+    card a rank (each rank all 4 rows, its slices of the deeper kernels and
+    their momentum), against the step without a mesh on the first card:
+    loss within 1e-5 and every updated parameter within 1e-5 (the card's
+    step adds some gradients with atomics, so not bitwise); each rank holds
+    fewer bytes of state than the whole; after two more steps both ranks
+    hold bitwise the same parameters and running statistics."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _MODEL_AXIS_WORKER, str(r), str(port),
+                               str(tmp_path / f"r{r}.pt")], env=env, cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW,
+                     generator=torch.Generator().manual_seed(3)).to(cuda)
+    opt = build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
+    g = torch.Generator().manual_seed(4)
+    imgs = torch.randint(0, 256, (4, 32, 32, 3), generator=g, dtype=torch.uint8).to(cuda)
+    masks = (torch.rand(4, 32, 32, 1, generator=g) > 0.6).to(torch.uint8).mul(255).to(cuda)
+    loss = make_train_step(m, opt, "BCEDiceLoss", True, "none")(
+        imgs, masks, torch.Generator(cuda).manual_seed(0))["loss"].item()
+    whole = 8 * sum(p.numel() for p in m.parameters())
+    for r in range(2):
+        got = torch.load(tmp_path / f"r{r}.pt", weights_only=False)
+        assert got["sharded"] > 0 and got["bytes"] < whole
+        assert abs(got["loss"] - loss) <= 1e-5
+        for n, p in m.named_parameters():
+            np.testing.assert_allclose(got["params"][n].numpy(), p.detach().cpu().numpy(),
+                                       atol=1e-5, rtol=1e-5, err_msg=n)
+    later = [torch.load(tmp_path / f"r{r}.pt", weights_only=False)["later"] for r in range(2)]
+    for n, t in later[0].items():
+        assert torch.equal(t, later[1][n]), n

@@ -37,6 +37,39 @@ def test_resize_bilinear_identity_and_shrink():
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("src,dst", [((48, 48), (96, 96)), ((7, 5), (14, 10)), ((9, 6), (4, 5)),
+                                     ((1, 1), (3, 3)), ((3, 3), (6, 6))])
+def test_resize_bilinear_gradient_under_deterministic_algorithms(src, dst, align_corners):
+    """Under torch.use_deterministic_algorithms(True) the resize's gradient
+    is its adjoint as two matmuls (a card's F.interpolate backward adds with
+    atomics, and torch refuses it in that mode): the forward is the same
+    bits, the gradient is the operator's own backward's within 1e-6, and it
+    is no further from the JAX resize's VJP than that backward is (1.5e-5 at
+    48 -> 96 with align_corners: the two take the positions in float32 and
+    float64) plus 1e-6."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, *src, 3)).astype(np.float32)
+    g = rng.standard_normal((2, *dst, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: jresize.resize_bilinear(v, dst, align_corners=align_corners),
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    t = torch.from_numpy(x).requires_grad_()
+    plain = tresize.resize_bilinear(t, dst, align_corners=align_corners)
+    (plain_grad,) = torch.autograd.grad(plain, t, torch.from_numpy(g))
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = tresize.resize_bilinear(t, dst, align_corners=align_corners)
+        (got,) = torch.autograd.grad(out, t, torch.from_numpy(g))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert type(out.grad_fn).__name__ == "_DeterministicBilinearBackward"
+    assert torch.equal(out, plain)
+    np.testing.assert_allclose(got.numpy(), plain_grad.numpy(), atol=1e-6, rtol=1e-6)
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= np.abs(plain_grad.numpy() - want).max() + 1e-6
+
+
 @pytest.mark.parametrize("hw", [(8, 8), (7, 9), (5, 4)])
 def test_max_pool2x2_floor_mode(hw):
     x = np.random.default_rng(2).standard_normal((2, *hw, 3)).astype(np.float32)

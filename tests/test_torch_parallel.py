@@ -88,12 +88,16 @@ def test_one_process_mesh_and_its_refusals():
     mesh = tmesh.make_mesh()
     assert mesh.shape == {"data": 1} and mesh.group is None and mesh.index == 0
     assert tmesh.batch_sharding(mesh, 6) == slice(0, 6)
-    # the 'x'/'y' axes are ported (tests/test_torch_spatial.py); 'model' is not
+    # the 'x'/'y' axes (tests/test_torch_spatial.py) and 'model'
+    # (tests/test_torch_model_axis.py) are ported; an axis the JAX package
+    # does not have is not
     spatial = tmesh.make_mesh((1, 1), ("data", "y"))
     assert spatial.spatial and tmesh.batch_sharding(spatial, 6) == slice(0, 6)
     for names in (("model",), ("data", "model")):
-        with pytest.raises(ValueError, match="'model' mesh axis is not ported.*ROADMAP.md"):
-            tmesh.make_mesh((1,) * len(names), names)
+        tp = tmesh.make_mesh((1,) * len(names), names)
+        assert tp.tensor_parallel and not tp.spatial and tp.model_group is None
+    with pytest.raises(ValueError, match="'pipe' mesh axis is not ported"):
+        tmesh.make_mesh((1, 1), ("data", "pipe"))
     # under x/y: bands that the 4 pools would split, another arch, --remat
     with pytest.raises(ValueError, match="multiple of 16 \\* x = 64.*ROADMAP.md"):
         tmesh.check_spatial("UNet", None, (32, 32), {"x": 4})
