@@ -143,9 +143,15 @@
    step (dp_phase's gates), 30 launches of K1 in its sums-only mode,
    `bn_finish`, K2 and K3 and 10 of K4 per NestedUNet step (18 and 4 for
    UNet), halo bytes and host ms in the halo exchange and `gather_bands`
-   per step, the step's p50 (a correctness run); then `train.main --mesh
-   x=2` over 2 processes (`--gloo-train`) on dp_cli's narrow folder
-   against `--mesh data=1`;
+   per step, the step's p50 (a correctness run); then on 2 of the ranks
+   AttU_Net (no kernel) and UNetRNN (GRU; 15 of K1 sums-only, `bn_finish`,
+   K2 and K3, its carry resized on bands) under x=2, and NestedUNet wDS
+   under x=2 with --remat full (60 / 60 / 30 / 30, K4 20) and policy, each
+   remat run also against the band step without remat on the same ranks
+   (both under deterministic algorithms: 1e-4 relative L2, statistics
+   equal) with each step's peak device memory a rank (policy's below
+   none's); then `train.main --mesh x=2` over 2 processes
+   (`--gloo-train`) on dp_cli's narrow folder against `--mesh data=1`;
 11j. the 'model' mesh axis (`model_phase`): on this card over Gloo,
    NestedUNet wDS under data=2,model=2 (4 ranks, `--model-worker`; full
    width, 96x96, global batch 16, fp32, SGD) against data=2 on two of the
@@ -183,6 +189,8 @@ Any failed check raises, so the script exits non-zero and prints no result.
 import contextlib
 import copy
 import csv
+import functools
+import gc
 import json
 import os
 import re
@@ -2518,26 +2526,45 @@ def deterministic():
         torch.backends.cudnn.deterministic = was[1]
 
 
+def _bn_fed_biases(m):
+    """The names of the conv biases that feed a BN (a conv and its sibling
+    BN just after it, fused or plain)."""
+    from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
+    from pytorch_nested_unet_tpu_torch.ops.layers import BatchNorm
+
+    names = set()
+    for prefix, mod in m.named_modules():
+        kids = list(mod.named_children())
+        for (name, conv), (_, bn) in zip(kids, kids[1:]):
+            if isinstance(bn, (FusedBatchNormReLU, BatchNorm)) and \
+                    getattr(conv, "bias", None) is not None:
+                names.add(f"{prefix}.{name}.bias" if prefix else f"{name}.bias")
+    return names
+
+
 def _dp_build(mesh=None, dtype=None, augment="none", moved=0.0, device="cuda",
-              arch="NestedUNet", noise_seed=12):
-    """Full-width NestedUNet wDS (or UNet) from seed 11 on `device` and its
-    SGD train step (under `mesh`, data-parallel or on bands); `moved`: every
-    weight multiplied by 1 + moved * N(0, 1) (drawn from `noise_seed`), to
-    measure how far rounding moves the step."""
+              arch="NestedUNet", noise_seed=12, remat="none"):
+    """Full-width NestedUNet wDS (or another arch, without deep supervision;
+    NestedUNet under `remat`) from seed 11 on `device` and its SGD train
+    step (under `mesh`, data-parallel or on bands); `moved`: every weight
+    multiplied by 1 + moved * N(0, 1) (drawn from `noise_seed`), to measure
+    how far rounding moves the step."""
     from pytorch_nested_unet_tpu_torch.models import create_model
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
     from pytorch_nested_unet_tpu_torch.training.optim import build_optimizer
 
     ds = arch == "NestedUNet"
-    m = create_model(arch, 1, 3, ds, dtype=dtype, generator=torch.Generator().manual_seed(11))
+    m = create_model(arch, 1, 3, ds, dtype=dtype, generator=torch.Generator().manual_seed(11),
+                     **({} if remat == "none" else {"remat": remat}))
     # the conv biases that feed a BN at 0, as in cpu_step_phase: at their
     # init they dominate the first conv's output, and var = E[x^2] - mean^2
     # then turns the rounding of a BN sum split over ranks into a 3% move of
     # a deep conv's gradient (the step would be held to summation order)
     noise = torch.Generator().manual_seed(noise_seed)
+    fed = _bn_fed_biases(m)
     with torch.no_grad():
         for name, p in m.named_parameters():
-            if name.endswith(("conv1.bias", "conv2.bias")):
+            if name in fed:
                 p.zero_()
             elif moved:
                 p.mul_(1 + moved * torch.randn(p.shape, generator=noise))
@@ -2998,7 +3025,9 @@ def dp_cards(world):
     under data=2,x=2 (`spatial_ranks`; its gradient gates also read the
     N-way data split's own deviation, as one more MOVEMENT_READINGS entry:
     both add every BN sum in N partial sums; it also prints the band step's
-    own movement under the weight readings, F3's evidence) over NCCL. That
+    own movement under the weight readings and, before its gates, the ReLU
+    masks and pool choices that differ from the one-process step's under
+    deterministic algorithms (`flip_reading`), F3's evidence) over NCCL. That
     last check fails its gate by ~4% (ROADMAP.md F3), so it runs after
     every other."""
     from pytorch_nested_unet_tpu_torch.ops import _build
@@ -3035,26 +3064,52 @@ def dp_cards(world):
 
 
 # Spatial partitioning (the 'x'/'y' mesh axes): (arch, --mesh spec, ranks,
-# steps, launches per rank per step). NestedUNet wDS's 30 BN layers through
-# K1's sums-only mode, bn_finish, K2 and K3 and its 10 K4 nodes; UNet's 18
-# and 4. On one card over Gloo (NCCL refuses two ranks on one device);
-# `--dp-cards 4` adds data=2,x=2 over NCCL, a card a rank. Each gradient is
-# held as dp_ranks holds it (GATE_FACTOR x its largest movement over
-# MOVEMENT_READINGS, and under `--dp-cards` the data split's own deviation):
-# a band's BN sums and the gathered heads' sums add in another order, as a
-# data split's do. data=2,x=2 over NCCL exceeds this gate by 4% at one
+# steps, launches per rank per step, --remat). NestedUNet wDS's 30 BN layers
+# through K1's sums-only mode, bn_finish, K2 and K3 and its 10 K4 nodes
+# (under --remat full 60 K1 and bn_finish, whose recompute runs them again,
+# and 20 K4); UNet's 18 and 4; UNetRNN's 15 (its GRU decoder's carry resized
+# on bands) and no K4; AttU_Net's plain BNs none. On one card over Gloo
+# (NCCL refuses two ranks on one device); `--dp-cards 4` adds data=2,x=2
+# over NCCL, a card a rank. Each gradient is held as dp_ranks holds it
+# (GATE_FACTOR x its largest movement over MOVEMENT_READINGS, and under
+# `--dp-cards` the data split's own deviation): a band's BN sums and the
+# gathered heads' sums add in another order, as a data split's do. The
+# remat runs are also held to the band step without remat on the same ranks
+# (both under `deterministic`: 1e-4 relative L2, the running statistics
+# equal, as remat_phase holds remat on one card), and print each rank's
+# peak memory in both. data=2,x=2 over NCCL exceeds its gate by 4% at one
 # level-3 gradient (ROADMAP.md queue 3, F3).
 SPATIAL_RUNS = {
-    "NestedUNet x=2": ("NestedUNet", "data=1,x=2", 2, 3, DP_LAUNCHES),
-    "UNet x=2,y=2": ("UNet", "x=2,y=2", 4, 1, {**bn_want(18, 18), "multipart_conv3x3": 4}),
-    "NestedUNet data=2,x=2": ("NestedUNet", "data=2,x=2", 4, 3, DP_LAUNCHES),
+    "NestedUNet x=2": ("NestedUNet", "data=1,x=2", 2, 3, DP_LAUNCHES, "none"),
+    "UNet x=2,y=2": ("UNet", "x=2,y=2", 4, 1, {**bn_want(18, 18), "multipart_conv3x3": 4},
+                     "none"),
+    "NestedUNet data=2,x=2": ("NestedUNet", "data=2,x=2", 4, 3, DP_LAUNCHES, "none"),
+    "AttU_Net x=2": ("AttU_Net", "data=1,x=2", 2, 2, {**bn_want(0), "multipart_conv3x3": 0},
+                     "none"),
+    "UNetRNN x=2": ("UNetRNN", "data=1,x=2", 2, 2,
+                    {**bn_want(UNETRNN_BN_PER_STEP, UNETRNN_BN_PER_STEP),
+                     "multipart_conv3x3": 0}, "none"),
+    "NestedUNet x=2 remat full": ("NestedUNet", "data=1,x=2", 2, 2,
+                                  {"bn_stats": 60, "bn_bwd_reduce": 30, "bn_bwd_dx": 30,
+                                   "bn_finish": 60, "multipart_conv3x3": 20}, "full"),
+    "NestedUNet x=2 remat policy": ("NestedUNet", "data=1,x=2", 2, 2, DP_LAUNCHES, "policy"),
 }
 SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
                             "spatial")
 # The band runs whose workers also step under MOVEMENT_READINGS' weight
 # changes (the seeds), to read how far the band step moves against its own
-# unperturbed step: printed beside the gate, not added to it (F3)
-BAND_READINGS = {"NestedUNet data=2,x=2": (12, 13, 14)}
+# unperturbed step. For data=2,x=2 the readings are printed beside its gate,
+# not added to it (F3). The runs of BAND_GATED add them to their gates: the
+# archs after UNet and NestedUNet, whose full-width steps on bands sit at
+# discrete choices within rounding of their edge (UNetRNN's band step chooses
+# otherwise than the one-process step in one level-2 max-pool window, whose
+# two largest values are 3.96e-6 apart, and so moves conv3's gradients by
+# 1.08e-3; a 1e-7 change of the weights moves the band step back). A fault
+# of the band path would move the band steps alike under every weight
+# change, and so stay outside the gate.
+BAND_READINGS = {"NestedUNet data=2,x=2": (12, 13, 14), "AttU_Net x=2": (12, 13, 14),
+                 "UNetRNN x=2": (12, 13, 14)}
+BAND_GATED = {"AttU_Net x=2", "UNetRNN x=2"}
 
 
 def _spatial_slug(run):
@@ -3084,7 +3139,7 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                            init_method=f"tcp://127.0.0.1:{port}")
     try:
         for run in runs.split(";"):
-            arch, spec, ranks, steps, _ = SPATIAL_RUNS[run]
+            arch, spec, ranks, steps, _, remat = SPATIAL_RUNS[run]
             # every rank creates every group (new_group is collective)
             group = dist.group.WORLD if ranks == world else dist.new_group(list(range(ranks)))
             if rank >= ranks:
@@ -3094,11 +3149,21 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
             x, y = _dp_batch()
             rows = batch_sharding(mesh, BATCH)
             batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
-            m, step = _dp_build(mesh, device=dev, arch=arch)
+            out = {}
+            if remat != "none":
+                # the band step without remat on the same ranks, both steps
+                # under deterministic algorithms, each from a fresh model
+                # with the peak counted from its step's start
+                with deterministic():
+                    m, step = _dp_build(mesh, device=dev, arch=arch)
+                    out["none_result"], out["none_peak"] = _peak_step(m, step, batch, dev)
+                del m, step
+                gc.collect()
+            m, step = _dp_build(mesh, device=dev, arch=arch, remat=remat)
             reset_counts(bn, df)
             halo.reset_stats()
-            result = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
-            torch.cuda.synchronize()
+            with deterministic() if remat != "none" else contextlib.nullcontext():
+                result, out["peak"] = _peak_step(m, step, batch, dev)
             first, stats = launch_counts(bn, df), dict(halo.STATS)
             halo.reset_stats()
             times = []
@@ -3110,10 +3175,22 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
             # the first step also pays the collectives' set-up (NCCL creates
             # its communicators at their first use)
             steady = {k: v / len(times) for k, v in halo.STATS.items()} if times else None
-            out = {"result": result, "launches": first, "halo": stats, "steady": steady,
-                   "backend": dist.get_backend(), "total": launch_counts(bn, df),
-                   "p50": float(np.median(times)) if times else None}
+            out.update(result=result, launches=first, halo=stats, steady=steady,
+                       backend=dist.get_backend(), total=launch_counts(bn, df),
+                       p50=float(np.median(times)) if times else None)
             del m, step
+            if run in FLIP_READINGS:
+                # the band step again under deterministic algorithms, its
+                # ReLU masks and pool choices recorded (flip_reading compares them)
+                with deterministic():
+                    m, step = _dp_build(mesh, device=dev, arch=arch)
+                    record = ActivationRecord(m)
+                    try:
+                        out["flips"] = {"result": _dp_result(m, step(
+                            *batch, torch.Generator(dev).manual_seed(0))), **record.band()}
+                    finally:
+                        record.close()
+                del m, step
             if run in BAND_READINGS:
                 # the band step's own movement under MOVEMENT_READINGS' weight
                 # changes, against its own unperturbed step, and that step
@@ -3132,6 +3209,16 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _peak_step(m, step, batch, dev):
+    """(the step's result, the peak of device memory allocated during it,
+    in MiB): the model and its optimizer state are in it."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    result = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
+    torch.cuda.synchronize(dev)
+    return result, torch.cuda.max_memory_allocated(dev) / 2**20
 
 
 def spatial_ranks(runs, backend, references, card):
@@ -3156,18 +3243,27 @@ def spatial_ranks(runs, backend, references, card):
           ";".join(runs)] for rank in range(world)], f"spatial ({backend})")
     results = {}
     for run in runs:
-        arch, spec, ranks, steps, want = SPATIAL_RUNS[run]
+        arch, spec, ranks, steps, want = SPATIAL_RUNS[run][:5]
         plain, _, movement, readings = references[run]
-        gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
         results[run] = []
-        for rank in range(ranks):
-            r = torch.load(os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"),
-                           weights_only=False)
+        outs = [torch.load(os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"),
+                           weights_only=False) for rank in range(ranks)]
+        if run in BAND_GATED:  # the band step's own movement joins the readings
+            band = {f"band {k}": v for k, v in outs[0]["band_readings"].items()
+                    if k.startswith("weights")}
+            movement = {n: max([v] + [b[n] for b in band.values()]) for n, v in movement.items()}
+            readings = {**readings, **band}
+        gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
+        if run in FLIP_READINGS:  # before the gates, which data=2,x=2's fails (F3)
+            flip_reading(run, outs, card)
+        for rank, r in enumerate(outs):
             if r["launches"] != want:
                 raise AssertionError(f"spatial {run} rank {rank}: launches {r['launches']} per "
                                      f"step, expected {want}")
             if "band_steps" in r:
                 _print_band_readings(run, r, plain, gate, movement, readings, card)
+            if "none_result" in r:
+                _hold_remat_band(run, rank, r, card)
             loss_err, stats_err, worst, rel, tol = _dp_compare(
                 r["result"], plain, 1e-5, 1e-5, gate, f"spatial {run} rank {rank}")
             h, st = r["halo"], r["steady"]
@@ -3192,16 +3288,295 @@ def spatial_ranks(runs, backend, references, card):
     return results
 
 
+def _hold_remat_band(run, rank, r, card):
+    """A remat run's band step against the band step without remat on the
+    same rank, both under deterministic algorithms (remat_phase's gates:
+    the loss equal, every gradient within 1e-4 relative L2, the running
+    statistics equal), and the peak device memory of each step; under
+    "policy" the peak must be below the step's without remat."""
+    remat = SPATIAL_RUNS[run][5]
+    none = r["none_result"]
+    rel = _dp_rel(r["result"], none)
+    worst = max(rel, key=rel.get)
+    same_stats = all(torch.equal(b, none[2][n]) for n, b in r["result"][2].items())
+    print(f"spatial {run} rank {rank}: against the band step without remat on the same ranks "
+          f"(both under deterministic algorithms): loss {r['result'][0]:.7f} vs {none[0]:.7f}, "
+          f"gradients: worst {worst} at {rel[worst]:.3g} relative L2 (gate 1e-4), median "
+          f"{np.median(list(rel.values())):.3g}; running stats equal: {same_stats} | peak "
+          f"device memory of the step {r['peak']:.1f} MiB under --remat {remat}, "
+          f"{r['none_peak']:.1f} MiB without | card: {card}", flush=True)
+    if r["result"][0] != none[0] or rel[worst] > 1e-4 or not same_stats:
+        raise AssertionError(f"spatial {run} rank {rank}: the remat step differs from the band "
+                             f"step without remat")
+    if remat == "policy" and not r["peak"] < r["none_peak"]:
+        raise AssertionError(f"spatial {run} rank {rank}: --remat policy's peak {r['peak']:.1f} "
+                             f"MiB is not below the step's without remat ({r['none_peak']:.1f})")
+
+
+# The band runs whose step is also taken again under deterministic algorithms
+# with every ReLU mask and max-pool choice recorded and held against the
+# one-process step's (flip_reading; UNetRNN's shows the pool window behind
+# BAND_GATED)
+FLIP_READINGS = {"NestedUNet data=2,x=2", "UNetRNN x=2"}
+
+
+class ActivationRecord:
+    """One train step's discrete choices: each FusedBatchNormReLU's
+    ReLU mask (its output > 0, i.e. its pre-activation's sign) and each 2x2
+    max-pool's choice (the argmax of every window, and whether the window's
+    largest value is positive: a window of zeros routes no gradient). With
+    `reference`, also each BN's |pre-activation| (from its input and the
+    batch's moments, in float64) and its output's gradient, and each pool
+    window's margin (its largest value less the next). The pools are the
+    model's, in their order (`max_pool2x2` wrapped in the model modules
+    that call it while recording)."""
+
+    def __init__(self, m, reference=False):
+        from pytorch_nested_unet_tpu_torch.models import nested_unet, rdc, unet
+        from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
+
+        self.reference, self.masks, self.pools = reference, {}, []
+        self.z, self.dy, self.margins = {}, {}, []
+        self.handles = [mod.register_forward_hook(functools.partial(self._bn, name))
+                        for name, mod in m.named_modules()
+                        if isinstance(mod, FusedBatchNormReLU)]
+        self._modules = (nested_unet, rdc, unet)
+        self._pool = nested_unet.max_pool2x2
+        for module in self._modules:
+            module.max_pool2x2 = self._pool_hook
+
+    def _bn(self, name, mod, args, out):
+        self.masks[name] = out.detach() > 0
+        if not self.reference:
+            return
+        x = args[0].detach().double().reshape(-1, args[0].shape[-1])
+        mean, var = x.mean(0), x.var(0, unbiased=False)
+        z = ((x - mean) / torch.sqrt(var + mod.eps) * mod.weight.detach().double()
+             + mod.bias.detach().double())
+        self.z[name] = z.abs().float().reshape(out.shape)
+        out.register_hook(lambda g: self.dy.__setitem__(name, g.detach().float()))
+
+    def _pool_hook(self, x):
+        b, h, w, c = x.shape
+        win = x.detach().reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+        top = win.reshape(b, h // 2, w // 2, c, 4).topk(2, -1).values
+        self.pools.append((win.reshape(b, h // 2, w // 2, c, 4).argmax(-1).to(torch.uint8),
+                           top[..., 0] > 0))
+        if self.reference:
+            self.margins.append((top[..., 0] - top[..., 1]).float())
+        return self._pool(x)
+
+    def band(self):
+        """What a rank sends back: its masks and pool choices, on the host."""
+        return {"masks": {k: v.cpu() for k, v in self.masks.items()},
+                "pools": [(a.cpu(), p.cpu()) for a, p in self.pools]}
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+        for module in self._modules:
+            module.max_pool2x2 = self._pool
+
+
+def flip_reading(run, outs, card, device="cuda"):
+    """The flip reading (F3's, ROADMAP.md queue 3): the one-process step
+    (global batch 16) under deterministic algorithms with an
+    ActivationRecord, against each rank's band step under them (the
+    "flips" entry of its output): for every BN, the ReLU-mask entries of
+    each rank's band that differ from the one-process
+    step's cut to the same rows and band, the smallest |pre-activation|
+    among them, and how far those flips alone move the BN's own bias
+    gradient (dbeta = sum of dy over the mask, so a flip adds or drops the
+    one-process step's dy there; relative L2 as _dp_rel takes it) beside
+    how far the band step's bias gradient is off; for every pool, the
+    windows with a positive maximum whose choice differs and their
+    smallest margin ('x' bands: the runs of FLIP_READINGS split no other
+    axis). Prints a line per layer that flips, for NestedUNet where conv3_1
+    sits, and then how far the band step is from the one-process step with
+    the band's choices forced on it (`ForcedChoices`). `device`: where the
+    one-process step runs."""
+    from pytorch_nested_unet_tpu_torch.parallel import parse_mesh_spec
+
+    arch, spec = SPATIAL_RUNS[run][:2]
+    names, sizes = parse_mesh_spec(spec)
+    shape = dict(zip(names, sizes))
+    x, y = _dp_batch()
+    with deterministic():
+        m, step = _dp_build(device=device, arch=arch)
+        record = ActivationRecord(m, reference=True)
+        try:
+            ref = _dp_result(m, step(torch.from_numpy(x).to(device),
+                                     torch.from_numpy(y).to(device),
+                                     torch.Generator(device).manual_seed(0)))
+        finally:
+            record.close()
+    del m, step
+    per, nx = BATCH // shape.get("data", 1), shape.get("x", 1)
+    band_rel = _dp_rel(outs[0]["flips"]["result"], ref)
+    flips, zmin, delta, forced = {}, {}, {}, {}
+    for rank, r in enumerate(outs):
+        coords = dict(zip(names, np.unravel_index(rank, [shape[a] for a in names])))
+        rows = slice(int(coords.get("data", 0)) * per, (int(coords.get("data", 0)) + 1) * per)
+        i = int(coords.get("x", 0))
+
+        def cut(t):
+            hb = t.shape[1] // nx
+            return t[rows, i * hb:(i + 1) * hb]
+
+        def where(diff, full):
+            """The (b, h, w, c) indices of `diff`'s entries in the whole batch."""
+            idx = diff.nonzero()
+            idx[:, 0] += rows.start
+            idx[:, 1] += i * (full.shape[1] // nx)
+            return idx
+
+        for name, mask in r["flips"]["masks"].items():
+            want = cut(record.masks[name])
+            diff = mask.to(device) != want
+            forced.setdefault(name, []).append(where(diff, record.masks[name]))
+            flips[name] = flips.get(name, 0) + int(diff.sum())
+            if diff.any():
+                zmin[name] = min(zmin.get(name, float("inf")),
+                                 float(cut(record.z[name])[diff].min()))
+            step_dy = (mask.to(device).float() - want.float()) * cut(record.dy[name])
+            delta[name] = delta.get(name, 0) + step_dy.sum((0, 1, 2)).double()
+        for level, ((arg, pos), (ref_arg, ref_pos)) in enumerate(zip(r["flips"]["pools"],
+                                                                      record.pools)):
+            diff = (arg.to(device) != cut(ref_arg)) & (pos.to(device) | cut(ref_pos))
+            key = f"pool{level}"
+            forced.setdefault(key, []).append((where(diff, ref_arg), arg.to(device)[diff]))
+            flips[key] = flips.get(key, 0) + int(diff.sum())
+            if diff.any():
+                zmin[key] = min(zmin.get(key, float("inf")),
+                                float(cut(record.margins[level])[diff].min()))
+    grads = ref[1]
+    for name in list(record.masks) + [f"pool{k}" for k in range(len(record.pools))]:
+        if not flips.get(name) and not name.startswith("conv3_1"):
+            continue
+        line = (f"flip reading, spatial {run} against the one-process step, both under "
+                f"deterministic algorithms: {name}: {flips.get(name, 0)} flipped over the "
+                f"{len(outs)} ranks")
+        if flips.get(name):
+            line += f", smallest |{'margin' if name.startswith('pool') else 'pre-activation'}| " \
+                    f"{zmin[name]:.3g}"
+        if name in delta:
+            bias = f"{name}.bias"
+            den = max(grads[bias].norm(), grads[f"{name}.weight"].norm())
+            line += (f"; these flips alone move {bias}'s gradient by "
+                     f"{float(delta[name].norm().cpu() / den):.3g} relative L2, the band step "
+                     f"is off by {band_rel[bias]:.3g}")
+        print(line + f" | card: {card}", flush=True)
+    worst = max(band_rel, key=band_rel.get)
+    where = ""
+    if "conv3_1.bn1" in record.masks:
+        order = list(record.masks).index("conv3_1.bn1") + 1
+        where = (f"; conv3_1 is the decoder node at level 3 ({SIZE >> 3}x{SIZE >> 3}, bands of "
+                 f"{(SIZE >> 3) // nx} rows), fed by conv3_0 and the upsampled conv4_0, its bn1 "
+                 f"and bn2 the BNs {order} and {order + 1} of {len(record.masks)} in forward "
+                 f"order; conv3_1.bn1.bias off by {band_rel['conv3_1.bn1.bias']:.3g}")
+    print(f"flip reading, spatial {run}: {sum(v for k, v in flips.items() if not k.startswith('pool'))}"
+          f" ReLU-mask and {sum(v for k, v in flips.items() if k.startswith('pool'))} pool "
+          f"flips in all; the band step under deterministic algorithms against the one-process "
+          f"step under them: worst {worst} at {band_rel[worst]:.3g}{where} | card: {card}",
+          flush=True)
+    if not any(flips.values()):
+        return
+    # the one-process step again with the band's choices forced on it: each
+    # flipped pre-activation moved across 0, each flipped pool window's
+    # band choice raised above its maximum, by their own size (>= 1e-6)
+    with deterministic():
+        m, step = _dp_build(device=device, arch=arch)
+        force = ForcedChoices(m, {k: torch.cat(v) for k, v in forced.items()
+                                  if not k.startswith("pool")},
+                              {int(k[4:]): (torch.cat([a for a, _ in v]),
+                                            torch.cat([b for _, b in v]))
+                               for k, v in forced.items() if k.startswith("pool")})
+        try:
+            moved = _dp_result(m, step(torch.from_numpy(x).to(device),
+                                       torch.from_numpy(y).to(device),
+                                       torch.Generator(device).manual_seed(0)))
+        finally:
+            force.close()
+    del m, step
+    forced_rel = _dp_rel(outs[0]["flips"]["result"], moved)
+    top = max(forced_rel, key=forced_rel.get)
+    named = [n for n in (worst, "conv3_1.bn1.bias") if n in forced_rel]
+    print(f"flip reading, spatial {run}: the one-process step with the band step's "
+          f"{sum(flips.values())} choices forced on it (each moved across its edge by its own "
+          f"size) against the band step, both under deterministic algorithms: worst {top} at "
+          f"{forced_rel[top]:.3g}, " + ", ".join(
+              f"{n} at {forced_rel[n]:.3g} (unforced {band_rel[n]:.3g})" for n in named)
+          + f", median {np.median(list(forced_rel.values())):.3g} (unforced "
+          f"{np.median(list(band_rel.values())):.3g}) | card: {card}", flush=True)
+
+
+class ForcedChoices:
+    """The discrete choices of a one-process NestedUNet or UNetRNN train step
+    set as a band step made them (flip_reading's evidence): `bn` {BN name:
+    (k, 4) (b, h, w, c) indices}, each pre-activation there moved across 0
+    (the BN's input moved by -(z + sign(z) * max(|z|, 1e-6)) / (gamma * inv),
+    with z, mean and inv from the batch in float64: one entry of thousands,
+    so the batch's moments move by rounding); `pools` {pool index: ((k, 4)
+    indices of the pooled map, the band's choice 0-3 in each window)}, that
+    element raised above the window's maximum by the window's margin (at
+    least 1e-6). The changes are constants added to the activations, so the
+    gradients flow as before."""
+
+    def __init__(self, m, bn, pools):
+        from pytorch_nested_unet_tpu_torch.models import nested_unet, rdc, unet
+        from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
+
+        self.pools, self.calls = pools, 0
+        self.handles = [mod.register_forward_pre_hook(functools.partial(self._bn, bn[name]))
+                        for name, mod in m.named_modules()
+                        if isinstance(mod, FusedBatchNormReLU) and name in bn and len(bn[name])]
+        self._modules = (nested_unet, rdc, unet)
+        self._pool = nested_unet.max_pool2x2
+        for module in self._modules:
+            module.max_pool2x2 = self._pool_hook
+
+    @staticmethod
+    def _bn(idx, mod, args):
+        x = args[0]
+        xd = x.detach().double().reshape(-1, x.shape[-1])
+        mean, inv = xd.mean(0), torch.rsqrt(xd.var(0, unbiased=False) + mod.eps)
+        b, h, w, c = idx.unbind(1)
+        scale = inv[c] * mod.weight.detach().double()[c]
+        z = (x.detach()[b, h, w, c].double() - mean[c]) * scale + mod.bias.detach().double()[c]
+        delta = torch.zeros_like(x)
+        delta[b, h, w, c] = (-(z + torch.sign(z) * z.abs().clamp_min(1e-6)) / scale).to(x.dtype)
+        return (x + delta,)
+
+    def _pool_hook(self, x):
+        level, self.calls = self.calls, self.calls + 1
+        if level in self.pools and len(self.pools[level][0]):
+            (b, h, w, c), choice = self.pools[level][0].unbind(1), self.pools[level][1].long()
+            hi, wi = 2 * h + choice // 2, 2 * w + choice % 2
+            win = x.detach().reshape(x.shape[0], x.shape[1] // 2, 2, x.shape[2] // 2, 2,
+                                     x.shape[3])[b, h, :, w, :, c].reshape(-1, 4)
+            top = win.topk(2, -1).values
+            raised = top[:, 0] + (top[:, 0] - top[:, 1]).clamp_min(1e-6)
+            delta = torch.zeros_like(x)
+            delta[b, hi, wi, c] = raised - x.detach()[b, hi, wi, c]
+            x = x + delta
+        return self._pool(x)
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+        for module in self._modules:
+            module.max_pool2x2 = self._pool
+
+
 def _print_band_readings(run, r, plain, gate, movement, readings, card):
-    """F3's evidence (rank 0: every rank holds the same averaged gradients):
-    a gradient's deviation off the one-process step beside its gate, its
-    one-process readings, the band step's own movement under the same
-    weight changes and the unperturbed step again on a fresh model (each
-    against the first band step, then against the one-process step), for
-    the gradient
-    nearest its gate and the two that the band step moves most; then how
-    many gradients the band step moves more than the one-process step moves
-    under the same changes."""
+    """A BAND_READINGS run's evidence (rank 0: every rank holds the same
+    averaged gradients): a gradient's deviation off the one-process step
+    beside its gate, its one-process readings, the band step's own movement
+    under the same weight changes and the unperturbed step again on a fresh
+    model (each against the first band step, then against the one-process
+    step), for the gradient nearest its gate and the two that the band step
+    moves most; then how many gradients the band step moves more than the
+    one-process step moves under the same changes."""
     rel = _dp_rel(r["result"], plain)
     weights = {k: b for k, b in r["band_readings"].items() if k.startswith("weights")}
     later = {k: _dp_rel(res, plain) for k, res in r["band_steps"].items()}
@@ -3213,8 +3588,8 @@ def _print_band_readings(run, r, plain, gate, movement, readings, card):
     names = [max(rel, key=lambda n: rel[n] / gate[n])]
     names += [n for n in sorted(band_max, key=band_max.get, reverse=True) if n not in names][:2]
     for n in names:
-        print(f"F3 band readings, spatial {run}: {n} off the one-process step by {rel[n]:.3g} "
-              f"(gate {gate[n]:.3g}, unchanged); one-process readings "
+        print(f"band readings, spatial {run}: {n} off the one-process step by {rel[n]:.3g} "
+              f"(gate {gate[n]:.3g}); one-process readings "
               f"({_readings_of(readings, n)}); the band step's own movement against its first "
               f"step (" + ", ".join(f"{k} {b[n]:.3g}" for k, b in r["band_readings"].items())
               + f"), largest under a weight change {band_max[n]:.3g} = "
@@ -3223,7 +3598,7 @@ def _print_band_readings(run, r, plain, gate, movement, readings, card):
               + ", ".join(f"{k} {v[n]:.3g}" for k, v in later.items())
               + f") | card: {card}", flush=True)
     again = max(later["again"][n] / gate[n] for n in rel)
-    print(f"F3 band readings, spatial {run}: the band step moves "
+    print(f"band readings, spatial {run}: the band step moves "
           f"{sum(v > 1 for v in ratio.values())} of {len(ratio)} gradients more than the "
           f"one-process step moves under the same weight changes (median ratio "
           f"{np.median(list(ratio.values())):.3g}, max {max(ratio.values()):.3g}); against the "
@@ -3272,16 +3647,22 @@ def spatial_cli(world, spec, card, gloo):
 
 def spatial_phase(bn, df, card, reference):
     """Spatial partitioning on the one card over Gloo: UNet under x=2,y=2 (4
-    ranks, 1 step, the corners) and NestedUNet wDS under data=1,x=2 (2 of
-    the same ranks, 3 steps; `reference`: its one-process step from
-    _dp_reference), each rank against the one-process step
-    (`spatial_ranks`), then
-    `train --mesh x=2` over 2 processes (`spatial_cli`). Returns {"fp32":
-    launches} of every rank's steps."""
+    ranks, 1 step, the corners), NestedUNet wDS under data=1,x=2 (2 of the
+    same ranks, 3 steps; `reference`: its one-process step from
+    _dp_reference), then on the same 2 ranks AttU_Net and UNetRNN (GRU)
+    under x=2 and NestedUNet wDS under x=2 with --remat full and policy (a
+    checked step and a timed one each), each rank against the one-process
+    step (`spatial_ranks`; the remat runs also against the band step
+    without remat), then `train --mesh x=2` over 2 processes
+    (`spatial_cli`). Returns {"fp32": launches} of every rank's steps."""
     t0 = time.perf_counter()
     totals = {**bn_want(0), "multipart_conv3x3": 0}
-    # the 4-rank run first: the 2-rank run's group is then made by all 4
-    references = {"UNet x=2,y=2": _dp_reference(arch="UNet"), "NestedUNet x=2": reference}
+    # the 4-rank run first: the 2-rank runs' group is then made by all 4
+    references = {"UNet x=2,y=2": _dp_reference(arch="UNet"), "NestedUNet x=2": reference,
+                  "AttU_Net x=2": _dp_reference(arch="AttU_Net"),
+                  "UNetRNN x=2": _dp_reference(arch="UNetRNN"),
+                  "NestedUNet x=2 remat full": reference,
+                  "NestedUNet x=2 remat policy": reference}
     for outs in spatial_ranks(list(references), "gloo", references, card).values():
         for r in outs:
             for k, v in r["total"].items():
@@ -3833,7 +4214,9 @@ def main():
           "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
           "and policy; dp: launches in dp_phase's data-parallel steps, world 1 over NCCL and "
           "2 ranks over Gloo; spatial: launches in spatial_phase's steps on bands (NestedUNet "
-          "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; fp32); model: "
+          "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; AttU_Net (none) and "
+          "UNetRNN x=2, 2 ranks x 2 steps; NestedUNet wDS x=2 under --remat full and policy, "
+          "2 ranks x 2 steps each and 1 step each without remat; fp32); model: "
           "launches in model_phase's steps (NestedUNet wDS data=2,model=2 on 4 ranks and "
           "data=2 on 2 ranks, Gloo: one fp32 step each, twice without 'model'; bf16 the "
           "timed steps); "

@@ -97,6 +97,11 @@ class VGGBlock(nn.Module):
     activation conv2 needs for its weight gradient is not kept but made
     again in backward from conv1's output and bn1's mean and inv
     (`ops.fused_bn.bn_relu`), so no conv and no K1 runs twice.
+
+    On bands (the 'x'/'y' mesh axes, `parallel.mesh.spatial_partition`)
+    "full" runs the block's halo exchanges and its BNs' all-reduces again in
+    the recompute; "policy" keeps of conv2's haloed input only its halo
+    strips and makes its core, y1, again as above.
     """
 
     def __init__(self, in_channels: int, middle_channels: int, out_channels: int,
@@ -123,20 +128,49 @@ class VGGBlock(nn.Module):
         y1, mean, inv = self.bn1.train_forward(x1)
         gamma, beta, dt = self.bn1.weight.detach(), self.bn1.bias.detach(), y1.dtype
         storage = y1.untyped_storage().data_ptr()
+        # On bands conv2's halo pre-hook (parallel/mesh.py) hands it y1 with
+        # its neighbours' edge rows: a copy, which conv2 would keep whole.
+        # `record`, a pre-hook that runs after it, keeps the copy's halo
+        # strips and its core's place; the core is y1, made again in unpack
+        # like y1 itself, so no halo exchange runs in backward.
+        haloed = {}
+
+        def record(module, args):
+            t = args[0]
+            if t.shape == y1.shape:
+                return
+            rows, cols = (t.shape[1] - y1.shape[1]) // 2, (t.shape[2] - y1.shape[2]) // 2
+            core = t[:, rows:t.shape[1] - rows]
+            haloed.update(storage=t.untyped_storage().data_ptr(),
+                          top=t[:, :rows].clone(), bottom=t[:, t.shape[1] - rows:].clone(),
+                          left=core[:, :, :cols].clone(),
+                          right=core[:, :, core.shape[2] - cols:].clone())
 
         def pack(t):
-            if t.untyped_storage().data_ptr() != storage:
-                return t
-            return t.size(), t.stride(), t.storage_offset()  # a view of y1: made again
+            ptr = t.untyped_storage().data_ptr()
+            if ptr == storage:  # a view of y1: made again
+                return False, t.size(), t.stride(), t.storage_offset()
+            if ptr == haloed.get("storage"):  # a view of the haloed y1: made again
+                return True, t.size(), t.stride(), t.storage_offset()
+            return t
 
         def unpack(packed):
             if isinstance(packed, torch.Tensor):
                 return packed
             with torch.no_grad():
-                return bn_relu(x1, mean, inv, gamma, beta).to(dt).as_strided(*packed)
+                y = bn_relu(x1, mean, inv, gamma, beta).to(dt)
+                if packed[0]:
+                    h = haloed
+                    y = torch.cat([h["top"], torch.cat([h["left"], y, h["right"]], 2),
+                                   h["bottom"]], 1)
+                return y.as_strided(*packed[1:])
 
-        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-            x2 = self.conv2(y1)
+        handle = self.conv2.register_forward_pre_hook(record)
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+                x2 = self.conv2(y1)
+        finally:
+            handle.remove()
         return self.bn2(x2)
 
     def forward(self, x) -> torch.Tensor:
@@ -145,6 +179,13 @@ class VGGBlock(nn.Module):
         if self.remat == "policy":
             return self._block_policy(x)
         multipart = isinstance(x, (tuple, list))
+        # On bands the recompute makes collectives in backward: the halo
+        # pre-hooks' exchanges and the BNs' all-reduces, between those of
+        # the halos' own backward. Every rank builds the same graph in the
+        # same order, and autograd runs a graph's nodes in an order that the
+        # graph fixes (one device thread, by each node's sequence number), so
+        # each rank starts this recompute, and each of its collectives, at
+        # the same point of its backward.
 
         def run(*parts):
             return self._block(parts if multipart else parts[0])

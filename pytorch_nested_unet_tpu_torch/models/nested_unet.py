@@ -14,9 +14,9 @@ step K1 launches 30 times under "none" and "policy" and 60 under "full"
 (its recompute runs K1 again, without the running statistics), K2 and K3
 30 times under each, and K4 10 times, 20 under "full".
 
-Under the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`; remat
-"none" only) it runs on this rank's band: its convs, K4 and upsamples take
-halos, its pools stay local.
+Under the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`; every
+remat mode) it runs on this rank's band: its convs, K4 and upsamples take
+halos, its pools stay local; the launches per step are the same.
 """
 
 from typing import Optional, Sequence

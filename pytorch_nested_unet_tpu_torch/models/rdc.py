@@ -28,7 +28,7 @@ import torch.nn as nn
 from ..ops.init import init_convs_
 from ..ops.layers import TorchConv
 from ..ops.pool import max_pool2x2
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize_bilinear, upsample2x_band
 from .blocks import ConvBNReLU, UnetConv2
 
 DECODERS = ("LSTM", "GRU", "vanilla")
@@ -46,7 +46,19 @@ class RDC(nn.Module):
     Every gate conv sees 2*hidden_dim channels ([h_up ++ x], or [x ++ r*h_up]
     for the GRU's candidate). Each is a TorchConv whatever conv_impl says
     (validated, so configs carry over).
+
+    On bands the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) set
+    `band` = ((i, nx), (j, ny)) and `halo` = (rows, cols) as on an
+    `Upsample2x`, and a forward pre-hook that gives the carry (h, and c for
+    the LSTM) its halo and calls with `haloed=True` wherever the carry is
+    resized. Every level then halves (the band rule, parallel/mesh.py), so
+    each resize is the band of the whole map's 2x align-corners resize
+    (`upsample2x_band`). On whole images the carry is resized by
+    `resize_bilinear` to any size (UNetRM7 at 96x96: 1 -> 3 -> 6).
     """
+
+    band = ((0, 1), (0, 1))
+    halo = (0, 0)
 
     def __init__(self, hidden_dim: int, kernel_size: int = 3, use_bias: bool = True,
                  decoder: str = "GRU", conv_impl: str = "auto",
@@ -62,11 +74,19 @@ class RDC(nn.Module):
             setattr(self, name, TorchConv(cin, mult * hidden_dim, kernel_size, pad, dtype,
                                           use_bias=use_bias))
 
-    def forward(self, x_cur, h_pre, c_pre=None):
+    def _resize(self, t, hw, haloed):
+        if not haloed:
+            return resize_bilinear(t, hw, align_corners=True)
+        (i, nx), (j, ny) = self.band
+        rows, cols = self.halo
+        h, w = t.shape[1] - 2 * rows, t.shape[2] - 2 * cols
+        return upsample2x_band(t, i * h, nx * h, j * w, ny * w, rows, cols)
+
+    def forward(self, x_cur, h_pre, c_pre=None, haloed=False):
         hw = x_cur.shape[1:3]
-        h_up = resize_bilinear(h_pre, hw, align_corners=True)
+        h_up = self._resize(h_pre, hw, haloed)
         if self.decoder == "LSTM":
-            c_up = resize_bilinear(c_pre, hw, align_corners=True)
+            c_up = self._resize(c_pre, hw, haloed)
             gates = self.lstm_catconv(torch.cat([h_up, x_cur], dim=-1))
             i, f, o, g = torch.chunk(gates, 4, dim=-1)
             c_cur = torch.sigmoid(f) * c_up + torch.sigmoid(i) * torch.tanh(g)

@@ -10,14 +10,16 @@ variance (K1 in its sums-only mode and `bn_finish` for `FusedBatchNormReLU`,
 plain all-reduces for `BatchNorm` and `FlaxBatchNorm`), so an N-rank step
 over a global batch B is the one-process step over B.
 
-Spatial partitioning ('x' over H, 'y' over W; UNet and NestedUNet): each
-rank of a 'data' row holds a band of its images, rows [i*H/X, (i+1)*H/X) and
-columns [j*W/Y, (j+1)*W/Y). Every stencil takes its neighbours' edge rows
-first (`halo.halo_exchange`, which XLA inserts itself under GSPMD), the BN
-moments are taken over every band of every data row (the whole world), and
-the heads are gathered (`halo.gather_bands`) so the loss and the metrics are
-the whole image's. The gradients are then summed over the bands and averaged
-over 'data': one all-reduce over the world divided by the 'data' size.
+Spatial partitioning ('x' over H, 'y' over W; the archs of SPATIAL_RULES:
+UNet, NestedUNet under any --remat mode, the attention U-Nets and the CRDN
+UNets): each rank of a 'data' row holds a band of its images, rows
+[i*H/X, (i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y). Every stencil takes its
+neighbours' edge rows first (`halo.halo_exchange`, which XLA inserts itself
+under GSPMD), the BN moments are taken over every band of every data row
+(the whole world), and the heads are gathered (`halo.gather_bands`) so the
+loss and the metrics are the whole image's. The gradients are then summed
+over the bands and averaged over 'data': one all-reduce over the world
+divided by the 'data' size.
 
 The 'model' axis (tensor-parallel state, the JAX package's
 `tensor_parallel_spec` and `state_shardings`): between steps each rank holds
@@ -72,13 +74,22 @@ class NothingSharded(ValueError):
     """A 'model' axis that shards none of the model's weights."""
 
 
-# Archs whose every op is right on a band after a one-row halo (3x3 and 1x1
-# convs, 2x2 floor pools, 2x align-corners upsamples). Their 4 pools need
-# bands of a multiple of 16 rows and columns.
-SPATIAL_ARCHS = ("UNet", "NestedUNet")
-SPATIAL_MULTIPLE = 16
-SPATIAL_QUEUED = ("ROADMAP.md queue 1, A11b: the other archs, uneven bands and --remat under "
-                  "the 'x'/'y' axes are queued")
+# The archs that run on bands, each with (pools, halo): the count of its 2x2
+# floor pools, so that H must be a multiple of 2**pools * x (and W of
+# 2**pools * y) for every band to stay whole and even through them and every
+# level to halve, and the widest halo a conv takes at its coarsest level, so
+# that a band there must hold at least that many rows (and columns):
+# `halo.halo_exchange` takes rows from the next band only. Every op of these
+# archs is local on a band after a halo: stride-1 convs, 2x2 floor pools, BNs
+# over the world (`sync_batch_norm`), 2x align-corners upsamples (a halo of 1),
+# nearest 2x upsamples (none) and the CRDN cell's carry resize, which is a 2x
+# align-corners upsample where every level halves. The CRDN score blocks are
+# 5x5 convs (a halo of 2).
+SPATIAL_RULES = {"UNet": (4, 1), "NestedUNet": (4, 1), "AttU_Net": (4, 1), "R2U_Net": (4, 1),
+                 "R2AttU_Net": (4, 1), "UNetRNN": (4, 2), "UNetRM3": (2, 2), "UNetRM7": (6, 2)}
+QUEUED_ARCHS = ("ROADMAP.md queue 1, A11b a: the archs that need an all-gather or a reduction "
+                "over the bands, or take strided convs, are queued")
+QUEUED_BANDS = "ROADMAP.md queue 1, A11b b: uneven and thin bands are queued"
 
 
 class Mesh:
@@ -302,25 +313,30 @@ def batch_sharding(mesh: Mesh, global_batch: int, spatial: bool = False, hw=None
     return Band(rows, i * h, h, j * w, w, full_h, full_w)
 
 
-def check_spatial(arch: str, remat=None, hw=None, mesh_shape: Optional[Dict[str, int]] = None):
-    """Raise ValueError unless `arch` can run under the 'x'/'y' axes: UNet or
-    NestedUNet without remat, and (given the input size `hw` and the mesh's
-    shape) every band whole through the 4 pools: H a multiple of 16 * x, W
-    of 16 * y."""
-    if arch not in SPATIAL_ARCHS:
-        raise ValueError(f"spatial partitioning ('x'/'y') is ported for UNet and NestedUNet, "
-                         f"not {arch} ({SPATIAL_QUEUED})")
-    if remat not in (None, False, "none"):
-        raise ValueError(f"--remat {remat} under the 'x'/'y' axes is not ported "
-                         f"({SPATIAL_QUEUED})")
+def check_spatial(arch: str, hw=None, mesh_shape: Optional[Dict[str, int]] = None):
+    """Raise ValueError unless `arch` can run under the 'x'/'y' axes: one of
+    SPATIAL_RULES (any --remat mode of NestedUNet's), and, given the input
+    size `hw` and the mesh's shape, by its rule: H a multiple of
+    2**pools * x and W of 2**pools * y, and at the coarsest level a band of
+    at least `halo` rows on 'x' and columns on 'y' (where split)."""
+    if arch not in SPATIAL_RULES:
+        raise ValueError(f"spatial partitioning ('x'/'y') is ported for "
+                         f"{', '.join(SPATIAL_RULES)}, not {arch} ({QUEUED_ARCHS})")
     if hw is None:
         return
+    pools, halo = SPATIAL_RULES[arch]
     h, w = (int(v) for v in hw)
-    mx, my = (SPATIAL_MULTIPLE * mesh_shape.get(a, 1) for a in SPATIAL_AXES)
+    nx, ny = (mesh_shape.get(a, 1) for a in SPATIAL_AXES)
+    mx, my = (2 ** pools) * nx, (2 ** pools) * ny
     if h % mx or w % my:
-        raise ValueError(f"input {h}x{w}: every band must stay whole through the 4 pools, so H "
-                         f"must be a multiple of {SPATIAL_MULTIPLE} * x = {mx} and W of "
-                         f"{SPATIAL_MULTIPLE} * y = {my} ({SPATIAL_QUEUED})")
+        raise ValueError(f"input {h}x{w}: every band must stay whole and even through "
+                         f"{arch}'s {pools} pools, so H must be a multiple of {2 ** pools} * x = "
+                         f"{mx} and W of {2 ** pools} * y = {my} ({QUEUED_BANDS})")
+    rows, cols = h // mx, w // my
+    if (nx > 1 and rows < halo) or (ny > 1 and cols < halo):
+        raise ValueError(f"input {h}x{w}: {arch}'s coarsest level ({h >> pools}x{w >> pools}) "
+                         f"leaves bands of {rows}x{cols} under {mesh_shape}, thinner than the "
+                         f"halo of {halo} its convs take there ({QUEUED_BANDS})")
 
 
 @torch.no_grad()
@@ -532,36 +548,71 @@ def _give_halo(mesh, m, args):
     return (tuple(halo_exchange(p, mesh, rows, cols) for p in x),)
 
 
-_HALO_HOOKS = weakref.WeakKeyDictionary()  # module -> its _give_halo hook's handle
+def _give_carry_halo(mesh, m, args, kwargs):
+    """Forward pre-hook (with kwargs) of the CRDN cell: where the carry (h,
+    and c for the LSTM) is resized, i.e. is not the size of the level's
+    score map, the carry with the cell's halo and `haloed=True`."""
+    x, *carry = args
+    if tuple(carry[0].shape[1:3]) == tuple(x.shape[1:3]):
+        return None
+    rows, cols = m.halo
+    return (x, *(halo_exchange(c, mesh, rows, cols) for c in carry)), {**kwargs, "haloed": True}
+
+
+_HALO_HOOKS = weakref.WeakKeyDictionary()  # module -> its halo hook's handle
+
+
+def _pools(module: torch.nn.Module) -> int:
+    """The 2x2 pools of a model of SPATIAL_RULES at the depth it was built
+    with: the attention U-Nets' `filters` and the CRDN UNets' `base_filters`
+    set its levels, UNet and NestedUNet have 5."""
+    return (getattr(module, "levels", None) or len(getattr(module, "filters", ())) or 5) - 1
 
 
 def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
-    """Run `module` (UNet or NestedUNet) on this rank's band of `mesh`:
-    every TorchConv, MultipartConv3x3 (K4) and Upsample2x gets a forward
-    pre-hook that gives its input its halo (`halo.halo_exchange`), and the
-    (rows, cols) of that halo and, for an upsample, the band's place as
-    plain ints. With None, on whole images again. Raises ValueError for
-    another arch, a remat mode or a conv that changes the size."""
+    """Run `module` (an arch of SPATIAL_RULES; NestedUNet under any --remat
+    mode) on this rank's band of `mesh`: every TorchConv, MultipartConv3x3
+    (K4), Upsample2x and CRDN cell (`models.rdc.RDC`, for its carry's
+    resize) gets a forward pre-hook that gives its input its halo
+    (`halo.halo_exchange`), and the (rows, cols) of that halo and, for an
+    upsample or a cell, the band's place as plain ints. With None, on whole
+    images again. Raises ValueError for another arch, a depth other than its
+    rule's, a dropout that draws masks (it draws them per rank, so the bands
+    of a data row would drop different channels) or a conv that changes the
+    size."""
     from ..models.blocks import MultipartConv3x3
+    from ..models.rdc import RDC
 
     if mesh is not None:
-        check_spatial(type(module).__name__, getattr(module, "remat", None))
+        arch = type(module).__name__
+        check_spatial(arch)
+        if _pools(module) != SPATIAL_RULES[arch][0]:
+            raise ValueError(f"{arch} with {_pools(module)} pools: its band rule holds for "
+                             f"{SPATIAL_RULES[arch][0]} ({QUEUED_ARCHS})")
+        if any(isinstance(m, Dropout) and m.p > 0 for m in module.modules()):
+            raise ValueError(f"{arch} with dropout on: a rank draws its own masks, so the bands "
+                             f"of a data row would not drop alike ({QUEUED_ARCHS})")
     one = tuple(int(mesh.partitioned(a)) for a in SPATIAL_AXES) if mesh is not None else None
     for m in module.modules():
-        if not isinstance(m, (TorchConv, MultipartConv3x3, Upsample2x)):
+        if not isinstance(m, (TorchConv, MultipartConv3x3, Upsample2x, RDC)):
             continue
         handle = _HALO_HOOKS.pop(m, None)
         if handle is not None:
             handle.remove()
         m.halo = (0, 0)
-        if isinstance(m, Upsample2x):
+        if isinstance(m, (Upsample2x, RDC)):
             m.band = ((0, 1), (0, 1))
         if mesh is None:
             continue
         m.halo = conv_halo(m, mesh) if isinstance(m, TorchConv) else one
-        if isinstance(m, Upsample2x):
+        if isinstance(m, (Upsample2x, RDC)):
             m.band = (mesh.band_of("x"), mesh.band_of("y"))
-        if m.halo != (0, 0):
+        if m.halo == (0, 0):
+            continue
+        if isinstance(m, RDC):
+            _HALO_HOOKS[m] = m.register_forward_pre_hook(
+                functools.partial(_give_carry_halo, mesh), with_kwargs=True)
+        else:
             _HALO_HOOKS[m] = m.register_forward_pre_hook(functools.partial(_give_halo, mesh))
 
 

@@ -59,14 +59,17 @@ CPU). Without --mesh a multi-process run gets a 'data' mesh over all ranks;
 `--mesh data=1` in one process runs the same collective path over a world of
 one.
 
-Spatial partitioning, UNet and NestedUNet: `--mesh data=D,x=X[,y=Y]` (D*X*Y
-processes) or `--spatial_partition true` (('data', 'x') = (world / 2, 2))
-gives each rank a band of its data rows' images, rows [i*H/X, (i+1)*H/X)
-and columns [j*W/Y, (j+1)*W/Y); convs and upsamples take halos, BN moments,
-loss and metrics are the whole global batch's, as the JAX CLI's
-(train.py:255-304). The bands must stay whole through the 4 pools: H a
-multiple of 16*X and W of 16*Y. Other archs, uneven bands and --remat
-under x/y exit with a message naming ROADMAP.md (queue 1, A11b).
+Spatial partitioning (UNet, NestedUNet under every --remat mode, AttU_Net,
+R2U_Net, R2AttU_Net, UNetRNN, UNetRM3, UNetRM7): `--mesh data=D,x=X[,y=Y]`
+(D*X*Y processes) or `--spatial_partition true` (('data', 'x') = (world /
+2, 2)) gives each rank a band of its data rows' images, rows [i*H/X,
+(i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y); convs and upsamples take halos,
+BN moments, loss and metrics are the whole global batch's, as the JAX CLI's
+(train.py:255-304). The bands must stay whole and even through the arch's
+p pools (p = 4; UNetRM3 2, UNetRM7 6): H a multiple of 2^p * X and W of
+2^p * Y; the CRDN UNets' coarsest band must also hold 2 rows (their 5x5
+score convs' halo). Other archs and other sizes exit with a message naming
+ROADMAP.md (queue 1, A11b a or b; parallel/mesh.py::SPATIAL_RULES).
 
 Tensor parallelism: `--mesh data=D,model=M` (with 'x'/'y' too: D*X*Y*M
 processes) shards each conv and dense kernel of at least 16,384 elements
@@ -725,7 +728,7 @@ def parse_args(argv=None) -> dict:
 def _mesh_axes(config):
     """(names, sizes) of --mesh, or None; exits on a refused flag: a bad spec,
     an unknown axis, --spatial_partition without an 'x'/'y' axis in --mesh,
-    under x/y an arch, a --remat mode or an input size that is not ported,
+    under x/y an arch or an input size that is not ported,
     and --checkpoint_backend orbax across machines (checked here, before any
     process group is formed)."""
     if config["checkpoint_backend"] == "orbax" and multihost.spans_machines():
@@ -752,7 +755,7 @@ def _mesh_axes(config):
         if h % shape.get("x", 1) or w % shape.get("y", 1):
             sys.exit(f"input {h}x{w} not divisible by the spatial mesh axes {shape}")
         try:
-            pmesh.check_spatial(config["arch"], config["remat"], (h, w), shape)
+            pmesh.check_spatial(config["arch"], (h, w), shape)
         except ValueError as e:
             sys.exit(f"--mesh / --spatial_partition: {e}")
     return axes

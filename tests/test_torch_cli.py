@@ -252,15 +252,16 @@ def test_folder_cli_exits_on_empty_or_small_sets(tmp_path):
         ptrain.main(base + ["--dataset", "small"])
     # what is not ported is refused with a message, never run on one process
     # in silence: an axis the JAX package does not have; under the 'x'/'y'
-    # axes bands that the 4 pools would split (32 rows over x=4), another
-    # arch, --remat; --spatial_partition on an odd process count; and a
-    # 'model' axis the processes do not cover (tests/test_torch_model_axis.py
-    # runs it)
+    # axes bands that the 4 pools would split (32 rows over x=4), an arch
+    # still queued, a CRDN UNet's coarsest band thinner than its 5x5 score
+    # convs' halo (32 rows over x=2: 1 row); --spatial_partition on an odd
+    # process count; and a 'model' axis the processes do not cover
+    # (tests/test_torch_model_axis.py runs it)
     with pytest.raises(SystemExit, match="'pipe' mesh axis is not ported"):
         ptrain.main(base + ["--dataset", "small", "--mesh", "data=1,pipe=2"])
     for flags, match in ((["--mesh", "x=4"], "multiple of 16 \\* x = 64"),
-                         (["--mesh", "x=2", "--arch", "UNetRNN"], "not UNetRNN"),
-                         (["--mesh", "x=2", "--remat", "full"], "--remat full")):
+                         (["--mesh", "x=2", "--arch", "UNetRNNGhost"], "not UNetRNNGhost"),
+                         (["--mesh", "x=2", "--arch", "UNetRNN"], "thinner than the halo of 2")):
         with pytest.raises(SystemExit, match=match + ".*ROADMAP.md"):
             ptrain.main(base + ["--dataset", "small"] + flags)
     with pytest.raises(SystemExit, match="--spatial_partition needs an even process count"):

@@ -4,8 +4,11 @@ the band ops, the spatial train and eval steps, `train --mesh x=2`).
 One process, no ranks: each band op on a band given with its halo (cut
 from the zero-padded full tensor) against the band of the full-image op, at
 every band of x = 2, 3, 4 and of 'y' splits, forward and gradient (float64
-where the op allows it, 1e-10; K4's plain version and the float32 upsample
-1e-6).
+where the op allows it, 1e-10; K4's plain version, the float32 upsample and
+the CRDN cell's carry resize 1e-6; the nearest upsample exactly); the band
+rule of each arch (`parallel.mesh.SPATIAL_RULES`) and its refusals; a
+VGGBlock under --remat policy on a band keeps conv2's halo strips, not its
+haloed input.
 
 Several OS processes over Gloo on 127.0.0.1 (2 intra-op threads each; this
 file run as a script is the worker), one launch per world size serving
@@ -13,14 +16,19 @@ every case of it:
 
 - world 2 ('x' = 2): `halo_exchange` against the padded full tensor and its
   adjoint (<halo(x), g> = <x, halo^T(g)> over the ranks, float64, 1e-6);
-  `gather_bands` forward and backward; the train step of UNet and of
-  NestedUNet wDS against the JAX package's spatial step on 2 of its virtual
-  CPU devices (`make_train_step(..., mesh=make_mesh((1, 2), ("data", "x")),
+  `gather_bands` forward and backward; the train step of every x=2 case of
+  `CASES` (UNet, NestedUNet wDS also under --remat full and policy,
+  AttU_Net, R2AttU_Net, UNetRNN with each decoder, UNetRM3, UNetRM7)
+  against the JAX package's spatial step on 2 of its virtual CPU devices
+  (`make_train_step(..., mesh=make_mesh((1, 2), ("data", "x")),
   spatial=True)`) from the same weights: loss 1e-5, running statistics
   1e-5, the SGD momentum buffers (the first step's g + wd * p) within 1e-4
-  relative L2 and the parameters after the step within 1e-6; the eval step
-  against the port's one-process eval step; a halo wait on a peer that
-  never sends raises after `halo.TIMEOUT` (2 s there);
+  relative L2 (the chaotic narrow steps of the archs after UNet and
+  NestedUNet within their readings, `_hold_to_jax`) and the parameters
+  after the step within 1e-6; the remat steps bitwise the band step
+  without remat; the eval step against the port's one-process eval step; a
+  halo wait on a peer that never sends raises after `halo.TIMEOUT` (2 s
+  there);
 - world 4: the halo and `gather_bands` with 'x' = 'y' = 2 (the corners);
   the UNet step under x=2,y=2 and the NestedUNet wDS step under
   data=2,x=2 against the port's one-process step (the same gates) and
@@ -30,7 +38,8 @@ every case of it:
   padded batch.
 
 `train --mesh x=2` as two processes against `--mesh data=1` in one, the
-JAX CLI test's bounds (loss 3e-3, IoU 3e-2).
+JAX CLI test's bounds (loss 3e-3, IoU 3e-2), for UNet, for UNetRNN and
+for NestedUNet wDS under --remat policy.
 """
 
 import os
@@ -55,9 +64,54 @@ from pytorch_nested_unet_tpu_torch.parallel import mesh as tmesh
 NARROW = (4, 8, 16, 32, 64)
 HW = 32
 BATCH = 4  # the global batch of the steps
+CRDN = {"feature_scale": 16}
+# The narrow models of the band steps: (arch, both packages' create_model
+# keywords, the input's (H, W)). The CRDN UNets' coarsest band must hold 2
+# rows (their 5x5 score convs' halo), so UNetRNN runs at 64x64 and UNetRM7,
+# whose 6 pools halve 96 rows only down to 3, at 256x64.
+MODELS = {"UNet": ("UNet", {"nb_filter": NARROW}, (HW, HW)),
+          "NestedUNet": ("NestedUNet", {"nb_filter": NARROW}, (HW, HW)),
+          "AttU_Net": ("AttU_Net", {"filters": NARROW}, (HW, HW)),
+          "R2AttU_Net": ("R2AttU_Net", {"filters": NARROW}, (HW, HW)),
+          **{f"UNetRNN_{d}": ("UNetRNN", {**CRDN, "decoder": d}, (64, 64))
+             for d in ("GRU", "LSTM", "vanilla")},
+          "UNetRM3": ("UNetRM3", CRDN, (HW, HW)),
+          "UNetRM7": ("UNetRM7", CRDN, (256, 64))}
+X2 = ((1, 2), ("data", "x"))
+# The band steps, by key: (model, deep supervision, --remat, the port's mesh
+# (sizes, names), the JAX package's mesh for its spatial step, BN finishes
+# per step: one per FusedBatchNormReLU, twice under "full", whose recompute
+# finishes again; the attention U-Nets' plain BNs finish none). A case runs
+# in the world of its port mesh's size.
+CASES = {"UNet_data1_x2": ("UNet", False, "none", X2, X2, 18),
+         "NestedUNet_data1_x2": ("NestedUNet", True, "none", X2, X2, 30),
+         "NestedUNet_full_x2": ("NestedUNet", True, "full", X2, X2, 60),
+         "NestedUNet_policy_x2": ("NestedUNet", True, "policy", X2, X2, 30),
+         "AttU_Net_x2": ("AttU_Net", False, "none", X2, X2, 0),
+         "R2AttU_Net_x2": ("R2AttU_Net", False, "none", X2, X2, 0),
+         **{f"UNetRNN_{d}_x2": (f"UNetRNN_{d}", False, "none", X2, X2, 15)
+            for d in ("GRU", "LSTM", "vanilla")},
+         "UNetRM3_x2": ("UNetRM3", False, "none", X2, X2, 9),
+         "UNetRM7_x2": ("UNetRM7", False, "none", X2, X2, 21),
+         "UNet_x2_y2": ("UNet", False, "none", ((2, 2), ("x", "y")),
+                        ((1, 2, 2), ("data", "x", "y")), 18),
+         "NestedUNet_data2_x2": ("NestedUNet", True, "none", ((2, 2), ("data", "x")),
+                                 ((2, 2), ("data", "x")), 30)}
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 SPLITS = [(2, 1), (3, 1), (4, 1), (1, 2), (2, 2), (1, 3)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for this module's torch work in the test process
+    (the ranks set their own): the suite runs in several worker processes
+    at once, and the port's one-process steps of the band cases and their
+    weight readings run faster on 2 threads each than oversubscribed."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ one process
@@ -131,6 +185,53 @@ def test_upsample2x_band_matches_the_full_upsample(nx, ny, h, w):
 
 
 @pytest.mark.parametrize("nx,ny", SPLITS)
+@pytest.mark.parametrize("decoder", ["GRU", "LSTM"])
+def test_rdc_carry_resize_on_bands_matches_the_full_resize(nx, ny, decoder):
+    """The CRDN cell's carry resize on a band (`RDC._resize` of a carry
+    given with a one-row halo, the cell's band and halo set as
+    `spatial_partition` sets them): the band of `resize_bilinear`'s 2x
+    align-corners resize of the whole carry (h_pre, and c_pre for the
+    LSTM: the same resize), value and adjoint, float32 within 1e-6. On a
+    whole image it is `resize_bilinear` itself, to any size (RM7's 1 -> 3
+    and 3 -> 6 at 96x96), bit for bit."""
+    from pytorch_nested_unet_tpu_torch.models.rdc import RDC
+    from pytorch_nested_unet_tpu_torch.ops.resize import resize_bilinear
+
+    rdc = RDC(1, decoder=decoder)
+    h, w = 12, 24
+    x = torch.randn(2, h, w, 1, generator=torch.Generator().manual_seed(nx * 10 + ny))
+    rows, cols = int(nx > 1), int(ny > 1)
+
+    def band_op(xh, band):
+        h0, hb, w0, wb = band
+        rdc.band, rdc.halo = ((h0 // hb, nx), (w0 // wb, ny)), (rows, cols)
+        try:
+            return rdc._resize(xh, (2 * hb, 2 * wb), haloed=True)
+        finally:
+            rdc.band, rdc.halo = ((0, 1), (0, 1)), (0, 0)
+
+    _check_band_op(lambda t: resize_bilinear(t, (2 * h, 2 * w), align_corners=True), band_op,
+                   x, nx, ny, rows, cols, 1e-6)
+    for size in ((2 * h, 2 * w), (3, 6), (h, w)):
+        np.testing.assert_array_equal(rdc._resize(x, size, haloed=False).numpy(),
+                                      resize_bilinear(x, size, align_corners=True).numpy())
+
+
+@pytest.mark.parametrize("nx,ny", SPLITS)
+def test_nearest_upsample_stays_local_on_bands(nx, ny):
+    """The attention U-Nets' nearest 2x upsample (`Upsample2xNearest`) on a
+    band without a halo: output row i of the band reads its row i // 2, so
+    it is the band of the whole map's upsample, value and adjoint,
+    exactly."""
+    from pytorch_nested_unet_tpu_torch.models.attention_unet import Upsample2xNearest
+
+    up = Upsample2xNearest()
+    x = torch.randn(2, 12, 12, 3, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(nx * 10 + ny))
+    _check_band_op(up, lambda xh, band: up(xh), x, nx, ny, 0, 0, 0.0)
+
+
+@pytest.mark.parametrize("nx,ny", SPLITS)
 def test_max_pool2x2_stays_local_on_even_bands(nx, ny):
     """Bands of an even number of rows and columns pool on their own: the
     band of the full pool, value and gradient, exactly."""
@@ -193,6 +294,38 @@ def test_multipart_conv3x3_band_matches_the_full_conv(nx, ny):
                                        want[:, h0:h0 + hb, w0:w0 + wb].numpy(), atol=1e-5)
 
 
+def test_remat_policy_keeps_no_haloed_copy_on_bands():
+    """VGGBlock on a band (its convs' halo set and their inputs given one
+    zero row above and below, as the halo pre-hook gives them): under
+    --remat policy conv2's haloed input is not kept for backward (only its
+    halo strips are, the core made again from conv1's output), under none
+    it is; both give the same gradients, bit for bit."""
+    import gc
+    import weakref
+
+    from pytorch_nested_unet_tpu_torch.models.blocks import VGGBlock
+    from pytorch_nested_unet_tpu_torch.ops.init import init_convs_
+
+    grads = {}
+    for mode in ("none", "policy"):
+        block = VGGBlock(3, 4, 5, remat=mode).train()
+        init_convs_(block, torch.Generator().manual_seed(3))
+        seen = []
+        for conv in (block.conv1, block.conv2):
+            conv.halo = (1, 0)
+            conv.register_forward_pre_hook(lambda m, a: (F.pad(a[0], (0, 0, 0, 0, 1, 1)),))
+        block.conv2.register_forward_pre_hook(lambda m, a: seen.append(weakref.ref(a[0])))
+        x = torch.randn(2, 6, 5, 3, generator=torch.Generator().manual_seed(4),
+                        requires_grad=True)
+        y = block(x)
+        gc.collect()
+        assert (seen[0]() is None) == (mode == "policy"), mode
+        (y * torch.arange(y.numel()).reshape(y.shape).sin()).sum().backward()
+        grads[mode] = [x.grad] + [p.grad for p in block.parameters()]
+    for a, b in zip(grads["none"], grads["policy"]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
 class _FakeMesh:
     """The partition a conv asks about, without ranks."""
 
@@ -204,15 +337,32 @@ class _FakeMesh:
 
 
 def test_spatial_partition_refuses_other_archs_and_remat():
-    """Refusals; on UNet, a pre-hook and a halo on every 3x3 conv, K4 node
-    and upsample (none on the 1x1 head), the upsample's band; None undoes
-    it all."""
+    """Refusals: an arch still queued, a depth its rule does not hold for, a
+    dropout that draws masks. Every --remat mode of NestedUNet is accepted.
+    On UNet, a pre-hook and a halo on every 3x3 conv, K4 node and upsample
+    (none on the 1x1 head), the upsample's band; on UNetRNN the 5x5 score
+    convs' halo of 2 and the CRDN cell's carry resize; None undoes it
+    all."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import ChannelDropout
+
     mesh = _mesh_of(("data", "x"), (1, 2), rank=1)
-    with pytest.raises(ValueError, match="not UNetRNN.*ROADMAP.md"):
-        tmesh.spatial_partition(create_model("UNetRNN", feature_scale=16), mesh)
-    with pytest.raises(ValueError, match="--remat full.*ROADMAP.md"):
-        tmesh.spatial_partition(create_model("NestedUNet", nb_filter=NARROW, remat="full"),
-                                mesh)
+    with pytest.raises(ValueError, match="not UNetRNNGhost.*ROADMAP.md queue 1, A11b a"):
+        tmesh.spatial_partition(create_model("UNetRNNGhost", feature_scale=16), mesh)
+    with pytest.raises(ValueError, match="AttU_Net with 3 pools.*ROADMAP.md"):
+        tmesh.spatial_partition(create_model("AttU_Net", filters=NARROW[:4]), mesh)
+    att = create_model("AttU_Net", filters=NARROW)
+    att.Conv4.dropout = ChannelDropout(0.5)
+    with pytest.raises(ValueError, match="AttU_Net with dropout on.*ROADMAP.md"):
+        tmesh.spatial_partition(att, mesh)
+    for remat in ("full", "policy"):
+        m = create_model("NestedUNet", nb_filter=NARROW, remat=remat)
+        tmesh.spatial_partition(m, mesh)
+        assert m.conv0_0.conv2.halo == m.conv0_1.conv1.halo == (1, 0)
+    m = create_model("UNetRNN", feature_scale=16, decoder="LSTM")
+    tmesh.spatial_partition(m, mesh)
+    assert m.score_block1[0].halo == (2, 0) and m.RDC.lstm_catconv.halo == (1, 0)
+    assert m.RDC.halo == (1, 0) and m.RDC.band == ((1, 2), (0, 1))
+    assert len(m.RDC._forward_pre_hooks) == 1
     m = create_model("UNet", nb_filter=NARROW)
     for _ in range(2):  # a second call (the eval step's) replaces the hooks
         tmesh.spatial_partition(m, mesh)
@@ -229,10 +379,45 @@ def test_spatial_partition_refuses_other_archs_and_remat():
 
 
 def test_check_spatial_needs_bands_whole_through_the_pools():
-    tmesh.check_spatial("NestedUNet", None, (96, 96), {"data": 2, "x": 6})
+    tmesh.check_spatial("NestedUNet", (96, 96), {"data": 2, "x": 6})
     for shape in ({"x": 4}, {"x": 2, "y": 4}):
         with pytest.raises(ValueError, match="multiple of 16.*ROADMAP.md"):
-            tmesh.check_spatial("UNet", None, (96, 96), shape)
+            tmesh.check_spatial("UNet", (96, 96), shape)
+    # UNetRM7's 6 pools: its levels at 96x96 go 3 -> 1, at 256x64 they halve
+    with pytest.raises(ValueError, match="multiple of 64.*ROADMAP.md"):
+        tmesh.check_spatial("UNetRM7", (96, 96), {"x": 2})
+    tmesh.check_spatial("UNetRM7", (256, 64), {"x": 2})
+
+
+@pytest.mark.parametrize("arch,hw,shape,refusal", [
+    ("NestedUNet", (96, 96), {"data": 2, "x": 6}, None),
+    ("UNet", (96, 96), {"x": 4}, "multiple of 16 \\* x = 64.*A11b b"),
+    ("UNet", (96, 96), {"x": 2, "y": 4}, "W of 16 \\* y = 64.*A11b b"),
+    ("AttU_Net", (96, 96), {"x": 2}, None),
+    ("R2U_Net", (32, 64), {"x": 2, "y": 4}, None),
+    ("R2AttU_Net", (48, 32), {"x": 2}, "multiple of 16 \\* x = 32.*A11b b"),
+    ("UNetRNN", (64, 64), {"x": 2}, None),
+    ("UNetRNN", (32, 32), {"x": 2}, "bands of 1x2.*thinner than the halo of 2.*A11b b"),
+    ("UNetRNN", (96, 96), {"x": 3}, None),
+    ("UNetRNN", (48, 48), {"x": 3}, "bands of 1x3"),
+    ("UNetRM3", (32, 32), {"x": 2}, None),
+    ("UNetRM3", (40, 32), {"x": 4}, "multiple of 4 \\* x = 16"),
+    ("UNetRM3", (32, 32), {"x": 8}, "thinner than the halo of 2"),
+    ("UNetRM7", (256, 64), {"x": 2}, None),
+    ("UNetRM7", (96, 96), {"x": 2}, "multiple of 64 \\* x = 128.*A11b b"),
+    ("DeepLab", (96, 96), {"x": 2}, "not DeepLab.*A11b a"),
+    ("UNetRNNPAttention", None, None, "not UNetRNNPAttention.*A11b a")])
+def test_check_spatial_follows_each_archs_band_rule(arch, hw, shape, refusal):
+    """The band rule (parallel/mesh.py::SPATIAL_RULES): the arch's p pools
+    keep every band whole and even only where H is a multiple of 2^p * x
+    and W of 2^p * y, and the CRDN UNets' 5x5 score convs need a coarsest
+    band of 2 rows; an arch still queued is refused at once. Each refusal
+    names its ROADMAP item."""
+    if refusal is None:
+        tmesh.check_spatial(arch, hw, shape)
+        return
+    with pytest.raises(ValueError, match=refusal):
+        tmesh.check_spatial(arch, hw, shape)
 
 
 def test_one_process_spatial_mesh_is_the_whole_image():
@@ -287,13 +472,26 @@ def _grads_of(opt):
             for n, p in opt._names.items()}
 
 
-def _step_case(inp, arch, ds, mesh, imgs, masks):
+def _port_model(inp, name, ds, remat="none"):
+    """The port's `MODELS[name]` from the JAX model's weights, strict."""
+    arch, kw, _ = MODELS[name]
+    if remat != "none":
+        kw = {**kw, "remat": remat}
+    m = create_model(arch, 1, 3, ds, **kw)
+    m.load_state_dict(inp[f"state_{name}"], strict=True)
+    return m
+
+
+def _step_case(inp, case, mesh):
+    """CASES[case]'s train step on this rank's rows of its model's batch."""
     from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
     from pytorch_nested_unet_tpu_torch.training import optim
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
 
-    m = create_model(arch, 1, 3, ds, nb_filter=NARROW)
-    m.load_state_dict(inp[f"state_{arch}"], strict=True)
+    name, ds, remat = CASES[case][:3]
+    imgs, masks = (torch.from_numpy(v) for v in inp["batches"][MODELS[name][2]])
+    rows = tmesh.batch_sharding(mesh, BATCH)
+    m = _port_model(inp, name, ds, remat)
     opt = optim.build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
     opt._names = dict(m.named_parameters())
     step = make_train_step(m, opt, "BCEDiceLoss", ds, "none", mesh)
@@ -306,7 +504,8 @@ def _step_case(inp, arch, ds, mesh, imgs, masks):
 
     bn.reference_bn_finish = counted
     try:
-        metrics = step(imgs, masks, torch.Generator().manual_seed(0))
+        with torch.backends.mkldnn.flags(enabled=False):  # see _one_process_step
+            metrics = step(imgs[rows], masks[rows], torch.Generator().manual_seed(0))
     finally:
         bn.reference_bn_finish = real
     return {"metrics": {k: v.item() for k, v in metrics.items()}, "grads": _grads_of(opt),
@@ -344,19 +543,13 @@ def _worker(world, rank, port, d):
     (gathered * torch.from_numpy(inp["halo_ct"])).sum().backward()
     out["gather"] = {"y": gathered.detach().numpy(), "dx": tb.grad.numpy()}
 
-    imgs, masks = (torch.from_numpy(inp[k]) for k in ("imgs", "masks"))
-    cases = ([("UNet", False, (1, 2), ("data", "x")), ("NestedUNet", True, (1, 2), ("data", "x"))]
-             if world == 2 else
-             [("UNet", False, (2, 2), ("x", "y")), ("NestedUNet", True, (2, 2), ("data", "x"))])
-    for arch, ds, sizes, names in cases:
-        mesh = make_mesh(sizes, names)
-        rows_ = tmesh.batch_sharding(mesh, BATCH)
-        key = f"{arch}_{'_'.join(f'{n}{s}' for n, s in zip(names, sizes))}"
-        out[key] = _step_case(inp, arch, ds, mesh, imgs[rows_], masks[rows_])
-    mesh = make_mesh(*cases[-1][2:])
+    imgs, masks = (torch.from_numpy(v) for v in inp["batches"][(HW, HW)])
+    for case, (*_, (sizes, names), _, _) in CASES.items():
+        if int(np.prod(sizes)) == world:
+            out[case] = _step_case(inp, case, make_mesh(sizes, names))
+    mesh = make_mesh(*CASES["NestedUNet_data1_x2" if world == 2 else "NestedUNet_data2_x2"][3])
     rows_ = tmesh.batch_sharding(mesh, BATCH)
-    m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW)
-    m.load_state_dict(inp["state_NestedUNet"], strict=True)
+    m = _port_model(inp, "NestedUNet", True)
     ev = make_eval_step(m, "BCEDiceLoss", True, mesh)
     out["eval"] = {k: v.item() for k, v in ev(imgs[rows_], masks[rows_],
                                               torch.tensor([1.0, 1.0, 1.0, 0.0])[rows_]).items()}
@@ -414,28 +607,38 @@ def _launch(world, d):
 
 def _inputs(d, world):
     """The ranks' inputs, from numpy seeds; the weights from the JAX
-    models' variables (the BN-fed conv biases at 0)."""
+    models' variables (the BN-fed conv biases at 0) of the models that the
+    world's cases step."""
     import jax
 
     from pytorch_nested_unet_tpu.models import create_model as jax_create_model
     from pytorch_nested_unet_tpu_torch.utils.convert import state_dict_from_jax
-    from test_torch_crdn import jax_variables, train_batch, zero_bn_fed_biases
+    from test_torch_crdn import jax_variables, zero_bn_fed_biases
 
     rng = np.random.default_rng(world)
-    imgs, masks = train_batch(0, b=BATCH, hw=HW)
     x = rng.standard_normal((2, 12, 8, 3))
-    inp = {"halo_x": x, "imgs": imgs, "masks": masks,
-           "halo_ct": rng.standard_normal(x.shape)}
+    inp = {"halo_x": x, "halo_ct": rng.standard_normal(x.shape), "batches": {}}
     nx, ny = (2, 1) if world == 2 else (2, 2)
     rows, cols = 2, (1 if world == 4 else 0)
     inp["halo_g"] = [rng.standard_normal((2, 12 // nx + 2 * rows, 8 // ny + 2 * cols, 3))
                      for _ in range(world)]
+    for seed, hw in enumerate(sorted({hw for _, _, hw in MODELS.values()})):
+        batch = np.random.default_rng(seed)
+        inp["batches"][hw] = (batch.integers(0, 256, (BATCH, *hw, 3), dtype=np.uint8),
+                              (batch.random((BATCH, *hw, 1)) > 0.6).astype(np.uint8) * 255)
     jax_side = {}
-    for arch, ds in (("UNet", False), ("NestedUNet", True)):
-        jm = jax_create_model(arch, 1, 3, ds, nb_filter=NARROW)
-        variables = zero_bn_fed_biases(jax_variables(jm, imgs.shape, 0))
-        inp[f"state_{arch}"] = state_dict_from_jax(jax.device_get(variables))
-        jax_side[arch] = (jm, variables)
+    for case, (name, ds, remat, (sizes, _), _, _) in CASES.items():
+        if int(np.prod(sizes)) != world:
+            continue
+        arch, kw, hw = MODELS[name]
+        if name not in jax_side:
+            variables = zero_bn_fed_biases(jax_variables(jax_create_model(arch, 1, 3, ds, **kw),
+                                                         (BATCH, *hw, 3), 0))
+            inp[f"state_{name}"] = state_dict_from_jax(jax.device_get(variables), arch)
+            jax_side[name] = variables
+        jm = jax_create_model(arch, 1, 3, ds, **kw, **({} if remat == "none" else
+                                                     {"remat": remat}))
+        jax_side[case] = (jm, jax_side[name])
     torch.save(inp, d / "in.pt")
     return inp, jax_side
 
@@ -509,43 +712,50 @@ def test_gather_bands_forward_and_backward(world, two_ranks, four_ranks):
                                       inp["halo_ct"][:, b.h0:b.h0 + b.h, b.w0:b.w0 + b.w])
 
 
+def _den(grads, name):
+    return max(np.linalg.norm(grads[name]),
+               np.linalg.norm(grads[name.rsplit(".", 1)[0] + ".weight"]))
+
+
 def _rel(got, want, name):
-    den = max(np.linalg.norm(want[name]),
-              np.linalg.norm(want[name.rsplit(".", 1)[0] + ".weight"]))
-    return np.linalg.norm(got[name] - want[name]) / den
+    return np.linalg.norm(got[name] - want[name]) / _den(want, name)
 
 
 def _hold_step(got, loss, grads, params, stats, finish_calls, what, gate=None):
     """loss 1e-5, running statistics 1e-5, momentum buffers 1e-4 relative
     L2 (of the larger of their own norm and their module's weight's; `gate`:
-    per buffer), parameters 1e-6 (times gate / 1e-4: lr times the buffer);
-    BN finishes: one per BN layer."""
+    per buffer), parameters 1e-6 (times gate / 1e-4 and that norm where it
+    is above 1: lr times the buffer); BN finishes: one per BN layer."""
     assert abs(got["metrics"]["loss"] - loss) <= 1e-5, what
     for name, s in got["stats"].items():
         np.testing.assert_allclose(s, stats[name], atol=1e-5, rtol=1e-5, err_msg=f"{what} {name}")
     for name in got["grads"]:
         tol = 1e-4 if gate is None else gate[name]
         assert _rel(got["grads"], grads, name) <= tol, f"{what} {name}"
-        np.testing.assert_allclose(got["params"][name], params[name], atol=1e-6 * tol / 1e-4,
+        np.testing.assert_allclose(got["params"][name], params[name],
+                                   atol=1e-6 * tol / 1e-4 * max(1.0, _den(grads, name)),
                                    err_msg=f"{what} {name}")
     assert got["finish_calls"] == finish_calls, what
 
 
-_JAX_STEPS = {}  # (arch, mesh): both worlds draw the same batch and weights
+_JAX_STEPS = {}  # (model, remat, mesh): both worlds draw the same batch and weights
 
 
-def _jax_step(arch, jm, variables, ds, imgs, masks, mesh_shape=None):
-    """The JAX package's step; with `mesh_shape` = (sizes, names), under
-    make_mesh(sizes, names) with spatial=True on the first prod(sizes) of
-    its 8 virtual CPU devices: (loss, momentum buffers, parameters, running
-    statistics) in the port's names."""
-    key = (arch, mesh_shape)
+def _jax_step(case, jax_side, inp, mesh_shape=None):
+    """The JAX package's step of CASES[case]'s model; with `mesh_shape` =
+    (sizes, names), under make_mesh(sizes, names) with spatial=True on the
+    first prod(sizes) of its 8 virtual CPU devices: (loss, momentum buffers,
+    parameters, running statistics) in the port's names."""
+    name, ds, remat = CASES[case][:3]
+    key = (name, remat, mesh_shape)
     if key not in _JAX_STEPS:
-        _JAX_STEPS[key] = _run_jax_step(jm, variables, ds, imgs, masks, mesh_shape)
+        jm, variables = jax_side[case]
+        _JAX_STEPS[key] = _run_jax_step(jm, MODELS[name][0], variables, ds,
+                                        *inp["batches"][MODELS[name][2]], mesh_shape)
     return _JAX_STEPS[key]
 
 
-def _run_jax_step(jm, variables, ds, imgs, masks, mesh_shape):
+def _run_jax_step(jm, arch, variables, ds, imgs, masks, mesh_shape):
     import jax
     import jax.numpy as jnp
 
@@ -565,9 +775,9 @@ def _run_jax_step(jm, variables, ds, imgs, masks, mesh_shape):
         state = jax.device_put(state, replicated_sharding(mesh))
     new, metrics = step(state, jnp.asarray(imgs), jnp.asarray(masks), jax.random.PRNGKey(0))
     new = jax.device_get(new)
-    sd = state_dict_from_jax({"params": new.params, "batch_stats": new.batch_stats})
+    sd = state_dict_from_jax({"params": new.params, "batch_stats": new.batch_stats}, arch)
     trace = state_dict_from_jax({"params": new.opt_state.inner_state[1].trace,
-                                 "batch_stats": new.batch_stats})
+                                 "batch_stats": new.batch_stats}, arch)
     stat = ("running_mean", "running_var")
     names = [n for n in sd if not n.endswith(stat)]
     return (float(metrics["loss"]), {n: trace[n].numpy() for n in names},
@@ -575,74 +785,143 @@ def _run_jax_step(jm, variables, ds, imgs, masks, mesh_shape):
             {n: v.numpy() for n, v in sd.items() if n.endswith(stat)})
 
 
-@pytest.mark.parametrize("arch,ds", [("UNet", False), ("NestedUNet", True)])
-def test_two_rank_x2_step_matches_the_jax_spatial_step(arch, ds, two_ranks):
-    """The port's step under x=2 on 2 ranks (each its 16-row band, halos,
-    BN over both bands through K1's sums, bn_finish, K2 and K3) against
-    the JAX package's GSPMD-partitioned step from the same weights, and
-    against its unpartitioned step. The JAX spatial step itself moves some
-    gradients off its unpartitioned step (UNet's by up to 2e-3 relative
-    L2: its partitioned sums add in another order and the step is chaotic
-    at init), so against it each buffer is held to 1e-4 or 4x that
-    movement, whichever is more; against the unpartitioned step, to 1e-4."""
-    _hold_to_jax(arch, ds, f"{arch}_data1_x2", two_ranks, ((1, 2), ("data", "x")))
+# the two cases of before, under their ids of before
+OLD_IDS = {"UNet_data1_x2": "UNet-False", "NestedUNet_data1_x2": "NestedUNet-True",
+           "UNet_x2_y2": "UNet-False-UNet_x2_y2", "NestedUNet_data2_x2":
+           "NestedUNet-True-NestedUNet_data2_x2"}
+TWO_RANK_CASES = [pytest.param(c, id=OLD_IDS.get(c, c)) for c, v in CASES.items()
+                  if int(np.prod(v[3][0])) == 2]
+FOUR_RANK_CASES = ["UNet_x2_y2", "NestedUNet_data2_x2"]
 
 
-def _hold_to_jax(arch, ds, key, ranks, mesh_shape):
-    """The ranks' step `key` against the JAX package's spatial step under
-    `mesh_shape` (each momentum buffer within 1e-4 or 4x the JAX spatial
-    step's own movement off its unpartitioned step, whichever is more) and
-    against its unpartitioned step (1e-4)."""
+@pytest.mark.parametrize("case", TWO_RANK_CASES)
+def test_two_rank_x2_step_matches_the_jax_spatial_step(case, two_ranks):
+    """The port's step under x=2 on 2 ranks (each its band, halos, BN over
+    both bands: K1's sums, bn_finish, K2 and K3 for FusedBatchNormReLU,
+    all-reduces for the attention U-Nets' plain BN; the CRDN cell's carry
+    resized on bands; NestedUNet wDS under --remat full and policy too)
+    against the JAX package's GSPMD-partitioned step from the same weights
+    (NestedUNet's under the same `nn.remat`), and against its unpartitioned
+    step. The JAX spatial step itself moves some gradients off its
+    unpartitioned step (UNet's by up to 2e-3 relative L2: its partitioned
+    sums add in another order and the step is chaotic at init), so against
+    it each buffer is held to 1e-4 or 4x that movement, whichever is more;
+    against the unpartitioned step, to 1e-4."""
+    _hold_to_jax(case, two_ranks)
+
+
+# The seeds of the 1e-7 weight changes that read how far the port's own
+# one-process step moves (chip_smoke.py's MOVEMENT_READINGS' "weights")
+WEIGHT_READINGS = (12, 13, 14)
+
+
+def _hold_to_jax(case, ranks):
+    """The ranks' step `case` against the JAX package's spatial step under
+    the case's JAX mesh (each momentum buffer within 1e-4 or 4x the JAX
+    spatial step's own movement off its unpartitioned step, whichever is
+    more) and against its unpartitioned step (1e-4).
+
+    The archs after UNet and NestedUNet are chaotic at these narrow widths
+    and batches: a discrete choice (a ReLU mask, a pool's maximum) sits
+    within rounding of its edge, and which side a step lands on moves some
+    gradients by 1e-3 to 1e-1. A 1e-7 change of the weights moves the
+    port's own one-process step of UNetRM7 at 256x64 by 1.5e-3 (seed 2;
+    the port's and the JAX package's unpartitioned steps are 1.5e-3 apart
+    there too), of AttU_Net by 3e-3 at the median (seed 1; its band step
+    and the JAX spatial step land on the other side from both
+    unpartitioned steps), of R2AttU_Net by 1e-1; the JAX spatial step of
+    UNetRNN with the LSTM decoder sits 6.5e-3 off its unpartitioned one.
+    So these cases are held to 1e-4 or 4x the largest of their readings,
+    as chip_smoke.py holds its band runs: against the port's one-process
+    step (the band path's own check) the JAX spatial step's movement and
+    the port's one-process step's under WEIGHT_READINGS; against each JAX
+    step those and how far the port's one-process step is from the JAX
+    package's unpartitioned one."""
     inp, outs, jax_side = ranks
-    jm, variables = jax_side[arch]
-    spatial = _jax_step(arch, jm, variables, ds, inp["imgs"], inp["masks"], mesh_shape)
-    plain = _jax_step(arch, jm, variables, ds, inp["imgs"], inp["masks"])
+    mesh_shape, calls = CASES[case][4:]
+    spatial = _jax_step(case, jax_side, inp, mesh_shape)
+    plain = _jax_step(case, jax_side, inp)
     gate = {n: max(1e-4, 4 * _rel(spatial[1], plain[1], n)) for n in plain[1]}
-    got = {k: _both(outs, key, k) for k in ("metrics", "grads", "params", "stats",
-                                             "finish_calls")}
-    calls = 30 if ds else 18
-    _hold_step(got, *spatial, calls, f"{key} against JAX's spatial step {mesh_shape}", gate)
-    _hold_step(got, *plain, calls, f"{key} against JAX's step")
+    got = {k: _both(outs, case, k) for k in ("metrics", "grads", "params", "stats",
+                                              "finish_calls")}
+    if CASES[case][0] in ("UNet", "NestedUNet"):
+        _hold_step(got, *spatial, calls, f"{case} against JAX's spatial step {mesh_shape}", gate)
+        _hold_step(got, *plain, calls, f"{case} against JAX's step")
+        return
+    one = _one_process_step(inp, case)
+    for seed in WEIGHT_READINGS:
+        moved = _one_process_step(inp, case, seed)
+        gate = {n: max(g, 4 * _rel(moved[1], one[1], n)) for n, g in gate.items()}
+    _hold_step(got, *one, calls, f"{case} against the port's one-process step", gate)
+    gate = {n: max(g, 4 * _rel(one[1], plain[1], n)) for n, g in gate.items()}
+    _hold_step(got, *spatial, calls, f"{case} against JAX's spatial step {mesh_shape}", gate)
+    _hold_step(got, *plain, calls, f"{case} against JAX's step", gate)
 
 
-def _one_process_step(inp, arch, ds):
-    """The port's step without a mesh over the global batch."""
+@pytest.mark.parametrize("remat", ["full", "policy"])
+def test_two_rank_remat_step_is_the_band_step(remat, two_ranks):
+    """NestedUNet wDS under x=2 with --remat full (the recompute's halo
+    exchanges and BN all-reduces in backward) and policy (conv2's haloed
+    input kept as its halo strips, its core made again) gives the band step
+    without remat bit for bit on the CPU: loss, momentum buffers,
+    parameters and running statistics; bn_finish twice per BN under full."""
+    keys = ("metrics", "grads", "params", "stats", "finish_calls")
+    got, want = ({k: _both(two_ranks[1], f"NestedUNet_{m}_x2", k) for k in keys}
+                 for m in (remat, "data1"))
+    assert got["metrics"]["loss"] == want["metrics"]["loss"]
+    for k in ("grads", "params", "stats"):
+        assert got[k].keys() == want[k].keys()
+        for n in got[k]:
+            np.testing.assert_array_equal(got[k][n], want[k][n], err_msg=f"{remat} {k} {n}")
+    assert got["finish_calls"] == (60 if remat == "full" else 30)
+
+
+def _one_process_step(inp, case, moved=None):
+    """The port's step of CASES[case]'s model without a mesh over the global
+    batch; `moved`: a seed, every weight first multiplied by 1 + 1e-7 *
+    N(0, 1) from it. The port's steps here, and the ranks' band steps, run
+    torch's direct CPU convolution, not oneDNN's, which rounds 2-3x coarser
+    (test_torch_attention_unet.py)."""
     from pytorch_nested_unet_tpu_torch.training import optim
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
 
-    m = create_model(arch, 1, 3, ds, nb_filter=NARROW)
-    m.load_state_dict(inp[f"state_{arch}"], strict=True)
+    name, ds = CASES[case][:2]
+    m = _port_model(inp, name, ds)
+    if moved is not None:
+        noise = torch.Generator().manual_seed(moved)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=noise))
     opt = optim.build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
     opt._names = dict(m.named_parameters())
-    metrics = make_train_step(m, opt, "BCEDiceLoss", ds, "none")(
-        torch.from_numpy(inp["imgs"]), torch.from_numpy(inp["masks"]),
-        torch.Generator().manual_seed(0))
+    imgs, masks = (torch.from_numpy(v) for v in inp["batches"][MODELS[name][2]])
+    with torch.backends.mkldnn.flags(enabled=False):
+        metrics = make_train_step(m, opt, "BCEDiceLoss", ds, "none")(
+            imgs, masks, torch.Generator().manual_seed(0))
     return (metrics["loss"].item(), _grads_of(opt),
             {n: p.detach().numpy() for n, p in m.named_parameters()},
             {n: b.numpy() for n, b in m.named_buffers()})
 
 
-@pytest.mark.parametrize("arch,ds,key", [("UNet", False, "UNet_x2_y2"),
-                                         ("NestedUNet", True, "NestedUNet_data2_x2")])
-def test_four_rank_steps_match_the_one_process_step(arch, ds, key, four_ranks):
+@pytest.mark.parametrize("case", [pytest.param(c, id=OLD_IDS[c]) for c in FOUR_RANK_CASES])
+def test_four_rank_steps_match_the_one_process_step(case, four_ranks):
     """UNet under x=2,y=2 (the corners) and NestedUNet wDS under data=2,x=2
     (2 rows of 2 bands each) against the port's one-process step."""
     inp, outs = four_ranks[:2]
-    got = {k: _both(outs, key, k) for k in ("metrics", "grads", "params", "stats",
-                                             "finish_calls")}
-    _hold_step(got, *_one_process_step(inp, arch, ds), 30 if ds else 18, key)
+    got = {k: _both(outs, case, k) for k in ("metrics", "grads", "params", "stats",
+                                              "finish_calls")}
+    _hold_step(got, *_one_process_step(inp, case), CASES[case][5], case)
 
 
-@pytest.mark.parametrize("arch,ds,key,mesh_shape", [
-    ("UNet", False, "UNet_x2_y2", ((1, 2, 2), ("data", "x", "y"))),
-    ("NestedUNet", True, "NestedUNet_data2_x2", ((2, 2), ("data", "x")))])
-def test_four_rank_steps_match_the_jax_spatial_step(arch, ds, key, mesh_shape, four_ranks):
+@pytest.mark.parametrize("case", [pytest.param(c, id=f"{OLD_IDS[c]}-mesh_shape{i}")
+                                  for i, c in enumerate(FOUR_RANK_CASES)])
+def test_four_rank_steps_match_the_jax_spatial_step(case, four_ranks):
     """The same 4-rank steps against the JAX package's spatial step on 4 of
     its virtual CPU devices (its `batch_sharding` puts H on 'x' and W on
     'y'; data=2,x=2 as its tests/test_parallel.py lays out data by 'x'),
     from the same weights: the column exchange, the corners and the
     grouping of bands by data row, held as the two-rank test holds x=2."""
-    _hold_to_jax(arch, ds, key, four_ranks, mesh_shape)
+    _hold_to_jax(case, four_ranks)
 
 
 def test_halo_wait_times_out_under_gloo(two_ranks):
@@ -660,10 +939,9 @@ def test_spatial_eval_step_matches_one_process(world, two_ranks, four_ranks):
     from pytorch_nested_unet_tpu_torch.training.loop import make_eval_step
 
     inp, outs = (two_ranks if world == 2 else four_ranks)[:2]
-    m = create_model("NestedUNet", 1, 3, True, nb_filter=NARROW)
-    m.load_state_dict(inp["state_NestedUNet"], strict=True)
+    m = _port_model(inp, "NestedUNet", True)
     want = make_eval_step(m, "BCEDiceLoss", True)(
-        torch.from_numpy(inp["imgs"]), torch.from_numpy(inp["masks"]),
+        *(torch.from_numpy(v) for v in inp["batches"][(HW, HW)]),
         torch.tensor([1.0, 1.0, 1.0, 0.0]))
     got = _both(outs, "eval")
     assert abs(got["loss"] - want["loss"].item()) <= 1e-6
@@ -701,6 +979,61 @@ def test_train_cli_mesh_x2_two_processes_matches_one_process(tmp_path):
     b = pd.read_csv(tmp_path / "one" / "run" / "log.csv")
     assert list(a["epoch"]) == [0, 1] and list(b["epoch"]) == [0]
     a = a[a["epoch"] == 0]
+    for col in ("loss", "val_loss"):
+        np.testing.assert_allclose(a[col], b[col], atol=3e-3, rtol=3e-3, err_msg=col)
+    for col in ("iou", "val_iou"):
+        np.testing.assert_allclose(a[col], b[col], atol=3e-2, err_msg=col)
+
+
+def test_train_cli_mesh_x2_unetrnn_two_processes_matches_one_process(tmp_path):
+    """`train --mesh x=2 --arch UNetRNN` as two processes (narrow, 64x64:
+    its coarsest band holds 2 rows, its 5x5 score convs' halo; the GRU
+    decoder's carry resized on bands) trains an epoch, and rank 0's log.csv
+    matches `--mesh data=1` in one process within the JAX CLI test's bounds
+    (loss and val_loss 3e-3, IoU 3e-2); `--arch UNetRNN` at 32x32 under
+    x=2 exits naming ROADMAP.md (A11b b)."""
+    import pandas as pd
+
+    from pytorch_nested_unet_tpu_torch import train as ptrain
+    from test_torch_multihost import _args, _run_two, _write_set
+
+    extra = ["--arch", "UNetRNN", "--arch_kwargs", '{"feature_scale": 16}', "--input_w", "64",
+             "--input_h", "64", "--epochs", "1"]
+    _write_set(tmp_path / "inputs", seed=5)
+    outs = _run_two(tmp_path, extra + ["--mesh", "x=2"])
+    assert "mesh: {'x': 2} (spatial H/W partitioning on)" in outs[0]
+    ptrain.main(_args(tmp_path, tmp_path / "one", extra + ["--mesh", "data=1"]))
+    with pytest.raises(SystemExit, match="thinner than the halo of 2.*A11b b"):
+        ptrain.main(_args(tmp_path, tmp_path / "thin", extra[:4] + ["--mesh", "x=2"]))
+    a = pd.read_csv(tmp_path / "out0" / "run" / "log.csv")
+    b = pd.read_csv(tmp_path / "one" / "run" / "log.csv")
+    assert list(a["epoch"]) == list(b["epoch"]) == [0]
+    for col in ("loss", "val_loss"):
+        np.testing.assert_allclose(a[col], b[col], atol=3e-3, rtol=3e-3, err_msg=col)
+    for col in ("iou", "val_iou"):
+        np.testing.assert_allclose(a[col], b[col], atol=3e-2, err_msg=col)
+
+
+def test_train_cli_mesh_x2_remat_policy_two_processes_matches_one_process(tmp_path):
+    """`train --mesh x=2 --arch NestedUNet --remat policy` as two processes
+    (narrow, 32x32, deep supervision) trains an epoch, and rank 0's log.csv
+    matches `--mesh data=1 --remat policy` in one process within the JAX CLI
+    test's bounds (loss and val_loss 3e-3, IoU 3e-2)."""
+    import pandas as pd
+
+    from pytorch_nested_unet_tpu_torch import train as ptrain
+    from test_torch_multihost import _args, _run_two, _write_set
+
+    extra = ["--arch", "NestedUNet", "--deep_supervision", "true", "--remat", "policy",
+             "--epochs", "1"]
+    _write_set(tmp_path / "inputs", seed=6)
+    outs = _run_two(tmp_path, extra + ["--mesh", "x=2"])
+    assert "mesh: {'x': 2} (spatial H/W partitioning on)" in outs[0]
+    ptrain.main(_args(tmp_path, tmp_path / "one", extra + ["--mesh", "data=1"]))
+    assert "remat: policy" in (tmp_path / "out0" / "run" / "config.yml").read_text()
+    a = pd.read_csv(tmp_path / "out0" / "run" / "log.csv")
+    b = pd.read_csv(tmp_path / "one" / "run" / "log.csv")
+    assert list(a["epoch"]) == list(b["epoch"]) == [0]
     for col in ("loss", "val_loss"):
         np.testing.assert_allclose(a[col], b[col], atol=3e-3, rtol=3e-3, err_msg=col)
     for col in ("iou", "val_iou"):
