@@ -150,7 +150,13 @@
    remat run also against the band step without remat on the same ranks
    (both under deterministic algorithms: 1e-4 relative L2, statistics
    equal) with each step's peak device memory a rank (policy's below
-   none's); then `train.main --mesh x=2` over 2 processes
+   none's); then VGG16RNN (18 of K1 sums-only, `bn_finish`, K2 and K3),
+   UNetRNNAttention (15; exact PAM's keys and values all-gathered from both
+   bands, CAM's gram all-reduced over them) and CA-Net (no kernel; its
+   channel dropout on, each mask asserted equal on both bands and to the
+   one-process step's) under x=2, each step's peak device memory a rank
+   beside the one-process step's, the band all-gathers' and all-reduces'
+   bytes and host ms beside the halo's; then `train.main --mesh x=2` over 2 processes
    (`--gloo-train`) on dp_cli's narrow folder against `--mesh data=1`;
 11j. the 'model' mesh axis (`model_phase`): on this card over Gloo,
    NestedUNet wDS under data=2,model=2 (4 ranks, `--model-worker`; full
@@ -2528,15 +2534,16 @@ def deterministic():
 
 def _bn_fed_biases(m):
     """The names of the conv biases that feed a BN (a conv and its sibling
-    BN just after it, fused or plain)."""
+    BN just after it, fused, plain or flax-semantics: CA-Net's non-local W,
+    whose one-pass variance cancels under a bias-dominated mean)."""
     from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
-    from pytorch_nested_unet_tpu_torch.ops.layers import BatchNorm
+    from pytorch_nested_unet_tpu_torch.ops.layers import BatchNorm, FlaxBatchNorm
 
     names = set()
     for prefix, mod in m.named_modules():
         kids = list(mod.named_children())
         for (name, conv), (_, bn) in zip(kids, kids[1:]):
-            if isinstance(bn, (FusedBatchNormReLU, BatchNorm)) and \
+            if isinstance(bn, (FusedBatchNormReLU, BatchNorm, FlaxBatchNorm)) and \
                     getattr(conv, "bias", None) is not None:
                 names.add(f"{prefix}.{name}.bias" if prefix else f"{name}.bias")
     return names
@@ -2587,7 +2594,7 @@ def _dp_rel(got, want):
     its module's weight gradient norm, as cpu_step_phase takes it."""
     grads, grads0 = got[1], want[1]
     return {n: float((g - grads0[n]).norm() / max(
-        grads0[n].norm(), grads0[n.rsplit(".", 1)[0] + ".weight"].norm()))
+        grads0[n].norm(), grads0.get(n.rsplit(".", 1)[0] + ".weight", grads0[n]).norm()))
         for n, g in grads.items()}
 
 
@@ -2650,6 +2657,8 @@ def _dp_reference(device="cuda", arch="NestedUNet"):
         idx = np.arange(BATCH) if order is None else np.random.default_rng(order).permutation(BATCH)
         batch = (torch.from_numpy(x[idx]).to(device), torch.from_numpy(y[idx]).to(device))
         m, step = _dp_build(device=device, arch=arch, **build)
+        if order is not None:
+            _masks_follow(m, idx)
         out = _dp_result(m, step(*batch, torch.Generator(device).manual_seed(0)))
         del m, step
         return out
@@ -2660,6 +2669,35 @@ def _dp_reference(device="cuda", arch="NestedUNet"):
                 for kind, seed in MOVEMENT_READINGS}
     movement = {n: max(r[n] for r in readings.values()) for n in plain[1]}
     return plain, _dp_rel(run(), plain), movement, readings
+
+
+def _masks_follow(m, idx):
+    """Every dropout of `m` draws its mask as before and permutes its rows by
+    `idx`, so each image of a batch permuted by `idx` keeps the mask it has
+    in the batch's own order: an "order" reading then moves only the order
+    of the sums (CA-Net's channel dropouts)."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import Dropout
+
+    for d in m.modules():
+        if isinstance(d, Dropout):
+            d.keep = lambda x, draw=d.keep: draw(x)[torch.as_tensor(idx, device=x.device)]
+
+
+def _record_masks(m):
+    """{name: [mask, ...]} of every dropout of `m` (on the host), filled with
+    each train-mode mask it draws."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import Dropout
+
+    masks = {}
+    for name, d in m.named_modules():
+        if isinstance(d, Dropout):
+            def keep(x, draw=d.keep, drawn=masks.setdefault(name, [])):
+                k = draw(x)
+                drawn.append(k.cpu())
+                return k
+
+            d.keep = keep
+    return masks
 
 
 def _with_reading(reference, label, reading):
@@ -3068,7 +3106,12 @@ def dp_cards(world):
 # through K1's sums-only mode, bn_finish, K2 and K3 and its 10 K4 nodes
 # (under --remat full 60 K1 and bn_finish, whose recompute runs them again,
 # and 20 K4); UNet's 18 and 4; UNetRNN's 15 (its GRU decoder's carry resized
-# on bands) and no K4; AttU_Net's plain BNs none. On one card over Gloo
+# on bands) and no K4; AttU_Net's plain BNs none; VGG16RNN's 18 (LSTM
+# decoder); UNetRNNAttention's 15 (exact PAM, its keys and values gathered
+# from both bands, and CAM, its gram summed over them, at every level);
+# CA-Net's plain and flax-semantics BNs none (feature_scale 4, one class,
+# its channel dropout on at 0.5, drawn per data row: the run asserts that
+# both bands and the one-process step draw the same masks). On one card over Gloo
 # (NCCL refuses two ranks on one device); `--dp-cards 4` adds data=2,x=2
 # over NCCL, a card a rank. Each gradient is held as dp_ranks holds it
 # (GATE_FACTOR x its largest movement over MOVEMENT_READINGS, and under
@@ -3093,7 +3136,18 @@ SPATIAL_RUNS = {
                                   {"bn_stats": 60, "bn_bwd_reduce": 30, "bn_bwd_dx": 30,
                                    "bn_finish": 60, "multipart_conv3x3": 20}, "full"),
     "NestedUNet x=2 remat policy": ("NestedUNet", "data=1,x=2", 2, 2, DP_LAUNCHES, "policy"),
+    "VGG16RNN x=2": ("VGG16RNN", "data=1,x=2", 2, 2,
+                     {**bn_want(VGG16RNN_BN_PER_STEP, VGG16RNN_BN_PER_STEP),
+                      "multipart_conv3x3": 0}, "none"),
+    "UNetRNNAttention x=2": ("UNetRNNAttention", "data=1,x=2", 2, 2,
+                             {**bn_want(UNETRNN_BN_PER_STEP, UNETRNN_BN_PER_STEP),
+                              "multipart_conv3x3": 0}, "none"),
+    "Comprehensive_Atten_Unet x=2": ("Comprehensive_Atten_Unet", "data=1,x=2", 2, 2,
+                                     {**bn_want(0), "multipart_conv3x3": 0}, "none"),
 }
+# the runs whose one-process step's peak device memory is printed beside the
+# band step's a rank (a band's PAM energy is (h*w) x (H*W) per image)
+PEAK_RUNS = ("VGG16RNN x=2", "UNetRNNAttention x=2", "Comprehensive_Atten_Unet x=2")
 SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
                             "spatial")
 # The band runs whose workers also step under MOVEMENT_READINGS' weight
@@ -3108,8 +3162,8 @@ SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs
 # of the band path would move the band steps alike under every weight
 # change, and so stay outside the gate.
 BAND_READINGS = {"NestedUNet data=2,x=2": (12, 13, 14), "AttU_Net x=2": (12, 13, 14),
-                 "UNetRNN x=2": (12, 13, 14)}
-BAND_GATED = {"AttU_Net x=2", "UNetRNN x=2"}
+                 "UNetRNN x=2": (12, 13, 14), **{run: (12, 13, 14) for run in PEAK_RUNS}}
+BAND_GATED = {"AttU_Net x=2", "UNetRNN x=2", *PEAK_RUNS}
 
 
 def _spatial_slug(run):
@@ -3160,11 +3214,13 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                 del m, step
                 gc.collect()
             m, step = _dp_build(mesh, device=dev, arch=arch, remat=remat)
+            drawn = _record_masks(m)
             reset_counts(bn, df)
             halo.reset_stats()
             with deterministic() if remat != "none" else contextlib.nullcontext():
                 result, out["peak"] = _peak_step(m, step, batch, dev)
             first, stats = launch_counts(bn, df), dict(halo.STATS)
+            out["masks"] = {name: d[0] for name, d in drawn.items()}
             halo.reset_stats()
             times = []
             for _ in range(steps - 1):
@@ -3221,16 +3277,20 @@ def _peak_step(m, step, batch, dev):
     return result, torch.cuda.max_memory_allocated(dev) / 2**20
 
 
-def spatial_ranks(runs, backend, references, card):
+def spatial_ranks(runs, backend, references, card, extras=None):
     """Run SPATIAL_RUNS' `runs` in one set of spatial_worker processes (as
     many as the largest run needs; over Gloo all on the first card, over
     NCCL rank r on cuda:r) and hold each rank's fp32 step against the
     one-process step over the global batch (`references[run]`, from
     _dp_reference): loss and running statistics within 1e-5, each gradient
     within 1e-4 or GATE_FACTOR x its largest movement over
-    MOVEMENT_READINGS, the run's launches per step (SPATIAL_RUNS). Prints each rank's
-    halo bytes and host ms in halo exchange and gather_bands per step, and
-    its step p50. Returns {run: the ranks' outputs}."""
+    MOVEMENT_READINGS, the run's launches per step (SPATIAL_RUNS), and with
+    `extras[run]` (from _one_process_extras) each dropout's mask equal to the
+    one-process step's. Prints each rank's halo bytes and host ms in halo
+    exchange and gather_bands per step, the band collectives' (bands.py's
+    all-gathers and all-reduces), its step p50 and its step's peak device
+    memory (beside the one-process step's, with `extras`). Returns {run:
+    the ranks' outputs}."""
     world = max(SPATIAL_RUNS[run][2] for run in runs)
     out_dir = os.path.join(SPATIAL_ROOT, _spatial_slug(runs[0]) if len(runs) == 1 else "all")
     os.makedirs(out_dir, exist_ok=True)
@@ -3256,10 +3316,13 @@ def spatial_ranks(runs, backend, references, card):
         gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
         if run in FLIP_READINGS:  # before the gates, which data=2,x=2's fails (F3)
             flip_reading(run, outs, card)
+        extra = (extras or {}).get(run)
         for rank, r in enumerate(outs):
             if r["launches"] != want:
                 raise AssertionError(f"spatial {run} rank {rank}: launches {r['launches']} per "
                                      f"step, expected {want}")
+            if extra is not None:
+                _hold_masks(run, rank, r["masks"], extra["masks"], card)
             if "band_steps" in r:
                 _print_band_readings(run, r, plain, gate, movement, readings, card)
             if "none_result" in r:
@@ -3268,8 +3331,8 @@ def spatial_ranks(runs, backend, references, card):
                 r["result"], plain, 1e-5, 1e-5, gate, f"spatial {run} rank {rank}")
             h, st = r["halo"], r["steady"]
             p50 = f"{r['p50']:.3f} ms" if r["p50"] is not None else "not measured (1 step)"
-            later = (f" ({st['halo_s'] * 1e3:.1f} a later step)" if st else "",
-                     f" ({st['gather_s'] * 1e3:.1f} a later step)" if st else "")
+            later = [f" ({st[k] * 1e3:.1f} a later step)" if st else ""
+                     for k in ("halo_s", "gather_s", "allgather_s", "allreduce_s")]
             print(f"spatial {run} rank {rank} of {ranks} ({r['backend']}, {arch} full width, "
                   f"global batch {BATCH} at {SIZE}x{SIZE}, fp32), one step against the "
                   f"one-process step: loss off by {loss_err:.3g} (1e-5), running stats by "
@@ -3280,12 +3343,50 @@ def spatial_ranks(runs, backend, references, card):
                   f"{h['halo_bytes'] / 1e6:.3f} MB sent, {h['halo_s'] * 1e3:.1f} host ms in "
                   f"halo_exchange the first step{later[0]}, gather_bands "
                   f"{h['gather_bytes'] / 1e6:.3f} MB, {h['gather_s'] * 1e3:.1f} host ms"
-                  f"{later[1]} | step p50 {p50} of {steps - 1} after the first"
+                  f"{later[1]}, keys' all-gathers {h['allgather_bytes'] / 1e6:.3f} MB, "
+                  f"{h['allgather_s'] * 1e3:.1f} host ms{later[2]}, band all-reduces "
+                  f"{h['allreduce_bytes'] / 1e6:.3f} MB, {h['allreduce_s'] * 1e3:.1f} host ms"
+                  f"{later[3]} | step p50 {p50} of {steps - 1} after the first"
                   + (" (a correctness run: Gloo stages every halo through host memory)"
                      if r["backend"] == "gloo" else "")
+                  + f" | peak device memory of the first step {r['peak']:.1f} MiB a rank"
+                  + (f" (one process over the global batch: {extra['peak']:.1f} MiB)"
+                     if extra is not None else "")
                   + f" | wall of the {world} ranks' runs {wall:.1f} s | card: {card}", flush=True)
             results[run].append(r)
     return results
+
+
+def _one_process_extras(arch, device="cuda"):
+    """The one-process step's (_dp_build's, over the global batch) peak
+    device memory in MiB and its dropouts' masks (`_record_masks`): what
+    spatial_ranks prints beside a band run's peak and holds its masks to."""
+    x, y = _dp_batch()
+    m, step = _dp_build(device=device, arch=arch)
+    drawn = _record_masks(m)
+    _, peak = _peak_step(m, step, (torch.from_numpy(x).to(device),
+                                   torch.from_numpy(y).to(device)), torch.device(device))
+    del m, step
+    gc.collect()
+    return {"peak": peak, "masks": {name: d[0] for name, d in drawn.items()}}
+
+
+def _hold_masks(run, rank, got, want, card):
+    """A band rank's dropout masks of its first step against the one-process
+    step's over the global batch (a data=1 run: every rank holds every row):
+    the same dropouts, each mask equal, so both bands drop the same
+    channels as one process does."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"spatial {run} rank {rank}: dropouts {sorted(got)}, the "
+                             f"one-process step's {sorted(want)}")
+    for name, mask in got.items():
+        if mask.shape != want[name].shape or not torch.equal(mask, want[name]):
+            raise AssertionError(f"spatial {run} rank {rank}: {name}'s mask differs from the "
+                                 f"one-process step's")
+    if got:
+        kept = {n: f"{int(m.sum())}/{m.numel()}" for n, m in got.items()}
+        print(f"spatial {run} rank {rank}: channel dropout masks equal to the one-process "
+              f"step's (kept {kept}) | card: {card}", flush=True)
 
 
 def _hold_remat_band(run, rank, r, card):
@@ -3650,11 +3751,14 @@ def spatial_phase(bn, df, card, reference):
     ranks, 1 step, the corners), NestedUNet wDS under data=1,x=2 (2 of the
     same ranks, 3 steps; `reference`: its one-process step from
     _dp_reference), then on the same 2 ranks AttU_Net and UNetRNN (GRU)
-    under x=2 and NestedUNet wDS under x=2 with --remat full and policy (a
-    checked step and a timed one each), each rank against the one-process
-    step (`spatial_ranks`; the remat runs also against the band step
-    without remat), then `train --mesh x=2` over 2 processes
-    (`spatial_cli`). Returns {"fp32": launches} of every rank's steps."""
+    under x=2, NestedUNet wDS under x=2 with --remat full and policy, and
+    VGG16RNN, UNetRNNAttention and CA-Net (dropout on) under x=2 (a checked
+    step and a timed one each), each rank against the one-process step
+    (`spatial_ranks`; the remat runs also against the band step without
+    remat; the last three with their peak memory beside the one-process
+    step's and CA-Net's masks against its), then `train --mesh x=2` over 2
+    processes (`spatial_cli`). Returns {"fp32": launches} of every rank's
+    steps."""
     t0 = time.perf_counter()
     totals = {**bn_want(0), "multipart_conv3x3": 0}
     # the 4-rank run first: the 2-rank runs' group is then made by all 4
@@ -3662,8 +3766,10 @@ def spatial_phase(bn, df, card, reference):
                   "AttU_Net x=2": _dp_reference(arch="AttU_Net"),
                   "UNetRNN x=2": _dp_reference(arch="UNetRNN"),
                   "NestedUNet x=2 remat full": reference,
-                  "NestedUNet x=2 remat policy": reference}
-    for outs in spatial_ranks(list(references), "gloo", references, card).values():
+                  "NestedUNet x=2 remat policy": reference,
+                  **{run: _dp_reference(arch=SPATIAL_RUNS[run][0]) for run in PEAK_RUNS}}
+    extras = {run: _one_process_extras(SPATIAL_RUNS[run][0]) for run in PEAK_RUNS}
+    for outs in spatial_ranks(list(references), "gloo", references, card, extras).values():
         for r in outs:
             for k, v in r["total"].items():
                 totals[k] += v
@@ -4216,7 +4322,9 @@ def main():
           "2 ranks over Gloo; spatial: launches in spatial_phase's steps on bands (NestedUNet "
           "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; AttU_Net (none) and "
           "UNetRNN x=2, 2 ranks x 2 steps; NestedUNet wDS x=2 under --remat full and policy, "
-          "2 ranks x 2 steps each and 1 step each without remat; fp32); model: "
+          "2 ranks x 2 steps each and 1 step each without remat; VGG16RNN, UNetRNNAttention "
+          "and CA-Net (none) x=2, 2 ranks x 2 steps and 4 more steps each under the band "
+          "readings; fp32); model: "
           "launches in model_phase's steps (NestedUNet wDS data=2,model=2 on 4 ranks and "
           "data=2 on 2 ranks, Gloo: one fp32 step each, twice without 'model'; bf16 the "
           "timed steps); "

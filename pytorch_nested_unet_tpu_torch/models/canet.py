@@ -16,6 +16,17 @@ flax's own `nn.BatchNorm` -- the non-local block's W BN (momentum 0.9 in
 flax's convention, scale starting at 0) and SpatialAtten's conv1 BN (0.99):
 those are `FlaxBatchNorm` (biased running variance, float32). No kernel.
 
+On the 'x'/'y' mesh axes `parallel.mesh.spatial_partition` sets the
+`bands` of the modules that reduce, attend or resize over the whole map (a
+`parallel.bands.Bands`): the non-local block attends from its band's
+queries to the whole map's pooled keys and values, the grid gates resize
+and (concatenation_residual) take their softmax over the whole map, the SE
+and channel gates pool over it, the deep-supervision heads and the
+bilinear UpCat resize the band's share of the whole map. The 2x2 stride-2
+deconv and a theta of kernel = stride are local to even bands; the channel
+dropout draws per data row (`parallel.mesh.sync_batch_norm`). With `bands`
+None each runs on the whole image.
+
 Modules keep the reference's layout, so the state dict's keys are its
 checkpoints' own: `conv1.conv.{0,1,3,4}`, `nonlocal4_2.{g.0,theta,phi.0,W.0,
 W.1}`, `attentionblock3.gate_block_1.{theta,phi,psi,W.0,W.1}`,
@@ -35,7 +46,7 @@ import torch.nn.functional as F
 from ..ops.init import init_convs_
 from ..ops.layers import (BatchNorm, ChannelDropout, FlaxBatchNorm, TorchConv,
                           TorchConvTranspose, TorchDense, _pair)
-from ..ops.pool import global_avg_pool, max_pool2x2
+from ..ops.pool import global_avg_pool, global_max_pool, max_pool2x2
 from ..ops.resize import resize_bilinear
 from .attention_unet import ConvBlock
 
@@ -51,6 +62,8 @@ class GridAttentionBlock2D(nn.Module):
     psi to one channel, a sigmoid gate (concatenation_residual: a softmax
     over the flattened map, in float32) resized to x's size, applied to x,
     then a 1x1 conv + BN. Returns (W(att * x), att)."""
+
+    bands = None
 
     def __init__(self, in_channels: int, gating_channels: int, inter_channels: int,
                  mode: str = "concatenation", sub_sample_factor=(1, 1),
@@ -68,16 +81,18 @@ class GridAttentionBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, g: torch.Tensor):
         theta_x = self.theta(x)
-        phi_g = resize_bilinear(self.phi(g), theta_x.shape[1:3], align_corners=False)
+        phi_g = resize_bilinear(self.phi(g), theta_x.shape[1:3], align_corners=False,
+                                bands=self.bands)
         f = theta_x + phi_g
         f = F.softplus(f) if self.mode == "concatenation_debug" else torch.relu(f)
         psi_f = self.psi(f)
         if self.mode == "concatenation_residual":
             flat = psi_f.reshape(psi_f.shape[0], -1).to(torch.float32)
-            att = torch.softmax(flat, dim=-1).reshape(psi_f.shape).to(x.dtype)
+            att = (torch.softmax(flat, dim=-1) if self.bands is None
+                   else self.bands.softmax(flat)).reshape(psi_f.shape).to(x.dtype)
         else:
             att = torch.sigmoid(psi_f)
-        att = resize_bilinear(att, x.shape[1:3], align_corners=False)
+        att = resize_bilinear(att, x.shape[1:3], align_corners=False, bands=self.bands)
         return self.W(att * x), att
 
 
@@ -111,6 +126,8 @@ class NonLocalBlock2D(nn.Module):
     flax-semantics BN whose scale starts at 0, so the block starts as the
     identity; a residual around it."""
 
+    bands = None
+
     def __init__(self, in_channels: int, inter_channels: int,
                  mode: str = "embedded_gaussian", dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -127,6 +144,9 @@ class NonLocalBlock2D(nn.Module):
         b, h, w, _ = x.shape
         g_x, theta_x, phi_x = max_pool2x2(self.g(x)), self.theta(x), max_pool2x2(self.phi(x))
         ic = theta_x.shape[-1]
+        if self.bands is not None:  # the whole map's keys and values
+            whole = self.bands.gather(torch.cat([phi_x, g_x], dim=-1))
+            phi_x, g_x = whole[..., :ic], whole[..., ic:]
         q = theta_x.reshape(b, h * w, ic)
         k = phi_x.reshape(b, -1, ic)
         v = g_x.reshape(b, -1, ic)
@@ -145,6 +165,8 @@ class UpCat(nn.Module):
     comes out smaller, concatenated after the skip (reference
     archs.py:571-593; the reference pads with torch.rand)."""
 
+    bands = None
+
     def __init__(self, in_channels: int, out_channels: int, is_deconv: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -156,7 +178,7 @@ class UpCat(nn.Module):
             up = self.up(down)
         else:
             up = resize_bilinear(down, (down.shape[1] * 2, down.shape[2] * 2),
-                                 align_corners=False)
+                                 align_corners=False, bands=self.bands)
         dh, dw = skip.shape[1] - up.shape[1], skip.shape[2] - up.shape[2]
         if dh > 0 or dw > 0:
             up = F.pad(up.permute(0, 3, 1, 2), (0, max(dw, 0), 0, max(dh, 0)),
@@ -171,6 +193,8 @@ class SEConvBlock(nn.Module):
     then ReLU -> conv3x3 -> BN -> ReLU and channel dropout in train mode when
     `drop_out` (reference archs.py:598-712). The max is `amax`, which on ties
     spreads the gradient evenly, as JAX's does. Returns (out, avg + max gate)."""
+
+    bands = None
 
     def __init__(self, inplanes: int, planes: int, drop_out: bool = False,
                  drop_rate: float = 0.5, dtype: Optional[torch.dtype] = None,
@@ -198,8 +222,8 @@ class SEConvBlock(nn.Module):
         out = torch.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         residual = x if self.downchannel is None else self.downchannel(x)
-        avg_att = self._gate(global_avg_pool(out, keepdims=False))
-        max_att = self._gate(out.amax(dim=(1, 2)))
+        avg_att = self._gate(global_avg_pool(out, keepdims=False, bands=self.bands))
+        max_att = self._gate(global_max_pool(out, self.bands))
         out = torch.relu(avg_att * out + max_att * out + residual)
         out = torch.relu(self.bn3(self.conv3(out)))
         if self.dropout is not None:
@@ -211,18 +235,22 @@ class UnetDsv3(nn.Module):
     """Deep-supervision head: 1x1 conv to 4 maps, bilinear resize to
     `out_size` (reference archs.py:687-694)."""
 
+    bands = None
+
     def __init__(self, in_channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dsv = nn.Sequential(TorchConv(in_channels, 4, 1, 0, dtype))
 
     def forward(self, x: torch.Tensor, out_size) -> torch.Tensor:
-        return resize_bilinear(self.dsv(x), out_size, align_corners=False)
+        return resize_bilinear(self.dsv(x), out_size, align_corners=False, bands=self.bands)
 
 
 class ChannelGate(nn.Module):
     """A shared MLP on the global average and max pools, summed; the channels
     taken as 4 scales of C / 4 maps, each scale gated by the sigmoid of its
     mean (reference archs.py:734-768). Returns (x * gate, gate)."""
+
+    bands = None
 
     def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -233,7 +261,8 @@ class ChannelGate(nn.Module):
 
     def forward(self, x: torch.Tensor):
         b, c = x.shape[0], x.shape[-1]
-        att = self.mlp(global_avg_pool(x, keepdims=False)) + self.mlp(x.amax(dim=(1, 2)))
+        att = (self.mlp(global_avg_pool(x, keepdims=False, bands=self.bands))
+               + self.mlp(global_max_pool(x, self.bands)))
         att = att.reshape(b, 4, c // 4)
         avg_weight = att.mean(dim=2, keepdim=True).expand(b, 4, c // 4).reshape(b, c)
         scale = torch.sigmoid(avg_weight)[:, None, None, :]
@@ -322,6 +351,7 @@ class Comprehensive_Atten_Unet(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         f = [int(c / feature_scale) for c in (64, 128, 256, 512, 1024)]
+        self.filters = f  # a width a level: parallel/mesh.py counts the pools from it
         self.dtype, self.num_classes, self.out_size = dtype, num_classes, out_size
         dt = dtype
         self.conv1 = ConvBlock(input_channels, f[0], dtype=dt)

@@ -9,6 +9,13 @@ block's PAM and CAM are registered submodules (the reference builds them
 inside forward). Dtypes are the JAX package's: energies in the compute dtype,
 softmax in float32, cast back. These are plain matmuls there and here.
 
+On the 'x'/'y' mesh axes `parallel.mesh.spatial_partition` sets each
+module's `bands` (a `parallel.bands.Bands`): PAM attends from its band's
+queries to the whole map's keys and values (`Bands.gather`, whose adjoint
+sums every band's reading), so a band's energy is (h*w) x (H*W) per image;
+CAM sums its C x C gram over the bands (`Bands.sum`) before the softmax.
+With `bands` None each runs on the whole image.
+
 Keys: `PAM_Module1.{query_conv,key_conv,value_conv}.*` and `.gamma`,
 `CAM_Module1.gamma`, `attention_block1.{pam,cam}.*`.
 """
@@ -23,16 +30,18 @@ from .rdc import _UNetRNNBase
 
 
 def _rank1_attention_interp(t: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            grid_size: int) -> torch.Tensor:
+                            grid_size: int, t_all: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(t_i * k_j) @ v for scalar queries and keys through one shared
     function of t: evaluated on a per-batch uniform grid over [min t, max t]
     and interpolated linearly at each row's t_i (an approximation).
 
-    t, k: (B, N); v: (B, N, C). Returns (B, N, C) in v's dtype; the softmax
-    math runs in float32."""
+    t: (B, n); k: (B, N); v: (B, N, C); `t_all`: every query of the map when
+    t is a band's share of them (the grid spans all), else t. Returns (B,
+    n, C) in v's dtype; the softmax math runs in float32."""
     tf, kf, vf = t.float(), k.float(), v.float()
-    lo = tf.amin(dim=1, keepdim=True)
-    hi = tf.amax(dim=1, keepdim=True)
+    ta = tf if t_all is None else t_all.float()
+    lo = ta.amin(dim=1, keepdim=True)
+    hi = ta.amax(dim=1, keepdim=True)
     span = torch.clamp(hi - lo, min=1e-12)
     g = lo + span * torch.linspace(0.0, 1.0, grid_size, device=t.device)[None, :]  # (B, G)
     s = g[:, :, None] * kf[:, None, :]                                           # (B, G, N)
@@ -53,6 +62,8 @@ class PAMModule(nn.Module):
     by default) takes the grid-interpolated path where the query/key width is
     1; it approximates the exact path."""
 
+    bands = None
+
     def __init__(self, in_channels: int, dtype: Optional[torch.dtype] = None,
                  fast_rank1: bool = False, grid_size: int = 256):
         super().__init__()
@@ -65,11 +76,20 @@ class PAMModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
-        q = self.query_conv(x).reshape(b, h * w, -1)
-        k = self.key_conv(x).reshape(b, h * w, -1)
-        v = self.value_conv(x).reshape(b, h * w, c)
-        if self.fast_rank1 and q.shape[-1] == 1:
-            out = _rank1_attention_interp(q[..., 0], k[..., 0], v, self.grid_size)
+        qx, kx, vx = self.query_conv(x), self.key_conv(x), self.value_conv(x)
+        fast = self.fast_rank1 and qx.shape[-1] == 1
+        t_all = None
+        if self.bands is not None:  # the whole map's keys and values (and queries: fast's grid)
+            parts = [kx, vx, qx] if fast else [kx, vx]
+            whole = self.bands.gather(torch.cat(parts, dim=-1))
+            kx, vx = whole[..., :kx.shape[-1]], whole[..., kx.shape[-1]:kx.shape[-1] + c]
+            if fast:
+                t_all = whole[..., -1].reshape(b, -1)
+        q = qx.reshape(b, h * w, -1)
+        k = kx.reshape(b, -1, kx.shape[-1])
+        v = vx.reshape(b, -1, c)
+        if fast:
+            out = _rank1_attention_interp(q[..., 0], k[..., 0], v, self.grid_size, t_all)
         else:
             energy = torch.bmm(q, k.transpose(1, 2))
             attention = torch.softmax(energy.float(), dim=-1).to(v.dtype)
@@ -81,6 +101,8 @@ class CAMModule(nn.Module):
     """Channel attention: a C x C gram with the max-subtraction of the
     reference, a gamma-gated residual (reference archs_backup.py:913-947)."""
 
+    bands = None
+
     def __init__(self):
         super().__init__()
         self.gamma = nn.Parameter(torch.zeros(1))
@@ -89,6 +111,8 @@ class CAMModule(nn.Module):
         b, h, w, c = x.shape
         flat = x.reshape(b, h * w, c)
         energy = torch.bmm(flat.transpose(1, 2), flat).float()
+        if self.bands is not None:  # the gram sums over every band's pixels
+            energy = self.bands.sum(energy)
         energy_new = energy.amax(dim=-1, keepdim=True) - energy
         attention = torch.softmax(energy_new, dim=-1).to(x.dtype)
         out = torch.bmm(flat, attention.transpose(1, 2)).reshape(b, h, w, c)

@@ -39,7 +39,11 @@ def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 class SqueezeExcite(nn.Module):
-    """Squeeze-excite with a hard-sigmoid gate (reference archs_backup.py:411-428)."""
+    """Squeeze-excite with a hard-sigmoid gate (reference archs_backup.py:411-428);
+    on the 'x'/'y' mesh axes `bands` (set by `parallel.mesh.spatial_partition`)
+    pools over the whole map."""
+
+    bands = None
 
     def __init__(self, in_chs: int, se_ratio: float = 0.25, divisor: int = 4,
                  dtype: Optional[torch.dtype] = None):
@@ -49,7 +53,8 @@ class SqueezeExcite(nn.Module):
         self.conv_expand = TorchConv(reduced, in_chs, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_se = self.conv_expand(torch.relu(self.conv_reduce(global_avg_pool(x))))
+        pooled = global_avg_pool(x, bands=self.bands)
+        x_se = self.conv_expand(torch.relu(self.conv_reduce(pooled)))
         return x * hard_sigmoid(x_se)
 
 

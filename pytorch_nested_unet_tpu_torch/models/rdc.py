@@ -28,7 +28,7 @@ import torch.nn as nn
 from ..ops.init import init_convs_
 from ..ops.layers import TorchConv
 from ..ops.pool import max_pool2x2
-from ..ops.resize import resize_bilinear, upsample2x_band
+from ..ops.resize import resize_bilinear, resize_bilinear_band
 from .blocks import ConvBNReLU, UnetConv2
 
 DECODERS = ("LSTM", "GRU", "vanilla")
@@ -53,7 +53,7 @@ class RDC(nn.Module):
     the LSTM) its halo and calls with `haloed=True` wherever the carry is
     resized. Every level then halves (the band rule, parallel/mesh.py), so
     each resize is the band of the whole map's 2x align-corners resize
-    (`upsample2x_band`). On whole images the carry is resized by
+    (`resize_bilinear_band` at factor 2). On whole images the carry is resized by
     `resize_bilinear` to any size (UNetRM7 at 96x96: 1 -> 3 -> 6).
     """
 
@@ -80,7 +80,7 @@ class RDC(nn.Module):
         (i, nx), (j, ny) = self.band
         rows, cols = self.halo
         h, w = t.shape[1] - 2 * rows, t.shape[2] - 2 * cols
-        return upsample2x_band(t, i * h, nx * h, j * w, ny * w, rows, cols)
+        return resize_bilinear_band(t, i * h, nx * h, j * w, ny * w, 2, 2, rows, cols)
 
     def forward(self, x_cur, h_pre, c_pre=None, haloed=False):
         hw = x_cur.shape[1:3]

@@ -13,7 +13,7 @@ Data-parallel training sets `process_group` on the BNs and dropouts
 (`parallel.mesh.sync_batch_norm`): a train-mode BN then takes its moments
 over every rank's rows (`_SyncBatchNorm`, the explicit form of the JAX
 package's `_TorchBN` under an axis name), and a dropout draws its mask for
-every rank's rows and keeps this rank's.
+every data row's rows and keeps this rank's.
 """
 
 from typing import Optional, Tuple, Union
@@ -129,9 +129,11 @@ class Dropout(nn.Module):
     probability `p` and the rest scaled by 1 / (1 - p); identity in eval. The
     masks come from a generator per device, seeded on first use from
     `generator` (default: seed 0), so a model built from a seed drops the
-    same elements on every run. With `process_group` set, the mask is drawn
-    for every rank's rows (equal row counts) and this rank's rows are kept,
-    so N ranks drop what one process would over the whole batch."""
+    same elements on every run. With `process_group` set (the mesh's 'data'
+    rows, `parallel.mesh.sync_batch_norm`), the mask is drawn for every
+    member's rows (equal row counts) and this rank's rows are kept, so N
+    ranks drop what one process would over the whole batch; the bands of one
+    data row draw alike."""
 
     process_group = None
 
@@ -144,22 +146,24 @@ class Dropout(nn.Module):
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return tuple(x.shape)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0:
-            return x
+    def keep(self, x: torch.Tensor) -> torch.Tensor:
+        """The next train-mode mask for `x` (True: kept), of `mask_shape`."""
         gen = self._generators.get(x.device)
         if gen is None:
             seed = int(torch.randint(0, 2**62, (1,), generator=self._seeds))
             gen = self._generators[x.device] = torch.Generator(x.device).manual_seed(seed)
         shape = self.mask_shape(x)
         if self.process_group is None:
-            keep = torch.rand(shape, generator=gen, device=x.device) >= self.p
-        else:
-            group, b = self.process_group, shape[0]
-            rank = dist.get_rank(group)
-            keep = (torch.rand((b * dist.get_world_size(group), *shape[1:]), generator=gen,
-                               device=x.device) >= self.p)[rank * b:(rank + 1) * b]
-        return x * (keep.to(x.dtype) / (1.0 - self.p))
+            return torch.rand(shape, generator=gen, device=x.device) >= self.p
+        group, b = self.process_group, shape[0]
+        rank = dist.get_rank(group)
+        return (torch.rand((b * dist.get_world_size(group), *shape[1:]), generator=gen,
+                           device=x.device) >= self.p)[rank * b:(rank + 1) * b]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        return x * (self.keep(x).to(x.dtype) / (1.0 - self.p))
 
 
 class ChannelDropout(Dropout):

@@ -53,6 +53,21 @@ def adaptive_max_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
-    """Mean over H and W of (B,H,W,C): (B,1,1,C), or (B,C) without keepdims."""
-    return x.mean(dim=(1, 2), keepdim=keepdims)
+def global_avg_pool(x: torch.Tensor, keepdims: bool = True, bands=None) -> torch.Tensor:
+    """Mean over H and W of (B,H,W,C): (B,1,1,C), or (B,C) without keepdims.
+    `bands` (a `parallel.bands.Bands`, set on the 'x'/'y' mesh axes): x is a
+    band of a whole map, and the mean is the whole map's: the bands' sums (in
+    float32 at least) all-reduced over them, divided by the whole map's H * W."""
+    if bands is None:
+        return x.mean(dim=(1, 2), keepdim=keepdims)
+    h, w = bands.full_hw(x)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    total = bands.sum(x.to(acc).sum(dim=(1, 2), keepdim=keepdims))
+    return (total / (h * w)).to(x.dtype)
+
+
+def global_max_pool(x: torch.Tensor, bands=None) -> torch.Tensor:
+    """Max over H and W of (B,H,W,C) as (B,C); its gradient is `amax`'s,
+    split evenly over tied maxima. `bands`: as `global_avg_pool`'s, the
+    whole map's max (`Bands.amax`), ties split over every band's."""
+    return x.amax(dim=(1, 2)) if bands is None else bands.amax(x, (1, 2))

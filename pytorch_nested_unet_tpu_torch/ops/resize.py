@@ -19,15 +19,21 @@ from .pool import adaptive_avg_pool
 A_CUBIC = -0.75  # torch's bicubic kernel parameter
 
 
-def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True,
+                    bands=None) -> torch.Tensor:
     """Resize (B,H,W,C) to (B,out_h,out_w,C); the result is NHWC-contiguous.
     Under `torch.use_deterministic_algorithms(True)` the gradient is the
     resize's adjoint as two matmuls (`_DeterministicBilinear`): the
     operator's own backward adds with atomics on a card, so it differs run
-    to run, and torch refuses it in that mode."""
+    to run, and torch refuses it in that mode. `bands` (a
+    `parallel.bands.Bands`, set on the 'x'/'y' mesh axes): x is a band of a
+    whole map, and the result is that band's share of the whole map's
+    resize (`Bands.resize`, through `resize_bilinear_band`)."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     if tuple(x.shape[1:3]) == (out_h, out_w):
         return x
+    if bands is not None:
+        return bands.resize(x, (out_h, out_w), align_corners)
     if x.requires_grad and torch.is_grad_enabled() and \
             torch.are_deterministic_algorithms_enabled():
         return _DeterministicBilinear.apply(x, out_h, out_w, align_corners)
@@ -99,39 +105,53 @@ def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)  # a few band geometries a model; no copy per call
-def _band_taps(n: int, n0: int, full: int, halo: int, device):
-    """For the 2n output positions [2*n0, 2*(n0 + n)) of a 2x align-corners
-    resize of a `full`-long axis: the two source indices of each, local to a
-    band of n positions from n0 with `halo` more on each side, and the
-    weight of the second. Positions and weights as F.interpolate takes them:
-    src = i * (full - 1) / (2 * full - 1) in float32."""
-    scale = np.float32((full - 1) / (2 * full - 1)) if full > 1 else np.float32(0)
-    src = np.arange(2 * n0, 2 * (n0 + n), dtype=np.float32) * scale
+def _band_taps(n: int, n0: int, full: int, halo: int, device, scale: int = 2,
+               align_corners: bool = True):
+    """For the scale*n output positions [scale*n0, scale*(n0 + n)) of a
+    `scale`x bilinear resize of a `full`-long axis: the two source indices
+    of each, local to a band of n positions from n0 with `halo` more on each
+    side, and the weight of the second. Positions and weights as
+    F.interpolate takes them, in float32: align corners, src = i * (full -
+    1) / (scale * full - 1); half-pixel centres, src = (i + 0.5) / scale -
+    0.5 clamped at 0 (and the second index at full - 1), so at the map's
+    edge a band reads its own edge row."""
+    o = np.arange(scale * n0, scale * (n0 + n), dtype=np.float32)
+    if align_corners:
+        src = o * (np.float32((full - 1) / (scale * full - 1)) if full > 1 else np.float32(0))
+    else:
+        src = np.maximum(np.float32(1 / scale) * (o + np.float32(0.5)) - np.float32(0.5),
+                         np.float32(0))
     i0 = np.floor(src).astype(np.int64)
     lam = (src - i0).astype(np.float32)
     i1 = np.minimum(i0 + 1, full - 1)
     local0, local1 = i0 - n0 + halo, i1 - n0 + halo
     if local0.min() < 0 or local1.max() >= n + 2 * halo:
-        raise ValueError(f"upsample2x_band: a band of {n} at {n0} of {full} needs a wider "
+        raise ValueError(f"resize_bilinear_band: a band of {n} at {n0} of {full} needs a wider "
                          f"halo than {halo}")
     return (torch.from_numpy(local0).to(device), torch.from_numpy(local1).to(device),
             torch.from_numpy(lam).to(device))
 
 
-def upsample2x_band(x: torch.Tensor, h0: int, full_h: int, w0: int, full_w: int,
-                    halo_rows: int = 0, halo_cols: int = 0) -> torch.Tensor:
-    """The band [2*h0, 2*(h0 + h)) x [2*w0, 2*(w0 + w)) of `upsample2x` of a
-    whole (B, full_h, full_w, C) map, from its band (B, h, w, C) given with
-    `halo_rows` rows of its neighbours above and below and `halo_cols`
-    columns left and right (zeros past the map's edge, which no output reads).
-    Align-corners positions are global: output row i reads source position
-    i * (full_h - 1) / (2 * full_h - 1) of the whole map, within half a row of
-    i / 2, so a halo of 1 suffices. Computed in float32, cast to x's dtype;
-    the result is NHWC-contiguous."""
-    y = x.to(torch.float32)
-    for dim, n0, full, halo in ((1, h0, full_h, halo_rows), (2, w0, full_w, halo_cols)):
+def resize_bilinear_band(x: torch.Tensor, h0: int, full_h: int, w0: int, full_w: int,
+                         scale_h: int, scale_w: int, halo_rows: int = 0, halo_cols: int = 0,
+                         align_corners: bool = True) -> torch.Tensor:
+    """The band [scale_h*h0, scale_h*(h0 + h)) x [scale_w*w0, scale_w*(w0 +
+    w)) of the bilinear resize by integer factors of a whole (B, full_h,
+    full_w, C) map, from its band (B, h, w, C) given with `halo_rows` rows
+    of its neighbours above and below and `halo_cols` columns left and right
+    (zeros past the map's edge, which no output reads). Source positions are
+    the whole map's (`_band_taps`): an output row reads within one row of
+    its band's own, so a halo of 1 suffices on a resized split axis, and
+    none on an axis of factor 1. Computed in float32 (float64 for float64
+    x), cast to x's dtype; the result is NHWC-contiguous."""
+    y = x.to(torch.promote_types(x.dtype, torch.float32))
+    for dim, n0, full, scale, halo in ((1, h0, full_h, scale_h, halo_rows),
+                                       (2, w0, full_w, scale_w, halo_cols)):
         n = y.shape[dim] - 2 * halo
-        i0, i1, lam = _band_taps(n, n0, full, halo, x.device)
+        if scale == 1:
+            y = y.narrow(dim, halo, n)
+            continue
+        i0, i1, lam = _band_taps(n, n0, full, halo, x.device, scale, align_corners)
         shape = [1, 1, 1, 1]
         shape[dim] = -1
         lam = lam.reshape(shape)
@@ -147,7 +167,8 @@ class Upsample2x(nn.Module):
     columns the input carries beyond the band. Both are set on the 'x'/'y'
     mesh axes (`parallel.mesh.spatial_partition`); the output is then the
     band's rows and columns of the whole map's upsample
-    (`upsample2x_band`)."""
+    (`resize_bilinear_band` at factor 2: output row i reads source position
+    i * (H - 1) / (2H - 1) of the whole map, within half a row of i / 2)."""
 
     band = ((0, 1), (0, 1))
     halo = (0, 0)
@@ -158,7 +179,7 @@ class Upsample2x(nn.Module):
         (i, nx), (j, ny) = self.band
         rows, cols = self.halo
         h, w = x.shape[1] - 2 * rows, x.shape[2] - 2 * cols
-        return upsample2x_band(x, i * h, nx * h, j * w, ny * w, rows, cols)
+        return resize_bilinear_band(x, i * h, nx * h, j * w, ny * w, 2, 2, rows, cols)
 
 
 def resize_area(x: torch.Tensor, out_hw) -> torch.Tensor:

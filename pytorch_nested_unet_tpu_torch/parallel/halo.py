@@ -11,7 +11,9 @@ that owns the row and is added into its edge rows; past the edge it is
 dropped. `gather_bands(t, mesh)` rebuilds the whole (B, H, W, C) image from
 the bands of the rank's data row on every rank of it; its backward returns
 this rank's band of the gradient (every rank computes the same loss from
-the gathered tensor, so nothing is summed).
+the gathered tensor, so nothing is summed). The band collectives of the
+archs that attend or pool over the whole map (an all-gather of keys and
+values whose adjoint sums, all-reduces over the bands) are in bands.py.
 
 Under NCCL the exchange is `dist.batch_isend_irecv` on the card; under Gloo,
 whose point-to-point calls take CPU tensors only, CUDA tensors are staged
@@ -20,7 +22,8 @@ Under Gloo every wait, on CPU tensors or staged ones, takes `TIMEOUT` and
 raises past it; NCCL's are enqueued on the stream and bounded by the
 process group's own timeout (its watchdog), so the host does not block on
 every halo. `STATS` counts the bytes this rank sends and the host
-seconds spent in both functions; `chip_smoke.py` reads and resets it.
+seconds spent in both functions, and in bands.py's all-gathers and
+all-reduces; `chip_smoke.py` reads and resets it.
 """
 
 import time
@@ -31,7 +34,8 @@ import torch.distributed as dist
 
 
 TIMEOUT = timedelta(seconds=300)
-STATS = {"halo_bytes": 0, "halo_s": 0.0, "gather_bytes": 0, "gather_s": 0.0}
+STATS = {"halo_bytes": 0, "halo_s": 0.0, "gather_bytes": 0, "gather_s": 0.0,
+         "allgather_bytes": 0, "allgather_s": 0.0, "allreduce_bytes": 0, "allreduce_s": 0.0}
 
 
 def reset_stats():
@@ -135,25 +139,32 @@ def halo_exchange(x: torch.Tensor, mesh, rows: int, cols: int) -> torch.Tensor:
     return _HaloExchange.apply(x, mesh, int(rows), int(cols))
 
 
+def _gather(t: torch.Tensor, mesh, stat: str) -> torch.Tensor:
+    """The whole (B, H, W, C) image from the bands of this rank's data row
+    (one all-gather over the spatial group, the parts laid out at their
+    bands' places), counted in STATS under `stat`."""
+    t0 = time.perf_counter()
+    staged = _staged(t, mesh.spatial_group)
+    src = t.cpu() if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in mesh.spatial_coords]
+    work = dist.all_gather(parts, src, group=mesh.spatial_group, async_op=True)
+    _wait([work], mesh.spatial_group)
+    STATS[f"{stat}_bytes"] += src.numel() * src.element_size()
+    nx, ny = mesh.shape.get("x", 1), mesh.shape.get("y", 1)
+    grid = [[None] * ny for _ in range(nx)]
+    for (i, j), part in zip(mesh.spatial_coords, parts):
+        grid[i][j] = part
+    out = torch.cat([torch.cat(row, 2) for row in grid], 1).to(t.device)
+    STATS[f"{stat}_s"] += time.perf_counter() - t0
+    return out
+
+
 class _GatherBands(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh):
-        t0 = time.perf_counter()
-        staged = _staged(t, mesh.spatial_group)
-        src = t.cpu() if staged else t.contiguous()
-        parts = [torch.empty_like(src) for _ in mesh.spatial_coords]
-        work = dist.all_gather(parts, src, group=mesh.spatial_group, async_op=True)
-        _wait([work], mesh.spatial_group)
-        STATS["gather_bytes"] += src.numel() * src.element_size()
-        nx, ny = mesh.shape.get("x", 1), mesh.shape.get("y", 1)
-        grid = [[None] * ny for _ in range(nx)]
-        for (i, j), part in zip(mesh.spatial_coords, parts):
-            grid[i][j] = part
-        out = torch.cat([torch.cat(row, 2) for row in grid], 1).to(t.device)
         ctx.band = (mesh.band_of("x")[0] * t.shape[1], t.shape[1],
                     mesh.band_of("y")[0] * t.shape[2], t.shape[2])
-        STATS["gather_s"] += time.perf_counter() - t0
-        return out
+        return _gather(t, mesh, "gather")
 
     @staticmethod
     def backward(ctx, g):
@@ -163,8 +174,13 @@ class _GatherBands(torch.autograd.Function):
 
 def gather_bands(t: torch.Tensor, mesh) -> torch.Tensor:
     """The whole (B, H, W, C) image from the bands (B, H/X, W/Y, C) of this
-    rank's data row, on every rank of it; see the module docstring."""
+    rank's data row, on every rank of it; see the module docstring. Its
+    backward slices this rank's band out of the gradient without summing
+    over the ranks: valid only where every rank consumes the gathered
+    tensor alike (the heads, from which every rank computes the same loss),
+    so that each rank's gradient of it is already the whole. Keys and values
+    that each band reads with its own queries take `bands.Bands.gather`,
+    whose backward sums every band's reading first."""
     if mesh.spatial_group is None:
         return t
     return _GatherBands.apply(t, mesh)
-

@@ -11,15 +11,18 @@ plain all-reduces for `BatchNorm` and `FlaxBatchNorm`), so an N-rank step
 over a global batch B is the one-process step over B.
 
 Spatial partitioning ('x' over H, 'y' over W; the archs of SPATIAL_RULES:
-UNet, NestedUNet under any --remat mode, the attention U-Nets and the CRDN
-UNets): each rank of a 'data' row holds a band of its images, rows
+UNet, NestedUNet under any --remat mode, the attention U-Nets, the CRDN
+UNets with UNetRNNGhost and the dual-attention UNetRNNs, VGG16RNN and
+CA-Net): each rank of a 'data' row holds a band of its images, rows
 [i*H/X, (i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y). Every stencil takes its
 neighbours' edge rows first (`halo.halo_exchange`, which XLA inserts itself
 under GSPMD), the BN moments are taken over every band of every data row
-(the whole world), and the heads are gathered (`halo.gather_bands`) so the
-loss and the metrics are the whole image's. The gradients are then summed
-over the bands and averaged over 'data': one all-reduce over the world
-divided by the 'data' size.
+(the whole world), what attends or pools over the whole map takes the band
+collectives of its data row (bands.py: an all-gather of keys and values, an
+all-reduce of sums and maxima), channel dropout draws per data row, and the
+heads are gathered (`halo.gather_bands`) so the loss and the metrics are the
+whole image's. The gradients are then summed over the bands and averaged
+over 'data': one all-reduce over the world divided by the 'data' size.
 
 The 'model' axis (tensor-parallel state, the JAX package's
 `tensor_parallel_spec` and `state_shardings`): between steps each rank holds
@@ -56,7 +59,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import fused_bn
-from ..ops.layers import JAX_KERNEL_TO_PORT, BatchNorm, Dropout, FlaxBatchNorm, TorchConv
+from ..ops.layers import (JAX_KERNEL_TO_PORT, BatchNorm, ChannelDropout, Dropout, FlaxBatchNorm,
+                          TorchConv, TorchConvTranspose)
 from ..ops.resize import Upsample2x
 from .halo import halo_exchange
 
@@ -80,15 +84,29 @@ class NothingSharded(ValueError):
 # level to halve, and the widest halo a conv takes at its coarsest level, so
 # that a band there must hold at least that many rows (and columns):
 # `halo.halo_exchange` takes rows from the next band only. Every op of these
-# archs is local on a band after a halo: stride-1 convs, 2x2 floor pools, BNs
-# over the world (`sync_batch_norm`), 2x align-corners upsamples (a halo of 1),
-# nearest 2x upsamples (none) and the CRDN cell's carry resize, which is a 2x
-# align-corners upsample where every level halves. The CRDN score blocks are
-# 5x5 convs (a halo of 2).
+# archs is local on a band after a halo, or takes a band collective: stride-1
+# convs (grouped ones too: the Ghost blocks' depthwise 3x3s, a halo of 1),
+# 2x2 floor pools, BNs over the world (`sync_batch_norm`), 2x align-corners
+# upsamples (a halo of 1), nearest 2x upsamples (none), the CRDN cell's carry
+# resize, which is a 2x align-corners upsample where every level halves,
+# CA-Net's half-pixel resizes by 2, 4 and 8 (a halo of 1: bands.py's
+# `Bands.resize`), its 2x2 stride-2 deconvs and a theta conv of kernel =
+# stride (none, on bands the stride divides), and what attends or pools
+# over the whole map (PAM, CAM, the non-local block, the grid gates' softmax,
+# the SE and channel gates: bands.py's all-gather and all-reduces). The CRDN
+# score blocks and VGG16RNN's are 5x5 convs (a halo of 2); UNetRNNGhost's are
+# Ghost bottlenecks (1x1 and depthwise 3x3 convs, a halo of 1). CA-Net's
+# non-local block pools its keys once more at its 3rd level, which the rule
+# keeps even (H / (8x) of a multiple of 16x).
 SPATIAL_RULES = {"UNet": (4, 1), "NestedUNet": (4, 1), "AttU_Net": (4, 1), "R2U_Net": (4, 1),
-                 "R2AttU_Net": (4, 1), "UNetRNN": (4, 2), "UNetRM3": (2, 2), "UNetRM7": (6, 2)}
-QUEUED_ARCHS = ("ROADMAP.md queue 1, A11b a: the archs that need an all-gather or a reduction "
-                "over the bands, or take strided convs, are queued")
+                 "R2AttU_Net": (4, 1), "UNetRNN": (4, 2), "UNetRM3": (2, 2), "UNetRM7": (6, 2),
+                 "UNetRNNGhost": (4, 1), "UNetRNNPAttention": (4, 2),
+                 "UNetRNNCAttention": (4, 2), "UNetRNNAttention": (4, 2), "VGG16RNN": (4, 2),
+                 "Comprehensive_Atten_Unet": (4, 1)}
+QUEUED_ARCHS = ("ROADMAP.md queue 1, A11b a: the archs with size-changing convs (the ResNet "
+                "trunks, the PSP hybrids, DoubleUnet and DeepLab) are queued")
+QUEUED_DROPOUT = ("ROADMAP.md queue 1, A11b a: an element-wise dropout's mask on bands (the "
+                  "whole image's draw cut to the band) is queued")
 QUEUED_BANDS = "ROADMAP.md queue 1, A11b b: uneven and thin bands are queued"
 
 
@@ -351,14 +369,18 @@ def replicated_sharding(mesh: Mesh, module: torch.nn.Module):
 
 
 def sync_batch_norm(module: torch.nn.Module, mesh: Mesh):
-    """Put every BN (and dropout) of `module` on the mesh's batch group:
-    train-mode moments over every rank's rows (under 'x'/'y' every band of
-    every row), dropout masks drawn for them all. The 'model' peers hold the
+    """Put every BN of `module` on the mesh's batch group: train-mode
+    moments over every rank's rows (under 'x'/'y' every band of every row);
+    and every dropout on its data group: masks drawn for every data row's
+    rows, this rank's kept, so the bands of one data row drop alike (off
+    'x'/'y' the data group is the batch group). The 'model' peers hold the
     same rows, so they stay out (each row would count twice, and the
     running variance's n / (n - 1) would change)."""
     for m in module.modules():
-        if isinstance(m, (fused_bn.FusedBatchNormReLU, BatchNorm, FlaxBatchNorm, Dropout)):
+        if isinstance(m, (fused_bn.FusedBatchNormReLU, BatchNorm, FlaxBatchNorm)):
             m.process_group = mesh.batch_group
+        elif isinstance(m, Dropout):
+            m.process_group = mesh.data_group
 
 
 def tensor_parallel_spec(param: torch.Tensor, tp: int,
@@ -524,19 +546,47 @@ def load_full_state(module: torch.nn.Module, state):
 def conv_halo(conv: TorchConv, mesh) -> Tuple[int, int]:
     """(rows, cols) of halo `conv` takes on `mesh`'s partitioned 'x'/'y'
     axes: padding * dilation, which a stride-1 conv that keeps the size
-    has. Raises ValueError for any other conv on a partitioned axis."""
+    has, and none for a conv of kernel = stride without padding, whose
+    windows do not overlap (local wherever the band's size divides by the
+    stride, which a pre-hook holds). Raises ValueError for any other conv on
+    a partitioned axis."""
     halo = []
     for axis, k, p, s, d in zip(SPATIAL_AXES, conv.weight.shape[2:], conv.padding,
                                 conv.stride, conv.dilation):
         if not mesh.partitioned(axis):
             halo.append(0)
-            continue
-        if s != 1 or (k - 1) * d != 2 * p:
+        elif s == 1 and (k - 1) * d == 2 * p:
+            halo.append(p)
+        elif k == s and p == 0 and d == 1:
+            halo.append(0)
+        else:
             raise ValueError(f"TorchConv (kernel {tuple(conv.weight.shape[2:])}, stride "
                              f"{conv.stride}, padding {conv.padding}) changes the size, so it "
-                             f"cannot run on bands of the '{axis}' axis")
-        halo.append(p)
+                             f"cannot run on bands of the '{axis}' axis ({QUEUED_ARCHS})")
     return halo[0], halo[1]
+
+
+def check_transposed_conv(conv: TorchConvTranspose, mesh):
+    """Raise ValueError unless `conv` is local on bands of `mesh`'s
+    partitioned axes: kernel = stride, no padding, no output padding (each
+    input row makes its own `stride` output rows; CA-Net's 2x2 stride-2
+    deconvs)."""
+    for axis, k, p, op, s in zip(SPATIAL_AXES, conv.weight.shape[2:], conv.padding,
+                                 conv.output_padding, conv.stride):
+        if mesh.partitioned(axis) and (k != s or p or op):
+            raise ValueError(f"TorchConvTranspose (kernel {tuple(conv.weight.shape[2:])}, "
+                             f"stride {conv.stride}, padding {conv.padding}) overlaps its "
+                             f"windows, so it cannot run on bands of the '{axis}' axis "
+                             f"({QUEUED_ARCHS})")
+
+
+def _check_strides(m, args):
+    """Forward pre-hook of a conv of kernel = stride on bands: the band must
+    hold whole windows."""
+    h, w = args[0].shape[1:3]
+    if h % m.stride[0] or w % m.stride[1]:
+        raise ValueError(f"a {h}x{w} band does not divide by the stride {m.stride} of its "
+                         f"conv, so the bands would not hold whole windows ({QUEUED_BANDS})")
 
 
 def _give_halo(mesh, m, args):
@@ -564,9 +614,12 @@ _HALO_HOOKS = weakref.WeakKeyDictionary()  # module -> its halo hook's handle
 
 def _pools(module: torch.nn.Module) -> int:
     """The 2x2 pools of a model of SPATIAL_RULES at the depth it was built
-    with: the attention U-Nets' `filters` and the CRDN UNets' `base_filters`
-    set its levels, UNet and NestedUNet have 5."""
-    return (getattr(module, "levels", None) or len(getattr(module, "filters", ())) or 5) - 1
+    with, one fewer than its levels: the attention U-Nets' `levels`, the
+    CRDN UNets' and CA-Net's `filters` (a width a level), VGG16RNN's
+    `STAGES`; UNet and NestedUNet have 5."""
+    levels = (getattr(module, "levels", None) or len(getattr(module, "filters", ()))
+              or len(getattr(module, "STAGES", ())) or 5)
+    return levels - 1
 
 
 def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
@@ -575,25 +628,46 @@ def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
     (K4), Upsample2x and CRDN cell (`models.rdc.RDC`, for its carry's
     resize) gets a forward pre-hook that gives its input its halo
     (`halo.halo_exchange`), and the (rows, cols) of that halo and, for an
-    upsample or a cell, the band's place as plain ints. With None, on whole
-    images again. Raises ValueError for another arch, a depth other than its
-    rule's, a dropout that draws masks (it draws them per rank, so the bands
-    of a data row would drop different channels) or a conv that changes the
-    size."""
-    from ..models.blocks import MultipartConv3x3
-    from ..models.rdc import RDC
-
+    upsample or a cell, the band's place as plain ints; a conv of kernel =
+    stride gets a pre-hook that checks its band holds whole windows; every
+    module that declares `bands` (attention, global pools, CA-Net's resizes)
+    gets a `bands.Bands` of the mesh. With None, on whole images again.
+    Raises ValueError for another arch, a depth other than its rule's, an
+    element-wise dropout that draws masks (channel dropout draws per data
+    row, `sync_batch_norm`), or a conv or transposed conv that changes the
+    size otherwise than locally."""
     if mesh is not None:
         arch = type(module).__name__
         check_spatial(arch)
         if _pools(module) != SPATIAL_RULES[arch][0]:
             raise ValueError(f"{arch} with {_pools(module)} pools: its band rule holds for "
                              f"{SPATIAL_RULES[arch][0]} ({QUEUED_ARCHS})")
-        if any(isinstance(m, Dropout) and m.p > 0 for m in module.modules()):
-            raise ValueError(f"{arch} with dropout on: a rank draws its own masks, so the bands "
-                             f"of a data row would not drop alike ({QUEUED_ARCHS})")
+    put_on_bands(module, mesh)
+
+
+def put_on_bands(module: torch.nn.Module, mesh: Optional[Mesh]):
+    """`spatial_partition`'s hooks, halos, band places and `bands` on every
+    module of `module` (any module: the band ops' tests put single blocks
+    on bands), without an arch's band rule; with None, off again. Raises
+    ValueError for an element-wise dropout that draws masks or a transposed
+    conv whose windows overlap."""
+    from ..models.blocks import MultipartConv3x3
+    from ..models.rdc import RDC
+    from .bands import Bands
+
+    bands = None
+    if mesh is not None:
+        for m in module.modules():
+            if isinstance(m, Dropout) and not isinstance(m, ChannelDropout) and m.p > 0:
+                raise ValueError(f"{type(module).__name__} with an element-wise dropout on "
+                                 f"({QUEUED_DROPOUT})")
+            if isinstance(m, TorchConvTranspose):
+                check_transposed_conv(m, mesh)
+        bands = Bands(mesh)
     one = tuple(int(mesh.partitioned(a)) for a in SPATIAL_AXES) if mesh is not None else None
     for m in module.modules():
+        if hasattr(type(m), "bands"):
+            m.bands = bands
         if not isinstance(m, (TorchConv, MultipartConv3x3, Upsample2x, RDC)):
             continue
         handle = _HALO_HOOKS.pop(m, None)
@@ -608,6 +682,9 @@ def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
         if isinstance(m, (Upsample2x, RDC)):
             m.band = (mesh.band_of("x"), mesh.band_of("y"))
         if m.halo == (0, 0):
+            if isinstance(m, TorchConv) and any(
+                    s > 1 and mesh.partitioned(a) for a, s in zip(SPATIAL_AXES, m.stride)):
+                _HALO_HOOKS[m] = m.register_forward_pre_hook(_check_strides)
             continue
         if isinstance(m, RDC):
             _HALO_HOOKS[m] = m.register_forward_pre_hook(
@@ -672,10 +749,11 @@ def agree_over_model_(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]):
 
 def shard_train_step(model: torch.nn.Module, optimizer, mesh: Mesh) -> Optional[TensorParallel]:
     """Put a train step's model and optimizer on the mesh: parameters and
-    buffers replicated from rank 0, BN moments and dropout masks over the
-    batch group's rows, under 'x'/'y' the model on bands
-    (`spatial_partition`), the optimizer's gradients all-reduced once per
-    update (`training.optim.Optimizer`), and under 'model' the state
+    buffers replicated from rank 0, BN moments over the batch group's rows
+    and dropout masks over the data group's (`sync_batch_norm`), under
+    'x'/'y' the model on bands (`spatial_partition`), the optimizer's
+    gradients all-reduced once per update (`training.optim.Optimizer`), and
+    under 'model' the state
     sharded (`state_shardings`; each rank keeps its slices of the rank 0
     weights and of their optimizer state, the weights freed until the step
     gathers them). The step itself takes this rank's rows, or its band of

@@ -60,16 +60,22 @@ CPU). Without --mesh a multi-process run gets a 'data' mesh over all ranks;
 one.
 
 Spatial partitioning (UNet, NestedUNet under every --remat mode, AttU_Net,
-R2U_Net, R2AttU_Net, UNetRNN, UNetRM3, UNetRM7): `--mesh data=D,x=X[,y=Y]`
-(D*X*Y processes) or `--spatial_partition true` (('data', 'x') = (world /
-2, 2)) gives each rank a band of its data rows' images, rows [i*H/X,
-(i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y); convs and upsamples take halos,
-BN moments, loss and metrics are the whole global batch's, as the JAX CLI's
+R2U_Net, R2AttU_Net, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
+UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, VGG16RNN and
+Comprehensive_Atten_Unet, the last also through train_canet):
+`--mesh data=D,x=X[,y=Y]` (D*X*Y processes) or `--spatial_partition true`
+(('data', 'x') = (world / 2, 2)) gives each rank a band of its data rows'
+images, rows [i*H/X, (i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y); convs and
+upsamples take halos, attention gathers its keys and values from the bands
+and global pools reduce over them, channel dropout draws per data row, BN
+moments, loss and metrics are the whole global batch's, as the JAX CLI's
 (train.py:255-304). The bands must stay whole and even through the arch's
 p pools (p = 4; UNetRM3 2, UNetRM7 6): H a multiple of 2^p * X and W of
-2^p * Y; the CRDN UNets' coarsest band must also hold 2 rows (their 5x5
-score convs' halo). Other archs and other sizes exit with a message naming
-ROADMAP.md (queue 1, A11b a or b; parallel/mesh.py::SPATIAL_RULES).
+2^p * Y; the CRDN UNets' and VGG16RNN's coarsest band must also hold 2 rows
+(their 5x5 score convs' halo). The archs with size-changing convs (the
+ResNet trunks, the PSP hybrids, DoubleUnet, DeepLab) and other sizes exit
+with a message naming ROADMAP.md (queue 1, A11b a or b;
+parallel/mesh.py::SPATIAL_RULES).
 
 Tensor parallelism: `--mesh data=D,model=M` (with 'x'/'y' too: D*X*Y*M
 processes) shards each conv and dense kernel of at least 16,384 elements

@@ -56,7 +56,7 @@ import torch.nn.functional as F
 
 from pytorch_nested_unet_tpu_torch.models import create_model
 from pytorch_nested_unet_tpu_torch.models.blocks import MultipartConv3x3
-from pytorch_nested_unet_tpu_torch.ops.layers import TorchConv
+from pytorch_nested_unet_tpu_torch.ops.layers import BatchNorm, FlaxBatchNorm, TorchConv
 from pytorch_nested_unet_tpu_torch.ops.pool import max_pool2x2
 from pytorch_nested_unet_tpu_torch.ops.resize import Upsample2x, upsample2x
 from pytorch_nested_unet_tpu_torch.parallel import mesh as tmesh
@@ -68,7 +68,11 @@ CRDN = {"feature_scale": 16}
 # The narrow models of the band steps: (arch, both packages' create_model
 # keywords, the input's (H, W)). The CRDN UNets' coarsest band must hold 2
 # rows (their 5x5 score convs' halo), so UNetRNN runs at 64x64 and UNetRM7,
-# whose 6 pools halve 96 rows only down to 3, at 256x64.
+# whose 6 pools halve 96 rows only down to 3, at 256x64; the dual-attention
+# UNetRNNs and VGG16RNN (full width: it has no width option) split only H
+# at 64x32, UNetRNNAttention also 'y' at 64x64; UNetRNNGhost's Ghost score
+# blocks take a halo of 1, as CA-Net's convs do (its dropout 0 against the
+# JAX package: the two draw their masks from different generators).
 MODELS = {"UNet": ("UNet", {"nb_filter": NARROW}, (HW, HW)),
           "NestedUNet": ("NestedUNet", {"nb_filter": NARROW}, (HW, HW)),
           "AttU_Net": ("AttU_Net", {"filters": NARROW}, (HW, HW)),
@@ -76,13 +80,24 @@ MODELS = {"UNet": ("UNet", {"nb_filter": NARROW}, (HW, HW)),
           **{f"UNetRNN_{d}": ("UNetRNN", {**CRDN, "decoder": d}, (64, 64))
              for d in ("GRU", "LSTM", "vanilla")},
           "UNetRM3": ("UNetRM3", CRDN, (HW, HW)),
-          "UNetRM7": ("UNetRM7", CRDN, (256, 64))}
+          "UNetRM7": ("UNetRM7", CRDN, (256, 64)),
+          "UNetRNNGhost": ("UNetRNNGhost", CRDN, (HW, HW)),
+          "UNetRNNPAttention": ("UNetRNNPAttention", CRDN, (64, HW)),
+          "UNetRNNCAttention": ("UNetRNNCAttention", CRDN, (64, HW)),
+          "UNetRNNAttention": ("UNetRNNAttention", CRDN, (64, 64)),
+          "VGG16RNN": ("VGG16RNN", {}, (64, HW)),
+          "CANet": ("Comprehensive_Atten_Unet", {"feature_scale": 16, "drop_rate": 0.0},
+                    (HW, HW)),
+          "CANet_dropout": ("Comprehensive_Atten_Unet", {"feature_scale": 16, "drop_rate": 0.5},
+                            (HW, HW))}
 X2 = ((1, 2), ("data", "x"))
 # The band steps, by key: (model, deep supervision, --remat, the port's mesh
 # (sizes, names), the JAX package's mesh for its spatial step, BN finishes
 # per step: one per FusedBatchNormReLU, twice under "full", whose recompute
-# finishes again; the attention U-Nets' plain BNs finish none). A case runs
-# in the world of its port mesh's size.
+# finishes again; the attention U-Nets' and CA-Net's plain BNs finish none,
+# UNetRNNGhost's Ghost score blocks' neither). A case runs in the world of its
+# port mesh's size; one without a JAX mesh (CA-Net with dropout on) is held
+# to the port's one-process step only.
 CASES = {"UNet_data1_x2": ("UNet", False, "none", X2, X2, 18),
          "NestedUNet_data1_x2": ("NestedUNet", True, "none", X2, X2, 30),
          "NestedUNet_full_x2": ("NestedUNet", True, "full", X2, X2, 60),
@@ -93,10 +108,18 @@ CASES = {"UNet_data1_x2": ("UNet", False, "none", X2, X2, 18),
             for d in ("GRU", "LSTM", "vanilla")},
          "UNetRM3_x2": ("UNetRM3", False, "none", X2, X2, 9),
          "UNetRM7_x2": ("UNetRM7", False, "none", X2, X2, 21),
+         "UNetRNNGhost_x2": ("UNetRNNGhost", False, "none", X2, X2, 10),
+         **{f"{a}_x2": (a, False, "none", X2, X2, 15)
+            for a in ("UNetRNNPAttention", "UNetRNNCAttention", "UNetRNNAttention")},
+         "VGG16RNN_x2": ("VGG16RNN", False, "none", X2, X2, 18),
+         "CANet_x2": ("CANet", False, "none", X2, X2, 0),
+         "CANet_dropout_x2": ("CANet_dropout", False, "none", X2, None, 0),
          "UNet_x2_y2": ("UNet", False, "none", ((2, 2), ("x", "y")),
                         ((1, 2, 2), ("data", "x", "y")), 18),
          "NestedUNet_data2_x2": ("NestedUNet", True, "none", ((2, 2), ("data", "x")),
-                                 ((2, 2), ("data", "x")), 30)}
+                                 ((2, 2), ("data", "x")), 30),
+         "UNetRNNAttention_x2_y2": ("UNetRNNAttention", False, "none", ((2, 2), ("x", "y")),
+                                    ((1, 2, 2), ("data", "x", "y")), 15)}
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 SPLITS = [(2, 1), (3, 1), (4, 1), (1, 2), (2, 2), (1, 3)]
@@ -122,12 +145,13 @@ def _bands(h, w, nx, ny):
     return [(i * hb, hb, j * wb, wb) for i in range(nx) for j in range(ny)]
 
 
-def _haloed(x, band, rows, cols):
+def _haloed(x, band, rows, cols, edge=0.0):
     """The band of (B, H, W, C) x with `rows` / `cols` of halo, zeros past
-    the edge: what halo_exchange gives the rank that holds it."""
+    the edge: what halo_exchange gives the rank that holds it (`edge`:
+    another value past the edge)."""
     h0, hb, w0, wb = band
-    return F.pad(x, (0, 0, cols, cols, rows, rows))[:, h0:h0 + hb + 2 * rows,
-                                                    w0:w0 + wb + 2 * cols]
+    return F.pad(x, (0, 0, cols, cols, rows, rows), value=edge)[:, h0:h0 + hb + 2 * rows,
+                                                                w0:w0 + wb + 2 * cols]
 
 
 def _with_halo(mod, halo, *args):
@@ -140,9 +164,10 @@ def _with_halo(mod, halo, *args):
         mod.halo = (0, 0)
 
 
-def _check_band_op(full_op, band_op, x, nx, ny, rows, cols, tol, params=()):
+def _check_band_op(full_op, band_op, x, nx, ny, rows, cols, tol, params=(), edge=0.0):
     """band_op(haloed band, band) against full_op(x)'s band, and the
-    gradients of <out, ct> with respect to x and `params`."""
+    gradients of <out, ct> with respect to x and `params` (`edge`: the
+    halo's value past the image's edge)."""
     want_full = full_op(x)
     (h, w), (ho, wo) = x.shape[1:3], want_full.shape[1:3]
     gen = torch.Generator().manual_seed(7)
@@ -153,7 +178,7 @@ def _check_band_op(full_op, band_op, x, nx, ny, rows, cols, tol, params=()):
         h0, hb, w0, wb = band
         out_rows = slice(h0 * ho // h, (h0 + hb) * ho // h)
         out_cols = slice(w0 * wo // w, (w0 + wb) * wo // w)
-        got = band_op(_haloed(xs[0], band, rows, cols), band)
+        got = band_op(_haloed(xs[0], band, rows, cols, edge), band)
         want = want_full[:, out_rows, out_cols]
         assert got.shape == want.shape
         np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=tol,
@@ -169,7 +194,7 @@ def _check_band_op(full_op, band_op, x, nx, ny, rows, cols, tol, params=()):
 @pytest.mark.parametrize("h,w", [(12, 12), (24, 36)])
 def test_upsample2x_band_matches_the_full_upsample(nx, ny, h, w):
     """Every band of a 2x align-corners upsample from a one-row halo
-    (`Upsample2x` with its band's place set, through `upsample2x_band`):
+    (`Upsample2x` with its band's place set, through `resize_bilinear_band`):
     the positions are global (output row i reads i * (H - 1) / (2H - 1) of
     the whole map), float32 within 1e-6 of `F.interpolate` on the full map."""
     x = torch.randn(2, h, w, 3, generator=torch.Generator().manual_seed(h * w + nx))
@@ -218,6 +243,58 @@ def test_rdc_carry_resize_on_bands_matches_the_full_resize(nx, ny, decoder):
 
 
 @pytest.mark.parametrize("nx,ny", SPLITS)
+@pytest.mark.parametrize("scale", [1, 2, 4, 8])
+def test_resize_bilinear_band_matches_the_full_resize(nx, ny, scale):
+    """`resize_bilinear_band` at integer factors 1, 2, 4 and 8 (CA-Net's
+    half-pixel resizes: the grid gates' 2x, UpCat's bilinear 2x, the heads'
+    2x / 4x / 8x) on every band from a one-row halo, float64 within 1e-10
+    of `F.interpolate` on the whole map, value and adjoint. The halo past
+    the image's edge is NaN: at the edge the half-pixel positions clamp to
+    the edge row, so no output reads past it; factor 1 takes no halo."""
+    from pytorch_nested_unet_tpu_torch.ops.resize import resize_bilinear_band
+
+    h, w = 12, 24
+    x = torch.randn(2, h, w, 3, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(nx * 10 + ny + scale))
+    rows, cols = (int(n > 1 and scale > 1) for n in (nx, ny))
+
+    def full_op(t):
+        return F.interpolate(t.permute(0, 3, 1, 2), size=(h * scale, w * scale), mode="bilinear",
+                             align_corners=False).permute(0, 2, 3, 1)
+
+    def band_op(xh, band):
+        h0, hb, w0, wb = band
+        return resize_bilinear_band(xh, h0, h, w0, w, scale, scale, rows, cols, False)
+
+    _check_band_op(full_op, band_op, x, nx, ny, rows, cols, 1e-10, edge=float("nan"))
+
+
+@pytest.mark.parametrize("nx,ny", SPLITS[:3] + SPLITS[4:5])
+def test_kernel_stride_conv_and_deconv_stay_local_on_bands(nx, ny):
+    """A conv of kernel = stride without padding (CA-Net's grid gates' theta
+    at attention_dsample (2, 2)) and a 2x2 stride-2 transposed conv
+    (UpCat's deconv) on bands that the stride divides, without a halo: the
+    band of the whole map's output, value and gradients, float64 within
+    1e-10; `conv_halo` gives such a conv no halo and `check_transposed_conv`
+    accepts the deconv."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import TorchConvTranspose
+
+    torch.manual_seed(nx * 10 + ny)
+    conv = TorchConv(3, 5, 2, 0, stride=2).double()
+    deconv = TorchConvTranspose(3, 4, 2, 2).double()
+    for m in (conv, deconv):
+        with torch.no_grad():
+            m.weight.normal_()
+            m.bias.normal_()
+    assert tmesh.conv_halo(conv, _FakeMesh(nx, ny)) == (0, 0)
+    tmesh.check_transposed_conv(deconv, _FakeMesh(nx, ny))
+    x = torch.randn(2, 24, 24, 3, dtype=torch.float64)
+    for m in (conv, deconv):
+        _check_band_op(m, lambda xh, band: m(xh), x, nx, ny, 0, 0, 1e-10,
+                       (m.weight, m.bias))
+
+
+@pytest.mark.parametrize("nx,ny", SPLITS)
 def test_nearest_upsample_stays_local_on_bands(nx, ny):
     """The attention U-Nets' nearest 2x upsample (`Upsample2xNearest`) on a
     band without a halo: output row i of the band reads its row i // 2, so
@@ -259,10 +336,19 @@ def test_torch_conv_band_forward_matches_the_full_conv(nx, ny, kernel, padding, 
 
 
 def test_torch_conv_refuses_a_size_changing_conv_on_bands():
+    """A conv whose windows overlap while it changes the size, or a
+    transposed conv whose windows overlap, is refused on a split axis
+    (naming ROADMAP.md); kernel = stride is local (no halo)."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import TorchConvTranspose
+
     for kw in ({"stride": 2, "padding": 1}, {"padding": 0}):
-        with pytest.raises(ValueError, match="cannot run on bands"):
+        with pytest.raises(ValueError, match="cannot run on bands.*ROADMAP.md"):
             tmesh.conv_halo(TorchConv(3, 4, 3, **kw), _FakeMesh(2, 1))
     assert tmesh.conv_halo(TorchConv(3, 4, 3, stride=2, padding=1), _FakeMesh(1, 1)) == (0, 0)
+    assert tmesh.conv_halo(TorchConv(3, 4, 2, stride=2), _FakeMesh(2, 2)) == (0, 0)
+    with pytest.raises(ValueError, match="overlaps its windows.*ROADMAP.md"):
+        tmesh.check_transposed_conv(TorchConvTranspose(3, 4, 3, 2, 1), _FakeMesh(1, 2))
+    tmesh.check_transposed_conv(TorchConvTranspose(3, 4, 3, 2, 1), _FakeMesh(1, 1))
 
 
 @pytest.mark.parametrize("nx,ny", SPLITS)
@@ -337,23 +423,27 @@ class _FakeMesh:
 
 
 def test_spatial_partition_refuses_other_archs_and_remat():
-    """Refusals: an arch still queued, a depth its rule does not hold for, a
-    dropout that draws masks. Every --remat mode of NestedUNet is accepted.
+    """Refusals: an arch still queued, a depth its rule does not hold for, an
+    element-wise dropout that draws masks (a channel dropout is accepted).
+    Every --remat mode of NestedUNet is accepted.
     On UNet, a pre-hook and a halo on every 3x3 conv, K4 node and upsample
     (none on the 1x1 head), the upsample's band; on UNetRNN the 5x5 score
     convs' halo of 2 and the CRDN cell's carry resize; None undoes it
     all."""
-    from pytorch_nested_unet_tpu_torch.ops.layers import ChannelDropout
+    from pytorch_nested_unet_tpu_torch.ops.layers import ChannelDropout, Dropout
 
     mesh = _mesh_of(("data", "x"), (1, 2), rank=1)
-    with pytest.raises(ValueError, match="not UNetRNNGhost.*ROADMAP.md queue 1, A11b a"):
-        tmesh.spatial_partition(create_model("UNetRNNGhost", feature_scale=16), mesh)
+    with pytest.raises(ValueError, match="not ResNet18RNN.*ROADMAP.md queue 1, A11b a"):
+        tmesh.spatial_partition(create_model("ResNet18RNN"), mesh)
     with pytest.raises(ValueError, match="AttU_Net with 3 pools.*ROADMAP.md"):
         tmesh.spatial_partition(create_model("AttU_Net", filters=NARROW[:4]), mesh)
     att = create_model("AttU_Net", filters=NARROW)
-    att.Conv4.dropout = ChannelDropout(0.5)
-    with pytest.raises(ValueError, match="AttU_Net with dropout on.*ROADMAP.md"):
+    att.Conv4.dropout = Dropout(0.5)
+    with pytest.raises(ValueError, match="AttU_Net with an element-wise dropout on.*"
+                                         "ROADMAP.md queue 1, A11b a"):
         tmesh.spatial_partition(att, mesh)
+    att.Conv4.dropout = ChannelDropout(0.5)  # a channel dropout draws per data row
+    tmesh.spatial_partition(att, mesh)
     for remat in ("full", "policy"):
         m = create_model("NestedUNet", nb_filter=NARROW, remat=remat)
         tmesh.spatial_partition(m, mesh)
@@ -376,6 +466,44 @@ def test_spatial_partition_refuses_other_archs_and_remat():
     assert not any(s._forward_pre_hooks for s in m.modules())
     assert all(getattr(s, "halo", (0, 0)) == (0, 0) for s in m.modules())
     assert m.up.band == ((0, 1), (0, 1))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("UNetRNNGhost", CRDN), ("UNetRNNPAttention", {**CRDN, "fast_pam": True}),
+    ("UNetRNNCAttention", CRDN), ("UNetRNNAttention", CRDN), ("VGG16RNN", {}),
+    ("Comprehensive_Atten_Unet", {"feature_scale": 16}),
+    ("Comprehensive_Atten_Unet", {"feature_scale": 16, "is_deconv": False,
+                                  "attention_dsample": (2, 2),
+                                  "nonlocal_mode": "concatenation_residual"}),
+    ("Comprehensive_Atten_Unet", {"feature_scale": 16, "attention_dsample": (2, 2),
+                                  "nonlocal_mode": "concatenation_debug"})])
+def test_spatial_partition_puts_the_whole_map_archs_on_bands(arch, kw):
+    """The archs that attend, pool or resize over the whole map go on bands
+    at their rule's depth (VGG16RNN's and CA-Net's 4 pools from their own
+    STAGES and filters): each module that declares `bands` gets the mesh's
+    (this rank's place), the 5x5 score convs a halo of 2, the Ghost blocks'
+    depthwise 3x3s 1, a theta of kernel = stride a check of whole windows
+    and no halo, CA-Net with its dropout on (a channel dropout); None takes
+    it all off again."""
+    mesh = _mesh_of(("data", "x"), (1, 2), rank=1)
+    m = create_model(arch, **kw)
+    tmesh.spatial_partition(m, mesh)
+    declared = [s for s in m.modules() if hasattr(type(s), "bands")]
+    assert all(s.bands.place == ((1, 2), (0, 1)) for s in declared)
+    assert bool(declared) == (arch not in ("UNetRNNGhost", "VGG16RNN"))
+    if arch == "Comprehensive_Atten_Unet":
+        assert m.conv4.dropout.p == 0.5
+        theta = m.attentionblock3.gate_block_1.theta
+        assert theta.halo == (0, 0) and len(theta._forward_pre_hooks) == (
+            kw.get("attention_dsample", (1, 1)) == (2, 2))
+    elif arch == "UNetRNNGhost":
+        assert m.score_block1[0].ghost1.cheap_operation[0].halo == (1, 0)
+        assert m.score_block1[0].shortcut[0].halo == (1, 0)
+    else:
+        assert m.score_block1[0].halo == (2, 0)
+    tmesh.spatial_partition(m, None)
+    assert all(s.bands is None for s in declared)
+    assert not any(s._forward_pre_hooks for s in m.modules())
 
 
 def test_check_spatial_needs_bands_whole_through_the_pools():
@@ -406,18 +534,49 @@ def test_check_spatial_needs_bands_whole_through_the_pools():
     ("UNetRM7", (256, 64), {"x": 2}, None),
     ("UNetRM7", (96, 96), {"x": 2}, "multiple of 64 \\* x = 128.*A11b b"),
     ("DeepLab", (96, 96), {"x": 2}, "not DeepLab.*A11b a"),
-    ("UNetRNNPAttention", None, None, "not UNetRNNPAttention.*A11b a")])
+    ("UNetRNNPSP", None, None, "not UNetRNNPSP.*A11b a"),
+    ("ResNet50UNet", (96, 96), {"x": 2}, "not ResNet50UNet.*A11b a"),
+    ("DoubleUnet", (96, 96), {"x": 2}, "not DoubleUnet.*A11b a"),
+    ("UNetRNNGhost", (32, 32), {"x": 2}, None),
+    ("UNetRNNGhost", (32, 32), {"x": 4}, "multiple of 16 \\* x = 64.*A11b b"),
+    ("UNetRNNPAttention", (64, 32), {"x": 2}, None),
+    ("UNetRNNCAttention", (64, 64), {"x": 2, "y": 2}, None),
+    ("UNetRNNAttention", (32, 32), {"x": 2}, "bands of 1x2.*thinner than the halo of 2"),
+    ("VGG16RNN", (64, 32), {"x": 2}, None),
+    ("VGG16RNN", (96, 96), {"x": 3}, None),
+    ("VGG16RNN", (32, 64), {"x": 2}, "thinner than the halo of 2.*A11b b"),
+    ("Comprehensive_Atten_Unet", (32, 32), {"x": 2}, None),
+    ("Comprehensive_Atten_Unet", (256, 256), {"data": 2, "x": 2, "y": 2}, None),
+    ("Comprehensive_Atten_Unet", (48, 32), {"x": 2}, "multiple of 16 \\* x = 32.*A11b b")])
 def test_check_spatial_follows_each_archs_band_rule(arch, hw, shape, refusal):
     """The band rule (parallel/mesh.py::SPATIAL_RULES): the arch's p pools
     keep every band whole and even only where H is a multiple of 2^p * x
-    and W of 2^p * y, and the CRDN UNets' 5x5 score convs need a coarsest
-    band of 2 rows; an arch still queued is refused at once. Each refusal
-    names its ROADMAP item."""
+    and W of 2^p * y, and the CRDN UNets' and VGG16RNN's 5x5 score convs
+    need a coarsest band of 2 rows (UNetRNNGhost's Ghost blocks and CA-Net's
+    3x3 convs 1); an arch still queued (a size-changing conv) is refused at
+    once. Each refusal names its ROADMAP item."""
     if refusal is None:
         tmesh.check_spatial(arch, hw, shape)
         return
     with pytest.raises(ValueError, match=refusal):
         tmesh.check_spatial(arch, hw, shape)
+
+
+def test_train_canet_preset_takes_the_x_axis():
+    """`train_canet --mesh x=2` (the CA-Net preset, 256x256) passes the band
+    rule as `train --mesh x=2 --arch Comprehensive_Atten_Unet` does; a
+    height its 4 pools would split exits naming ROADMAP.md (A11b b)."""
+    from pytorch_nested_unet_tpu_torch import train as ptrain
+    from pytorch_nested_unet_tpu_torch import train_canet
+    from pytorch_nested_unet_tpu_torch.train_isic import _with_defaults
+
+    config = ptrain.parse_args(_with_defaults(["--mesh", "x=2"], train_canet.PRESET))
+    assert config["arch"] == "Comprehensive_Atten_Unet" and config["input_h"] == 256
+    assert ptrain._mesh_axes(config) == (("x",), (2,))
+    config = ptrain.parse_args(_with_defaults(["--mesh", "x=2", "--input_h", "272"],
+                                              train_canet.PRESET))
+    with pytest.raises(SystemExit, match="multiple of 16 \\* x = 32.*A11b b"):
+        ptrain._mesh_axes(config)
 
 
 def test_one_process_spatial_mesh_is_the_whole_image():
@@ -482,6 +641,23 @@ def _port_model(inp, name, ds, remat="none"):
     return m
 
 
+def _record_masks(m):
+    """{name: [mask, ...]} of every dropout of `m`, filled with each
+    train-mode mask it draws."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import Dropout
+
+    masks = {}
+    for name, d in m.named_modules():
+        if isinstance(d, Dropout):
+            def keep(x, draw=d.keep, drawn=masks.setdefault(name, [])):
+                k = draw(x)
+                drawn.append(k.numpy().copy())
+                return k
+
+            d.keep = keep
+    return masks
+
+
 def _step_case(inp, case, mesh):
     """CASES[case]'s train step on this rank's rows of its model's batch."""
     from pytorch_nested_unet_tpu_torch.ops import fused_bn as bn
@@ -492,6 +668,7 @@ def _step_case(inp, case, mesh):
     imgs, masks = (torch.from_numpy(v) for v in inp["batches"][MODELS[name][2]])
     rows = tmesh.batch_sharding(mesh, BATCH)
     m = _port_model(inp, name, ds, remat)
+    drawn = _record_masks(m)
     opt = optim.build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
     opt._names = dict(m.named_parameters())
     step = make_train_step(m, opt, "BCEDiceLoss", ds, "none", mesh)
@@ -511,7 +688,7 @@ def _step_case(inp, case, mesh):
     return {"metrics": {k: v.item() for k, v in metrics.items()}, "grads": _grads_of(opt),
             "params": {n: p.detach().numpy().copy() for n, p in m.named_parameters()},
             "stats": {n: b.numpy().copy() for n, b in m.named_buffers()},
-            "finish_calls": calls["finish"]}
+            "finish_calls": calls["finish"], "masks": drawn}
 
 
 def _worker(world, rank, port, d):
@@ -542,6 +719,7 @@ def _worker(world, rank, port, d):
     gathered = halo.gather_bands(tb, halo_mesh)
     (gathered * torch.from_numpy(inp["halo_ct"])).sum().backward()
     out["gather"] = {"y": gathered.detach().numpy(), "dx": tb.grad.numpy()}
+    out["band_ops"] = _run_band_ops(inp, halo_mesh)
 
     imgs, masks = (torch.from_numpy(v) for v in inp["batches"][(HW, HW)])
     for case, (*_, (sizes, names), _, _) in CASES.items():
@@ -553,6 +731,7 @@ def _worker(world, rank, port, d):
     ev = make_eval_step(m, "BCEDiceLoss", True, mesh)
     out["eval"] = {k: v.item() for k, v in ev(imgs[rows_], masks[rows_],
                                               torch.tensor([1.0, 1.0, 1.0, 0.0])[rows_]).items()}
+    out["dropout"] = _dropout_masks(mesh, BATCH, 6)
     if world == 4:
         torch.save(out, os.path.join(d, f"out{world}_{rank}.pt"))
         dist.destroy_process_group()
@@ -617,7 +796,8 @@ def _inputs(d, world):
 
     rng = np.random.default_rng(world)
     x = rng.standard_normal((2, 12, 8, 3))
-    inp = {"halo_x": x, "halo_ct": rng.standard_normal(x.shape), "batches": {}}
+    inp = {"halo_x": x, "halo_ct": rng.standard_normal(x.shape), "batches": {},
+           "band_ops": _band_op_inputs(rng, world)}
     nx, ny = (2, 1) if world == 2 else (2, 2)
     rows, cols = 2, (1 if world == 4 else 0)
     inp["halo_g"] = [rng.standard_normal((2, 12 // nx + 2 * rows, 8 // ny + 2 * cols, 3))
@@ -712,9 +892,345 @@ def test_gather_bands_forward_and_backward(world, two_ranks, four_ranks):
                                       inp["halo_ct"][:, b.h0:b.h0 + b.h, b.w0:b.w0 + b.w])
 
 
+# ------------------------------------------------------------------ band collectives
+
+class _Reduce(torch.nn.Module):
+    """x times a reduction of x over the whole map, so that the band
+    collective's value and adjoint both reach x: "sum" (`Bands.sum` of the
+    band sums), "max" (`global_max_pool`: ties split over every band),
+    "mean" (`global_avg_pool`), "softmax" (per channel over the flattened
+    map; x is then the softmax's input, not a factor)."""
+
+    bands = None
+
+    def __init__(self, kind):
+        super().__init__()
+        self.kind = kind
+
+    def forward(self, x):
+        from pytorch_nested_unet_tpu_torch.ops.pool import global_avg_pool, global_max_pool
+
+        if self.kind == "sum":
+            s = x.sum((1, 2), keepdim=True)
+            return x * (s if self.bands is None else self.bands.sum(s))
+        if self.kind == "max":
+            return x * global_max_pool(x, self.bands)[:, None, None]
+        if self.kind == "mean":
+            return x * global_avg_pool(x, bands=self.bands)
+        b, h, w, c = x.shape
+        flat = x.permute(0, 3, 1, 2).reshape(b, c, h * w)
+        att = torch.softmax(flat, -1) if self.bands is None else self.bands.softmax(flat)
+        return att.reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
+class _Gather(torch.nn.Module):
+    """The whole map of keys from this band's (`Bands.gather`): on every
+    rank the whole map, whose gradient sums every rank's reading."""
+
+    bands = None
+
+    def forward(self, x):
+        return x if self.bands is None else self.bands.gather(x)
+
+
+class _Pair(torch.nn.Module):
+    """A block of two inputs on one map: `block(x, max_pool2x2(x))` (the
+    grid gates' gating map and UpCat's lower level, a level down), its
+    first output."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x):
+        out = self.block(x, max_pool2x2(x))
+        return out[0] if isinstance(out, tuple) else out
+
+
+class _First(torch.nn.Module):
+    """`block(x)`'s first output (the SE and channel gates return their gate
+    too, which every band holds whole)."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x):
+        return self.block(x)[0]
+
+
+class _Dsv(torch.nn.Module):
+    """CA-Net's deep-supervision head resized by `scale` (2, 4, 8)."""
+
+    def __init__(self, c, scale):
+        super().__init__()
+        from pytorch_nested_unet_tpu_torch.models.canet import UnetDsv3
+
+        self.dsv, self.scale = UnetDsv3(c), scale
+
+    def forward(self, x):
+        return self.dsv(x, (x.shape[1] * self.scale, x.shape[2] * self.scale))
+
+
+def _band_op(name, moved=None):
+    """BAND_OPS[name]'s module, float64, every parameter N(0, 0.25) from a
+    seed (attention gammas and zero-started BN scales nonzero; a BN-fed conv
+    bias 0), train mode; `moved`: a seed, every parameter then multiplied by
+    1 + 1e-7 * N(0, 1) from it (a WEIGHT_READINGS reading)."""
+    from pytorch_nested_unet_tpu_torch.models import canet, dual_attention, ghost
+
+    kind, *args = BAND_OPS[name][0]
+    if kind == "reduce":
+        m = _Reduce(*args)
+    elif kind == "gather":
+        m = _Gather()
+    elif kind == "pam":
+        m = dual_attention.PAMModule(4, fast_rank1=args[0])
+    elif kind == "cam":
+        m = dual_attention.CAMModule()
+    elif kind == "nonlocal":
+        m = canet.NonLocalBlock2D(4, 2, mode=args[0])
+    elif kind == "grid":
+        m = _Pair(canet.GridAttentionBlock2D(4, 4, 3, args[0], args[1]))
+    elif kind == "upcat":
+        m = _Pair(canet.UpCat(4, 3, is_deconv=args[0]))
+    elif kind == "channel_gate":
+        m = _First(canet.ChannelGate(8))
+    elif kind == "se":
+        m = _First(canet.SEConvBlock(4, 3))
+    elif kind == "dsv":
+        m = _Dsv(4, args[0])
+    elif kind == "canet":
+        m = create_model("Comprehensive_Atten_Unet", 1, 3, feature_scale=16, drop_rate=0.0,
+                         is_deconv=args[0], attention_dsample=args[1], nonlocal_mode=args[2])
+    else:
+        m = ghost.GhostBottleneck(4, 2, 3)
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    with torch.no_grad():
+        for prm in m.parameters():
+            prm.copy_(0.5 * torch.randn(prm.shape, generator=gen))
+        for seq in m.modules():  # a BN-fed conv bias at 0, or it swamps the BN's variance
+            if isinstance(seq, torch.nn.Sequential):
+                for conv, bn in zip(seq, list(seq)[1:]):
+                    if isinstance(bn, (BatchNorm, FlaxBatchNorm)) and conv.bias is not None:
+                        conv.bias.zero_()
+        if kind == "nonlocal":  # sharp attention, or its output is flat and W's BN cancels
+            m.theta.weight.mul_(4)
+            m.phi[0].weight.mul_(4)
+        if moved is not None:
+            noise = torch.Generator().manual_seed(moved)
+            for prm in m.parameters():
+                prm.mul_(1 + 1e-7 * torch.randn(prm.shape, generator=noise))
+    m.double()
+    for bn in m.modules():  # a BN keeps float32 parameters and statistics
+        if isinstance(bn, (BatchNorm, FlaxBatchNorm)):
+            bn.float()
+    return m.train()
+
+
+# The band ops of the ranks' worker: (module spec, input (H, W, C) of the
+# whole map, tolerance, chaotic). float64 where the op allows it; the
+# attention modules' softmaxes and every BN compute in float32 (1e-5; the
+# residual grid gate's softmax over the map scales its output, and with it
+# the variance of W's BN, by 1/64, so its inverse deviation amplifies
+# float32 rounding: 1e-4). In the chaotic ones a ReLU follows a float32 BN,
+# so a value within its rounding of 0 takes the other side on bands and
+# moves gradients by up to 1e-3 (a 1e-7 change of the weights moves the
+# narrow CA-Net's input gradient by up to 4e-4): their gradients are held
+# to the tolerance or 4x their largest movement under WEIGHT_READINGS, as
+# the chaotic archs' steps are. Inputs of "max" are on a grid of 0.5 so that
+# maxima tie within and across bands.
+BAND_OPS = {
+    "sum": (("reduce", "sum"), (8, 8, 3), 1e-10, False),
+    "max": (("reduce", "max"), (8, 8, 3), 1e-10, False),
+    "mean": (("reduce", "mean"), (8, 8, 3), 1e-10, False),
+    "softmax": (("reduce", "softmax"), (8, 8, 3), 1e-10, False),
+    "gather": (("gather",), (8, 8, 3), 1e-12, False),
+    "cam": (("cam",), (8, 8, 4), 1e-5, False),
+    "pam": (("pam", False), (8, 8, 4), 1e-5, False),
+    "pam_fast_rank1": (("pam", True), (8, 8, 4), 1e-5, False),
+    **{f"nonlocal_{mode}": (("nonlocal", mode), (8, 8, 4), 1e-5, False)
+       for mode in ("embedded_gaussian", "dot_product")},
+    **{f"grid_{mode}_{sf}": (("grid", mode, (sf, sf)), (8, 8, 4),
+                             1e-4 if mode == "concatenation_residual" else 1e-5, False)
+       for mode in ("concatenation", "concatenation_debug", "concatenation_residual")
+       for sf in (1, 2)},
+    "upcat_deconv": (("upcat", True), (8, 8, 4), 1e-10, False),
+    "upcat_bilinear": (("upcat", False), (8, 8, 4), 1e-6, False),
+    "channel_gate": (("channel_gate",), (8, 8, 8), 1e-10, False),
+    "se_block": (("se",), (8, 8, 4), 1e-5, True),
+    **{f"dsv_x{s}": (("dsv", s), (8, 8, 4), 1e-6, False) for s in (2, 4, 8)},
+    "ghost": (("ghost",), (8, 8, 4), 1e-5, True),
+    # the whole narrow CA-Net beyond CANet_x2's defaults: UpCat's bilinear
+    # branch with theta strides of 2, and the deconvs with the softplus gates
+    "canet_bilinear_dsample2_residual": (("canet", False, (2, 2), "concatenation_residual"),
+                                         (32, 32, 3), 1e-4, True),
+    "canet_deconv_debug": (("canet", True, (1, 1), "concatenation_debug"), (32, 32, 3), 1e-4,
+                           True),
+}
+
+
+def _band_op_inputs(rng, world):
+    """{op: (x, each rank's cotangent)}: the whole map and, for an op whose
+    output is the whole map on every rank ("gather"), a cotangent per rank,
+    else one of the whole output for every rank to cut."""
+    out = {}
+    for name, (_, (h, w, c), *_) in BAND_OPS.items():
+        x = rng.standard_normal((2, h, w, c))
+        if name == "max":  # the maximum tied within the map and across its corner bands
+            x = np.round(2 * x) / 2
+            x[:, 0, 0] = x[:, -1, -1] = x[:, 0, 1] = x.max((1, 2)) + 0.5
+        with torch.no_grad():
+            shape = _band_op(name)(torch.from_numpy(x)).shape
+        cts = [rng.standard_normal(shape) for _ in range(world if name == "gather" else 1)]
+        out[name] = (x, cts)
+    return out
+
+
+def _run_band_ops(inp, mesh):
+    """Each BAND_OPS module on this rank's band of its input (halos, BN
+    moments over the world and the band collectives put on as
+    `spatial_partition` puts them): its output, the gradient of its input's
+    band and of its parameters under <output, cotangent> (the whole output's
+    cotangent cut to this band, or this rank's own for a whole output)."""
+    out = {}
+    for name, (x, cts) in inp["band_ops"].items():
+        m = _band_op(name)
+        tmesh.put_on_bands(m, mesh)
+        tmesh.sync_batch_norm(m, mesh)
+        x = torch.from_numpy(x)
+        band = tmesh.batch_sharding(mesh, x.shape[0], True, x.shape[1:3])
+        xb = band.take(x).requires_grad_(True)
+        y = m(xb)
+        ct = torch.from_numpy(cts[mesh.rank] if len(cts) > 1 else cts[0])
+        if len(cts) == 1:
+            ho, wo = ct.shape[1] * band.h // band.full_h, ct.shape[2] * band.w // band.full_w
+            ct = ct[:, band.h0 * ho // band.h:band.h0 * ho // band.h + ho,
+                    band.w0 * wo // band.w:band.w0 * wo // band.w + wo]
+        params = dict(m.named_parameters())
+        grads = torch.autograd.grad((y * ct).sum(), [xb, *params.values()])
+        out[name] = {"y": y.detach().numpy(), "dx": grads[0].numpy(),
+                     "dp": {n: g.numpy() for n, g in zip(params, grads[1:])},
+                     "band": (band.h0, band.h, band.w0, band.w)}
+    return out
+
+
+def _dropout_masks(mesh, b, c):
+    """A ChannelDropout's first two train-mode masks on this rank's rows of
+    a global batch of `b` (drawn over the data rows, `sync_batch_norm`)."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import ChannelDropout
+
+    d = ChannelDropout(0.5, torch.Generator().manual_seed(5)).train()
+    tmesh.sync_batch_norm(d, mesh)
+    x = torch.ones(b // mesh.size, 4, 4, c)
+    return [d.keep(x).numpy() for _ in range(2)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(BAND_OPS))
+def test_band_op_matches_the_whole_map_op(name, world, two_ranks, four_ranks):
+    """Each BAND_OPS module on the ranks' bands (x=2; x=2,y=2) against the
+    module on the whole map in one process, in float64 where it allows:
+    each rank's output is the whole output's band (the gathered keys: the
+    whole map), the gradient of its input band is the whole gradient's
+    band, and the ranks' parameter gradients sum to the whole one's
+    (relative L2 of the larger of its own norm and its module's weight
+    gradient's). The keys' gradient sums every rank's reading (each rank
+    its own cotangent of the gathered map); the max splits over the tied
+    maxima of every band; the grid gates in every GRID_MODES mode at theta
+    strides 1 and 2 (kernel = stride: local); UpCat's 2x2 deconv (local)
+    and its half-pixel bilinear branch, the heads' resizes by 2, 4 and 8
+    (a halo row or column from each neighbour); the whole narrow CA-Net with
+    its other options. A chaotic op's gradients (BAND_OPS) are held to its
+    tolerance or 4x their movement under WEIGHT_READINGS."""
+    inp, outs = (two_ranks if world == 2 else four_ranks)[:2]
+    x, cts = inp["band_ops"][name]
+    tol, chaotic = BAND_OPS[name][2:]
+
+    def whole(moved=None):
+        m = _band_op(name, moved)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        y = m(xt)
+        params = dict(m.named_parameters())
+        grads = torch.autograd.grad((y * torch.from_numpy(sum(cts))).sum(),
+                                    [xt, *params.values()])
+        return y.detach().numpy(), grads[0].numpy(), dict(zip(params, (g.numpy()
+                                                                       for g in grads[1:])))
+
+    def rel(got, want, n):  # 0 where both are 0 (a ReLU that no input opens)
+        return np.linalg.norm(got[n] - want[n]) / max(
+            np.linalg.norm(want[n]), np.finfo(np.float64).tiny,
+            np.linalg.norm(want.get(n.rsplit(".", 1)[0] + ".weight", want[n])))
+
+    y, dx, dp = whole()
+    dx_tol, dp_tol = tol, dict.fromkeys(dp, tol)
+    for seed in WEIGHT_READINGS if chaotic else ():
+        _, dx_moved, dp_moved = whole(seed)
+        dx_tol = max(dx_tol, 4 * float(np.abs(dx_moved - dx).max()))
+        dp_tol = {n: max(t, 4 * rel(dp_moved, dp, n)) for n, t in dp_tol.items()}
+    (h, w), (ho, wo) = x.shape[1:3], y.shape[1:3]
+    for o in outs:
+        got = o["band_ops"][name]
+        h0, hb, w0, wb = got["band"]
+        want = y if name == "gather" else y[:, h0 * ho // h:(h0 + hb) * ho // h,
+                                            w0 * wo // w:(w0 + wb) * wo // w]
+        np.testing.assert_allclose(got["y"], want, atol=tol, rtol=tol, err_msg=name)
+        np.testing.assert_allclose(got["dx"], dx[:, h0:h0 + hb, w0:w0 + wb], atol=dx_tol,
+                                   rtol=tol, err_msg=name)
+    summed = {n: sum(o["band_ops"][name]["dp"][n] for o in outs) for n in dp}
+    for n in dp:
+        assert rel(summed, dp, n) <= dp_tol[n], f"{name} {n}"
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_channel_dropout_draws_per_data_row(world, two_ranks, four_ranks):
+    """A ChannelDropout on the mesh (`sync_batch_norm` puts it on the data
+    group): under x=2 both bands of the one data row draw the same masks,
+    and under data=2,x=2 the bands of each row draw alike, each row its
+    rows of the masks one process draws over the whole batch, twice in a
+    row (the generator advances alike)."""
+    from pytorch_nested_unet_tpu_torch.ops.layers import ChannelDropout
+
+    outs = (two_ranks if world == 2 else four_ranks)[1]
+    d = ChannelDropout(0.5, torch.Generator().manual_seed(5)).train()
+    want = [d.keep(torch.ones(BATCH, 4, 4, 6)).numpy() for _ in range(2)]
+    rows = BATCH // (world // 2)
+    for rank, o in enumerate(outs):
+        row = rank // 2  # ranks lie row-major over ('data', 'x')
+        for got, w in zip(o["dropout"], want):
+            np.testing.assert_array_equal(got, w[row * rows:(row + 1) * rows])
+    assert any(not w.all() for w in want) and any(w.any() for w in want)
+
+
+def test_two_rank_canet_dropout_step_matches_one_process(two_ranks):
+    """CA-Net with dropout on (drop_rate 0.5) under x=2: conv4's, center's
+    and up4's channel dropouts draw one mask per data row, so both bands
+    drop the channels that the port's one-process step drops over the
+    global batch; the step is held to that one-process step with the gates
+    of the chaotic archs (1e-4, or 4x the one-process step's movement under
+    WEIGHT_READINGS). The JAX package draws its masks from another
+    generator, so CANet_x2 (dropout 0) is the case held to it."""
+    inp, outs, _ = two_ranks
+    case = "CANet_dropout_x2"
+    masks = {}
+    one = _one_process_step(inp, case, masks=masks)
+    assert sorted(masks) == ["center.dropout", "conv4.dropout", "up4.dropout"]
+    for name, want in masks.items():
+        assert len(want) == 1 and not want[0].all()
+        for o in outs:
+            np.testing.assert_array_equal(o[case]["masks"][name][0], want[0], err_msg=name)
+    gate = dict.fromkeys(one[1], 1e-4)
+    for seed in WEIGHT_READINGS:
+        moved = _one_process_step(inp, case, seed)
+        gate = {n: max(g, 4 * _rel(moved[1], one[1], n)) for n, g in gate.items()}
+    got = {k: _both(outs, case, k) for k in ("metrics", "grads", "params", "stats",
+                                              "finish_calls")}
+    _hold_step(got, *one, 0, f"{case} against the port's one-process step", gate)
+
+
 def _den(grads, name):
     return max(np.linalg.norm(grads[name]),
-               np.linalg.norm(grads[name.rsplit(".", 1)[0] + ".weight"]))
+               np.linalg.norm(grads.get(name.rsplit(".", 1)[0] + ".weight", grads[name])))
 
 
 def _rel(got, want, name):
@@ -790,7 +1306,7 @@ OLD_IDS = {"UNet_data1_x2": "UNet-False", "NestedUNet_data1_x2": "NestedUNet-Tru
            "UNet_x2_y2": "UNet-False-UNet_x2_y2", "NestedUNet_data2_x2":
            "NestedUNet-True-NestedUNet_data2_x2"}
 TWO_RANK_CASES = [pytest.param(c, id=OLD_IDS.get(c, c)) for c, v in CASES.items()
-                  if int(np.prod(v[3][0])) == 2]
+                  if int(np.prod(v[3][0])) == 2 and v[4] is not None]
 FOUR_RANK_CASES = ["UNet_x2_y2", "NestedUNet_data2_x2"]
 
 
@@ -876,17 +1392,26 @@ def test_two_rank_remat_step_is_the_band_step(remat, two_ranks):
     assert got["finish_calls"] == (60 if remat == "full" else 30)
 
 
-def _one_process_step(inp, case, moved=None):
+_ONE_STEPS = {}  # (model, deep supervision, reading): both worlds load the same weights
+
+
+def _one_process_step(inp, case, moved=None, masks=None):
     """The port's step of CASES[case]'s model without a mesh over the global
     batch; `moved`: a seed, every weight first multiplied by 1 + 1e-7 *
-    N(0, 1) from it. The port's steps here, and the ranks' band steps, run
+    N(0, 1) from it; `masks`: a dict to fill with its dropouts' masks
+    (`_record_masks`). The port's steps here, and the ranks' band steps, run
     torch's direct CPU convolution, not oneDNN's, which rounds 2-3x coarser
     (test_torch_attention_unet.py)."""
     from pytorch_nested_unet_tpu_torch.training import optim
     from pytorch_nested_unet_tpu_torch.training.loop import make_train_step
 
     name, ds = CASES[case][:2]
+    key = (name, ds, moved)
+    if masks is None and key in _ONE_STEPS:
+        return _ONE_STEPS[key]
     m = _port_model(inp, name, ds)
+    if masks is not None:
+        masks.update(_record_masks(m))
     if moved is not None:
         noise = torch.Generator().manual_seed(moved)
         with torch.no_grad():
@@ -894,13 +1419,16 @@ def _one_process_step(inp, case, moved=None):
                 p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=noise))
     opt = optim.build_optimizer(m.parameters(), "SGD", 1e-2, 0.9, 1e-4)
     opt._names = dict(m.named_parameters())
-    imgs, masks = (torch.from_numpy(v) for v in inp["batches"][MODELS[name][2]])
+    imgs, labels = (torch.from_numpy(v) for v in inp["batches"][MODELS[name][2]])
     with torch.backends.mkldnn.flags(enabled=False):
         metrics = make_train_step(m, opt, "BCEDiceLoss", ds, "none")(
-            imgs, masks, torch.Generator().manual_seed(0))
-    return (metrics["loss"].item(), _grads_of(opt),
-            {n: p.detach().numpy() for n, p in m.named_parameters()},
-            {n: b.numpy() for n, b in m.named_buffers()})
+            imgs, labels, torch.Generator().manual_seed(0))
+    out = (metrics["loss"].item(), _grads_of(opt),
+           {n: p.detach().numpy() for n, p in m.named_parameters()},
+           {n: b.numpy() for n, b in m.named_buffers()})
+    if masks is None:
+        _ONE_STEPS[key] = out
+    return out
 
 
 @pytest.mark.parametrize("case", [pytest.param(c, id=OLD_IDS[c]) for c in FOUR_RANK_CASES])
@@ -914,13 +1442,17 @@ def test_four_rank_steps_match_the_one_process_step(case, four_ranks):
 
 
 @pytest.mark.parametrize("case", [pytest.param(c, id=f"{OLD_IDS[c]}-mesh_shape{i}")
-                                  for i, c in enumerate(FOUR_RANK_CASES)])
+                                  for i, c in enumerate(FOUR_RANK_CASES)]
+                         + ["UNetRNNAttention_x2_y2"])
 def test_four_rank_steps_match_the_jax_spatial_step(case, four_ranks):
     """The same 4-rank steps against the JAX package's spatial step on 4 of
     its virtual CPU devices (its `batch_sharding` puts H on 'x' and W on
     'y'; data=2,x=2 as its tests/test_parallel.py lays out data by 'x'),
     from the same weights: the column exchange, the corners and the
-    grouping of bands by data row, held as the two-rank test holds x=2."""
+    grouping of bands by data row, held as the two-rank test holds x=2;
+    UNetRNNAttention under x=2,y=2 (PAM's keys gathered from a 2-D grid of
+    bands into the whole map's row-major order; `_hold_to_jax` also holds
+    it to the port's one-process step)."""
     _hold_to_jax(case, four_ranks)
 
 
@@ -1005,6 +1537,36 @@ def test_train_cli_mesh_x2_unetrnn_two_processes_matches_one_process(tmp_path):
     ptrain.main(_args(tmp_path, tmp_path / "one", extra + ["--mesh", "data=1"]))
     with pytest.raises(SystemExit, match="thinner than the halo of 2.*A11b b"):
         ptrain.main(_args(tmp_path, tmp_path / "thin", extra[:4] + ["--mesh", "x=2"]))
+    a = pd.read_csv(tmp_path / "out0" / "run" / "log.csv")
+    b = pd.read_csv(tmp_path / "one" / "run" / "log.csv")
+    assert list(a["epoch"]) == list(b["epoch"]) == [0]
+    for col in ("loss", "val_loss"):
+        np.testing.assert_allclose(a[col], b[col], atol=3e-3, rtol=3e-3, err_msg=col)
+    for col in ("iou", "val_iou"):
+        np.testing.assert_allclose(a[col], b[col], atol=3e-2, err_msg=col)
+
+
+def test_train_cli_mesh_x2_unetrnn_attention_two_processes_matches_one_process(tmp_path):
+    """`train --mesh x=2 --arch UNetRNNAttention` as two processes (narrow,
+    64x32: its 5x5 score convs' halo of 2 rows at the coarsest level; PAM's
+    keys and values gathered from both bands, CAM's gram summed over them)
+    trains an epoch, and rank 0's log.csv matches `--mesh data=1` in one
+    process within the JAX CLI test's bounds (loss and val_loss 3e-3, IoU
+    3e-2); `--arch ResNet18RNN` under x=2 exits naming ROADMAP.md (A11b a)."""
+    import pandas as pd
+
+    from pytorch_nested_unet_tpu_torch import train as ptrain
+    from test_torch_multihost import _args, _run_two, _write_set
+
+    extra = ["--arch", "UNetRNNAttention", "--arch_kwargs", '{"feature_scale": 16}',
+             "--input_w", "32", "--input_h", "64", "--epochs", "1"]
+    _write_set(tmp_path / "inputs", seed=7)
+    outs = _run_two(tmp_path, extra + ["--mesh", "x=2"])
+    assert "mesh: {'x': 2} (spatial H/W partitioning on)" in outs[0]
+    ptrain.main(_args(tmp_path, tmp_path / "one", extra + ["--mesh", "data=1"]))
+    with pytest.raises(SystemExit, match="not ResNet18RNN.*A11b a"):
+        ptrain.main(_args(tmp_path, tmp_path / "queued", ["--arch", "ResNet18RNN", "--mesh",
+                                                          "x=2"]))
     a = pd.read_csv(tmp_path / "out0" / "run" / "log.csv")
     b = pd.read_csv(tmp_path / "one" / "run" / "log.csv")
     assert list(a["epoch"]) == list(b["epoch"]) == [0]
