@@ -889,27 +889,28 @@ def k4_backward_phase(df, dev):
               f"{dev_plain_total:.4f} ms ({plain_total:.4f} ms per call)", flush=True)
 
 
-def synthetic_set(n, seed):
-    """Seeded segmentation images: 1-3 rotated ellipses (the mask) over a
-    textured background, red rectangles as distractors, pixel noise."""
+def synthetic_set(n, seed, size=SIZE):
+    """Seeded segmentation images (size x size): 1-3 rotated ellipses (the
+    mask) over a textured background, red rectangles as distractors, pixel
+    noise."""
     rng = np.random.default_rng(seed)
-    images = np.zeros((n, SIZE, SIZE, 3), np.uint8)
-    masks = np.zeros((n, SIZE, SIZE, 1), np.uint8)
-    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    images = np.zeros((n, size, size, 3), np.uint8)
+    masks = np.zeros((n, size, size, 1), np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size]
     for i in range(n):
-        img = rng.integers(40, 120, (SIZE, SIZE, 3)).astype(np.float32)
-        m = np.zeros((SIZE, SIZE), bool)
+        img = rng.integers(40, 120, (size, size, 3)).astype(np.float32)
+        m = np.zeros((size, size), bool)
         for _ in range(int(rng.integers(1, 4))):
-            cy, cx = rng.integers(SIZE // 6, SIZE - SIZE // 6, 2)
-            ry, rx = rng.integers(SIZE // 12, SIZE // 5, 2)
+            cy, cx = rng.integers(size // 6, size - size // 6, 2)
+            ry, rx = rng.integers(size // 12, size // 5, 2)
             ang = rng.uniform(0, np.pi)
             u = (yy - cy) * np.cos(ang) + (xx - cx) * np.sin(ang)
             v = -(yy - cy) * np.sin(ang) + (xx - cx) * np.cos(ang)
             m |= (u / ry) ** 2 + (v / rx) ** 2 < 1.0
         img[m] += np.asarray([25, 60, 25], np.float32)
         if rng.random() < 0.7:
-            y0, x0 = rng.integers(0, SIZE - SIZE // 4, 2)
-            img[y0:y0 + SIZE // 6, x0:x0 + SIZE // 6] += np.asarray([70, 20, 20], np.float32)
+            y0, x0 = rng.integers(0, size - size // 4, 2)
+            img[y0:y0 + size // 6, x0:x0 + size // 6] += np.asarray([70, 20, 20], np.float32)
         img += rng.normal(0, 12, img.shape)
         images[i] = np.clip(img, 0, 255).astype(np.uint8)
         masks[i, ..., 0] = m * np.uint8(255)
@@ -2511,8 +2512,8 @@ DP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "c
 DP_RANKS = 2
 
 
-def _dp_batch(n=BATCH):
-    x, y = synthetic_set(64, seed=10)
+def _dp_batch(n=BATCH, size=SIZE):
+    x, y = synthetic_set(64, seed=10, size=size)
     return np.resize(x, (n, *x.shape[1:])), np.resize(y, (n, *y.shape[1:]))
 
 
@@ -2643,15 +2644,19 @@ MOVEMENT_READINGS = (("weights", 12), ("weights", 13), ("weights", 14), ("order"
 GATE_FACTOR = 4
 
 
-def _dp_reference(device="cuda", arch="NestedUNet"):
+def _dp_reference(device="cuda", arch="NestedUNet", size=SIZE, with_floor=False, spread=True):
     """The non-distributed fp32 step over the global batch of 16 (augment
     none) and how far it moves: against itself run again (it is not
     deterministic on the card: bilinear upsampling's backward adds with
     atomics) and under each of MOVEMENT_READINGS ("weights", seed: every
     weight moved by 1e-7 N(0, 1) from that seed; "order", seed: the batch
-    permuted by that seed). Returns (result, {gradient: run-to-run spread},
-    {gradient: its largest movement}, {reading: {gradient: movement}})."""
-    x, y = _dp_batch()
+    permuted by that seed), on images of `size` x `size`. Returns (result,
+    {gradient: run-to-run spread}, {gradient: its largest movement},
+    {reading: {gradient: movement}}); `with_floor`: and (the loss's, the
+    running statistics' largest movement over the readings), for a step
+    whose loss and statistics are chaotic too (STEP_FLOOR_RUNS); without
+    `spread`, None in place of the spread (one step fewer)."""
+    x, y = _dp_batch(size=size)
 
     def run(order=None, **build):
         idx = np.arange(BATCH) if order is None else np.random.default_rng(order).permutation(BATCH)
@@ -2664,11 +2669,22 @@ def _dp_reference(device="cuda", arch="NestedUNet"):
         return out
 
     plain = run()
-    readings = {f"{kind} {seed}": _dp_rel(run(order=seed) if kind == "order" else
-                                          run(moved=1e-7, noise_seed=seed), plain)
-                for kind, seed in MOVEMENT_READINGS}
+    steps = {f"{kind} {seed}": run(order=seed) if kind == "order" else
+             run(moved=1e-7, noise_seed=seed) for kind, seed in MOVEMENT_READINGS}
+    readings = {k: _dp_rel(r, plain) for k, r in steps.items()}
     movement = {n: max(r[n] for r in readings.values()) for n in plain[1]}
-    return plain, _dp_rel(run(), plain), movement, readings
+    out = plain, _dp_rel(run(), plain) if spread else None, movement, readings
+    if not with_floor:
+        return out
+    moved = [_loss_stats_moved(r, plain) for r in steps.values()]
+    return out + (tuple(max(v) for v in zip(*moved)),)
+
+
+def _loss_stats_moved(got, want):
+    """(how far the loss, the running statistics) of step `got` are from
+    `want`'s: absolute, the largest over every statistic."""
+    return (abs(got[0] - want[0]),
+            max(float((b - want[2][n]).abs().max()) for n, b in got[2].items()))
 
 
 def _masks_follow(m, idx):
@@ -2769,10 +2785,11 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _run_ranks(argvs, what, envs=None, cwd=None):
+def _run_ranks(argvs, what, envs=None, cwd=None, meanwhile=None):
     """One process per argv (with envs[rank] as its environment), all
-    started together; returns their outputs and the wall seconds, raising if
-    one fails or outlasts 600 s (whatever is left is killed)."""
+    started together (`meanwhile()` runs here while they run); returns their
+    outputs and the wall seconds, raising if one fails or outlasts 600 s
+    (whatever is left is killed)."""
     t0 = time.perf_counter()
     procs = []
     try:
@@ -2780,6 +2797,8 @@ def _run_ranks(argvs, what, envs=None, cwd=None):
             procs.append(subprocess.Popen(
                 argv, env=envs[rank] if envs else None, cwd=cwd, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
+        if meanwhile is not None:
+            meanwhile()
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
         for p in procs:
@@ -3111,7 +3130,12 @@ def dp_cards(world):
 # from both bands, and CAM, its gram summed over them, at every level);
 # CA-Net's plain and flax-semantics BNs none (feature_scale 4, one class,
 # its channel dropout on at 0.5, drawn per data row: the run asserts that
-# both bands and the one-process step draw the same masks). On one card over Gloo
+# both bands and the one-process step draw the same masks); ResNet50RNN's 5
+# score blocks (its trunk's strided convs and 3x3/2 pool on bands, its BNs
+# plain); DoubleUnet's plain BNs none, at 128x128 (a 7th field: the input's
+# size; its 5 halvings need H a multiple of 64 at x=2); UNetRNNPSP's 15 in
+# its UNetRNN trunk (the refinement net's BNs plain, its adaptive pools
+# summed over the bands). On one card over Gloo
 # (NCCL refuses two ranks on one device); `--dp-cards 4` adds data=2,x=2
 # over NCCL, a card a rank. Each gradient is held as dp_ranks holds it
 # (GATE_FACTOR x its largest movement over MOVEMENT_READINGS, and under
@@ -3144,10 +3168,27 @@ SPATIAL_RUNS = {
                               "multipart_conv3x3": 0}, "none"),
     "Comprehensive_Atten_Unet x=2": ("Comprehensive_Atten_Unet", "data=1,x=2", 2, 2,
                                      {**bn_want(0), "multipart_conv3x3": 0}, "none"),
+    "ResNet50RNN x=2": ("ResNet50RNN", "data=1,x=2", 2, 2,
+                        {**bn_want(RESNET_RNN_BN_PER_STEP, RESNET_RNN_BN_PER_STEP),
+                         "multipart_conv3x3": 0}, "none"),
+    "DoubleUnet x=2": ("DoubleUnet", "data=1,x=2", 2, 2, {**bn_want(0), "multipart_conv3x3": 0},
+                       "none", 128),
+    "UNetRNNPSP x=2": ("UNetRNNPSP", "data=1,x=2", 2, 2,
+                       {**bn_want(UNETRNN_BN_PER_STEP, UNETRNN_BN_PER_STEP),
+                        "multipart_conv3x3": 0}, "none"),
 }
+
+
+def _run_size(run):
+    """The input's height and width of a spatial run: its 7th field, else
+    SIZE."""
+    return SPATIAL_RUNS[run][6] if len(SPATIAL_RUNS[run]) > 6 else SIZE
+
+
 # the runs whose one-process step's peak device memory is printed beside the
 # band step's a rank (a band's PAM energy is (h*w) x (H*W) per image)
-PEAK_RUNS = ("VGG16RNN x=2", "UNetRNNAttention x=2", "Comprehensive_Atten_Unet x=2")
+PEAK_RUNS = ("VGG16RNN x=2", "UNetRNNAttention x=2", "Comprehensive_Atten_Unet x=2",
+             "ResNet50RNN x=2", "DoubleUnet x=2", "UNetRNNPSP x=2")
 SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
                             "spatial")
 # The band runs whose workers also step under MOVEMENT_READINGS' weight
@@ -3164,6 +3205,12 @@ SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs
 BAND_READINGS = {"NestedUNet data=2,x=2": (12, 13, 14), "AttU_Net x=2": (12, 13, 14),
                  "UNetRNN x=2": (12, 13, 14), **{run: (12, 13, 14) for run in PEAK_RUNS}}
 BAND_GATED = {"AttU_Net x=2", "UNetRNN x=2", *PEAK_RUNS}
+# The band runs whose loss and running statistics are chaotic too, and so
+# are held to 1e-5 or GATE_FACTOR x their largest movement (the one-process
+# readings' and the band step's own): UNetRNNPSP's refinement cascade at
+# init, whose gradients move by up to 8.6x their norm under a 1e-7 weight
+# change on the card, as cpu_step_phase's `step_floor` holds its step
+STEP_FLOOR_RUNS = {"UNetRNNPSP x=2"}
 
 
 def _spatial_slug(run):
@@ -3193,14 +3240,14 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                            init_method=f"tcp://127.0.0.1:{port}")
     try:
         for run in runs.split(";"):
-            arch, spec, ranks, steps, _, remat = SPATIAL_RUNS[run]
+            arch, spec, ranks, steps, _, remat = SPATIAL_RUNS[run][:6]
             # every rank creates every group (new_group is collective)
             group = dist.group.WORLD if ranks == world else dist.new_group(list(range(ranks)))
             if rank >= ranks:
                 continue
             names, sizes = parse_mesh_spec(spec)
             mesh = make_mesh(sizes, names, group=group)
-            x, y = _dp_batch()
+            x, y = _dp_batch(size=_run_size(run))
             rows = batch_sharding(mesh, BATCH)
             batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
             out = {}
@@ -3249,12 +3296,14 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                 del m, step
             if run in BAND_READINGS:
                 # the band step's own movement under MOVEMENT_READINGS' weight
-                # changes, against its own unperturbed step, and that step
-                # once more on a fresh model (ROADMAP.md F3); rank 0 keeps
-                # the steps to hold them against the one-process step too
+                # changes, against its own unperturbed step, and for the runs
+                # of FLIP_READINGS that step once more on a fresh model
+                # (ROADMAP.md F3); rank 0 keeps the steps to hold them
+                # against the one-process step too
                 out["band_readings"], kept = {}, {}
+                again = [("again", {})] if run in FLIP_READINGS else []
                 for label, build in ([(f"weights {seed}", {"moved": 1e-7, "noise_seed": seed})
-                                      for seed in BAND_READINGS[run]] + [("again", {})]):
+                                      for seed in BAND_READINGS[run]] + again):
                     m, step = _dp_build(mesh, device=dev, arch=arch, **build)
                     kept[label] = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
                     out["band_readings"][label] = _dp_rel(kept[label], result)
@@ -3277,7 +3326,7 @@ def _peak_step(m, step, batch, dev):
     return result, torch.cuda.max_memory_allocated(dev) / 2**20
 
 
-def spatial_ranks(runs, backend, references, card, extras=None):
+def spatial_ranks(runs, backend, references, card, extras=None, floors=None, prepare=None):
     """Run SPATIAL_RUNS' `runs` in one set of spatial_worker processes (as
     many as the largest run needs; over Gloo all on the first card, over
     NCCL rank r on cuda:r) and hold each rank's fp32 step against the
@@ -3286,7 +3335,13 @@ def spatial_ranks(runs, backend, references, card, extras=None):
     within 1e-4 or GATE_FACTOR x its largest movement over
     MOVEMENT_READINGS, the run's launches per step (SPATIAL_RUNS), and with
     `extras[run]` (from _one_process_extras) each dropout's mask equal to the
-    one-process step's. Prints each rank's halo bytes and host ms in halo
+    one-process step's; with `floors[run]` (_dp_reference's `with_floor`
+    movement of the loss and the running statistics, STEP_FLOOR_RUNS) the
+    loss and statistics within 1e-5 or GATE_FACTOR x their largest movement
+    over the readings and the band step's own (BAND_GATED). `prepare`: a
+    function that returns (references, extras, floors), run here while the
+    workers run (the one-process steps then overlap the band steps, which
+    wait on the host). Prints each rank's halo bytes and host ms in halo
     exchange and gather_bands per step, the band collectives' (bands.py's
     all-gathers and all-reduces), its step p50 and its step's peak device
     memory (beside the one-process step's, with `extras`). Returns {run:
@@ -3297,10 +3352,14 @@ def spatial_ranks(runs, backend, references, card, extras=None):
     for f in os.listdir(out_dir):
         os.remove(os.path.join(out_dir, f))
     port = _free_port()
+    prepared = []
     _, wall = _run_ranks(
         [[sys.executable, os.path.abspath(__file__), "--spatial-worker", str(rank), str(world),
           str(port), out_dir, backend, f"cuda:{rank}" if backend == "nccl" else "cuda:0",
-          ";".join(runs)] for rank in range(world)], f"spatial ({backend})")
+          ";".join(runs)] for rank in range(world)], f"spatial ({backend})",
+        meanwhile=prepare and (lambda: prepared.append(prepare())))
+    if prepared:
+        references, extras, floors = prepared[0]
     results = {}
     for run in runs:
         arch, spec, ranks, steps, want = SPATIAL_RUNS[run][:5]
@@ -3314,6 +3373,13 @@ def spatial_ranks(runs, backend, references, card, extras=None):
             movement = {n: max([v] + [b[n] for b in band.values()]) for n, v in movement.items()}
             readings = {**readings, **band}
         gate = {n: max(1e-4, GATE_FACTOR * v) for n, v in movement.items()}
+        loss_tol = stats_tol = 1e-5
+        if (floors or {}).get(run) is not None:
+            moved = [floors[run]] + [_loss_stats_moved(res, outs[0]["result"])
+                                     for k, res in outs[0].get("band_steps", {}).items()
+                                     if k.startswith("weights")]
+            loss_tol, stats_tol = (max([1e-5] + [GATE_FACTOR * v for v in vs])
+                                   for vs in zip(*moved))
         if run in FLIP_READINGS:  # before the gates, which data=2,x=2's fails (F3)
             flip_reading(run, outs, card)
         extra = (extras or {}).get(run)
@@ -3328,16 +3394,16 @@ def spatial_ranks(runs, backend, references, card, extras=None):
             if "none_result" in r:
                 _hold_remat_band(run, rank, r, card)
             loss_err, stats_err, worst, rel, tol = _dp_compare(
-                r["result"], plain, 1e-5, 1e-5, gate, f"spatial {run} rank {rank}")
+                r["result"], plain, loss_tol, stats_tol, gate, f"spatial {run} rank {rank}")
             h, st = r["halo"], r["steady"]
             p50 = f"{r['p50']:.3f} ms" if r["p50"] is not None else "not measured (1 step)"
             later = [f" ({st[k] * 1e3:.1f} a later step)" if st else ""
                      for k in ("halo_s", "gather_s", "allgather_s", "allreduce_s")]
             print(f"spatial {run} rank {rank} of {ranks} ({r['backend']}, {arch} full width, "
-                  f"global batch {BATCH} at {SIZE}x{SIZE}, fp32), one step against the "
-                  f"one-process step: loss off by {loss_err:.3g} (1e-5), running stats by "
-                  f"{stats_err:.3g} (1e-5), gradient nearest its gate {worst} at {rel:.3g} (gate "
-                  f"{tol:.3g}: 1e-4 or {GATE_FACTOR}x its largest reading; readings "
+                  f"global batch {BATCH} at {_run_size(run)}x{_run_size(run)}, fp32), one step "
+                  f"against the one-process step: loss off by {loss_err:.3g} ({loss_tol:.3g}), "
+                  f"running stats by {stats_err:.3g} ({stats_tol:.3g}), gradient nearest its "
+                  f"gate {worst} at {rel:.3g} (gate {tol:.3g}: 1e-4 or {GATE_FACTOR}x its largest reading; readings "
                   f"{_readings_of(readings, worst)}) | "
                   f"launches per step {r['launches']} | per step: halo "
                   f"{h['halo_bytes'] / 1e6:.3f} MB sent, {h['halo_s'] * 1e3:.1f} host ms in "
@@ -3357,11 +3423,12 @@ def spatial_ranks(runs, backend, references, card, extras=None):
     return results
 
 
-def _one_process_extras(arch, device="cuda"):
-    """The one-process step's (_dp_build's, over the global batch) peak
-    device memory in MiB and its dropouts' masks (`_record_masks`): what
-    spatial_ranks prints beside a band run's peak and holds its masks to."""
-    x, y = _dp_batch()
+def _one_process_extras(arch, device="cuda", size=SIZE):
+    """The one-process step's (_dp_build's, over the global batch of `size`
+    x `size` images) peak device memory in MiB and its dropouts' masks
+    (`_record_masks`): what spatial_ranks prints beside a band run's peak
+    and holds its masks to."""
+    x, y = _dp_batch(size=size)
     m, step = _dp_build(device=device, arch=arch)
     drawn = _record_masks(m)
     _, peak = _peak_step(m, step, (torch.from_numpy(x).to(device),
@@ -3673,11 +3740,11 @@ def _print_band_readings(run, r, plain, gate, movement, readings, card):
     """A BAND_READINGS run's evidence (rank 0: every rank holds the same
     averaged gradients): a gradient's deviation off the one-process step
     beside its gate, its one-process readings, the band step's own movement
-    under the same weight changes and the unperturbed step again on a fresh
-    model (each against the first band step, then against the one-process
-    step), for the gradient nearest its gate and the two that the band step
-    moves most; then how many gradients the band step moves more than the
-    one-process step moves under the same changes."""
+    under the same weight changes and (FLIP_READINGS) the unperturbed step
+    again on a fresh model (each against the first band step, then against
+    the one-process step), for the gradient nearest its gate and the two
+    that the band step moves most; then how many gradients the band step
+    moves more than the one-process step moves under the same changes."""
     rel = _dp_rel(r["result"], plain)
     weights = {k: b for k, b in r["band_readings"].items() if k.startswith("weights")}
     later = {k: _dp_rel(res, plain) for k, res in r["band_steps"].items()}
@@ -3698,14 +3765,14 @@ def _print_band_readings(run, r, plain, gate, movement, readings, card):
               f"those later band steps off the one-process step ("
               + ", ".join(f"{k} {v[n]:.3g}" for k, v in later.items())
               + f") | card: {card}", flush=True)
-    again = max(later["again"][n] / gate[n] for n in rel)
+    again = (f", the same step again on a fresh model "
+             f"{max(later['again'][n] / gate[n] for n in rel):.3g}" if "again" in later else "")
     print(f"band readings, spatial {run}: the band step moves "
           f"{sum(v > 1 for v in ratio.values())} of {len(ratio)} gradients more than the "
           f"one-process step moves under the same weight changes (median ratio "
           f"{np.median(list(ratio.values())):.3g}, max {max(ratio.values()):.3g}); against the "
           f"one-process step the first band step reaches {max(rel[n] / gate[n] for n in rel):.3g} "
-          f"of a gate, the same step again on a fresh model {again:.3g} | card: {card}",
-          flush=True)
+          f"of a gate{again} | card: {card}", flush=True)
 
 
 def spatial_cli(world, spec, card, gloo):
@@ -3752,24 +3819,33 @@ def spatial_phase(bn, df, card, reference):
     same ranks, 3 steps; `reference`: its one-process step from
     _dp_reference), then on the same 2 ranks AttU_Net and UNetRNN (GRU)
     under x=2, NestedUNet wDS under x=2 with --remat full and policy, and
-    VGG16RNN, UNetRNNAttention and CA-Net (dropout on) under x=2 (a checked
-    step and a timed one each), each rank against the one-process step
+    VGG16RNN, UNetRNNAttention, CA-Net (dropout on), ResNet50RNN, DoubleUnet
+    (128x128) and UNetRNNPSP under x=2 (a checked step and a timed one
+    each), each rank against the one-process step
     (`spatial_ranks`; the remat runs also against the band step without
-    remat; the last three with their peak memory beside the one-process
+    remat; the last six with their peak memory beside the one-process
     step's and CA-Net's masks against its), then `train --mesh x=2` over 2
     processes (`spatial_cli`). Returns {"fp32": launches} of every rank's
     steps."""
     t0 = time.perf_counter()
     totals = {**bn_want(0), "multipart_conv3x3": 0}
     # the 4-rank run first: the 2-rank runs' group is then made by all 4
-    references = {"UNet x=2,y=2": _dp_reference(arch="UNet"), "NestedUNet x=2": reference,
-                  "AttU_Net x=2": _dp_reference(arch="AttU_Net"),
-                  "UNetRNN x=2": _dp_reference(arch="UNetRNN"),
-                  "NestedUNet x=2 remat full": reference,
-                  "NestedUNet x=2 remat policy": reference,
-                  **{run: _dp_reference(arch=SPATIAL_RUNS[run][0]) for run in PEAK_RUNS}}
-    extras = {run: _one_process_extras(SPATIAL_RUNS[run][0]) for run in PEAK_RUNS}
-    for outs in spatial_ranks(list(references), "gloo", references, card, extras).values():
+    runs = ["UNet x=2,y=2", "NestedUNet x=2", "AttU_Net x=2", "UNetRNN x=2",
+            "NestedUNet x=2 remat full", "NestedUNet x=2 remat policy", *PEAK_RUNS]
+
+    def prepare():
+        """The one-process references (their run-to-run spread unused
+        here), extras and floors, computed while the band runs run."""
+        references = {run: reference if SPATIAL_RUNS[run][0] == "NestedUNet" else
+                      _dp_reference(arch=SPATIAL_RUNS[run][0], size=_run_size(run),
+                                    with_floor=run in STEP_FLOOR_RUNS, spread=False)
+                      for run in runs}
+        floors = {run: references[run][4] for run in STEP_FLOOR_RUNS}
+        extras = {run: _one_process_extras(SPATIAL_RUNS[run][0], size=_run_size(run))
+                  for run in PEAK_RUNS}
+        return {run: ref[:4] for run, ref in references.items()}, extras, floors
+
+    for outs in spatial_ranks(runs, "gloo", None, card, prepare=prepare).values():
         for r in outs:
             for k, v in r["total"].items():
                 totals[k] += v
@@ -4322,9 +4398,9 @@ def main():
           "2 ranks over Gloo; spatial: launches in spatial_phase's steps on bands (NestedUNet "
           "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; AttU_Net (none) and "
           "UNetRNN x=2, 2 ranks x 2 steps; NestedUNet wDS x=2 under --remat full and policy, "
-          "2 ranks x 2 steps each and 1 step each without remat; VGG16RNN, UNetRNNAttention "
-          "and CA-Net (none) x=2, 2 ranks x 2 steps and 4 more steps each under the band "
-          "readings; fp32); model: "
+          "2 ranks x 2 steps each (their steps without remat and the band readings' steps "
+          "are not counted); VGG16RNN, UNetRNNAttention, CA-Net (none), ResNet50RNN, "
+          "DoubleUnet (none) and UNetRNNPSP x=2, 2 ranks x 2 steps; fp32); model: "
           "launches in model_phase's steps (NestedUNet wDS data=2,model=2 on 4 ranks and "
           "data=2 on 2 ranks, Gloo: one fp32 step each, twice without 'model'; bf16 the "
           "timed steps); "

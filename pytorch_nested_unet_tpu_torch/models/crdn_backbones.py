@@ -19,6 +19,13 @@ reference CRDN.py:250-908).
   to 4096 channels, two plain BN + ReLU + channel dropout layers and a 1x1
   conv, then FCN score-map sums resized by nearest indexing. No kernel.
 
+On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) the trunk's
+strided convs take their halo like any conv, and `bands` (a
+`parallel.bands.Bands`) is set on the trunk's model and on each `UnetUp`:
+the 3x3/2 pool then takes the band's rows of the whole map's pool and the
+bilinear x2 the band's rows of the whole map's resize. ResNetFCN stays off
+bands (its valid 3x3 conv).
+
 The presets are subclasses that set `BLOCK` and `LAYERS`, so the registry
 and `arch_options` treat them as classes; `block` and `layers` remain
 constructor options, as in the JAX package's factories. Module names give
@@ -109,10 +116,12 @@ class _ResNetTrunk(nn.Module):
     """A model whose ResNet trunk sits at the root of its state dict, as in
     the reference (CRDN.py:430-437, `_make_layer` :516-530): `conv1` (7x7,
     stride 1), `bn1`, `layer1`-`layer4` of `BLOCK`s. Subclasses set the
-    presets and call `build_trunk` before their own layers."""
+    presets and call `build_trunk` before their own layers. `bands`: see
+    the module docstring."""
 
     BLOCK = "bottleneck"
     LAYERS = (3, 4, 6, 3)
+    bands = None
 
     def build_trunk(self, input_channels: int, block: Optional[str],
                     layers: Optional[Sequence[int]], dtype) -> List[int]:
@@ -137,7 +146,7 @@ class _ResNetTrunk(nn.Module):
         """[down1 (the stem before its pool, full size), down2 (1/2), ...,
         down5 (1/16)] (CRDN.py:533-543)."""
         down1 = torch.relu(self.bn1(self.conv1(x)))
-        feats, x = [down1], max_pool_3x3_s2_p1(down1)
+        feats, x = [down1], max_pool_3x3_s2_p1(down1, self.bands)
         for stage in range(1, 5):
             x = getattr(self, f"layer{stage}")(x)
             feats.append(x)
@@ -237,7 +246,12 @@ class VGG16RNN(nn.Module):
 class UnetUp(nn.Module):
     """A 2x2 stride-2 transposed conv to `out_size` channels (or a bilinear
     x2 that keeps the channels), an align-corners resize to the skip's size,
-    [skip ++ up], and a BN-free `UnetConv2` (reference CRDN.py:753-772)."""
+    [skip ++ up], and a BN-free `UnetConv2` (reference CRDN.py:753-772).
+    With `bands` the x2 is the band's rows of the whole map's resize
+    (`Bands.resize`); every level halves on bands, so the resize to the skip
+    is the identity there, and any other size is refused."""
+
+    bands = None
 
     def __init__(self, skip_channels: int, below_channels: int, out_size: int,
                  is_deconv: bool = True, dtype: Optional[torch.dtype] = None):
@@ -252,7 +266,12 @@ class UnetUp(nn.Module):
         if self.up is not None:
             up = self.up(below)
         else:
-            up = resize_bilinear(below, (below.shape[1] * 2, below.shape[2] * 2))
+            up = resize_bilinear(below, (below.shape[1] * 2, below.shape[2] * 2),
+                                 bands=self.bands)
+        if self.bands is not None and up.shape[1:3] != skip.shape[1:3]:
+            raise ValueError(f"UnetUp on bands: a {up.shape[1]}x{up.shape[2]} band against a "
+                             f"{skip.shape[1]}x{skip.shape[2]} skip; the levels must halve "
+                             f"(ROADMAP.md queue 1, A11b b)")
         up = resize_bilinear(up, skip.shape[1:3])
         return self.conv(torch.cat([skip, up], dim=-1))
 

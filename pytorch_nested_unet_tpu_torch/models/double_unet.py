@@ -22,6 +22,12 @@ adds the 1-D parameter `iteration_weights` (init ones): the rounds' heads
 are combined by its softmax, and `deep_supervision` then returns the rounds
 plus the combination.
 
+On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) the strided
+convs take their halo like any conv, and `bands` (a `parallel.bands.Bands`)
+on the net and on each `UnetBlock` puts the 3x3/2 pool and the half-pixel
+resizes (x2 in the TD groups, x4 in the head) on the band's rows of the
+whole map's (`Bands.resize`).
+
 Input height and width must be multiples of 32: the deepest BU group works
 at 1/32 of the input, and at 16x16 TD group 3 would upsample to 2x2 against
 a 1x1 BU output. Every BN is the plain `BatchNorm` (no kernel, as in the JAX
@@ -47,6 +53,8 @@ class UnetBlock(nn.Module):
     """conv3x3 (ni -> ni) + BN + ReLU, [bilinear x2, align_corners=False],
     conv3x3 (ni -> out) + BN + ReLU (reference archs.py:1089-1104)."""
 
+    bands = None
+
     def __init__(self, in_channels: int, out_channels: int, upsample: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -59,7 +67,8 @@ class UnetBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))
         if self.upsample:
-            x = resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners=False)
+            x = resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners=False,
+                                bands=self.bands)
         return torch.relu(self.bn2(self.conv2(x)))
 
 
@@ -118,6 +127,8 @@ class _ConvLayer(nn.Module):
 
 
 class DoubleUnet(nn.Module):
+    bands = None
+
     def __init__(self, num_classes: int = 1, input_channels: int = 3,
                  deep_supervision: bool = False, iterations: int = 2,
                  layers: Sequence[int] = (2, 2, 2, 2), weighted_sum: bool = False,
@@ -157,7 +168,7 @@ class DoubleUnet(nn.Module):
     def forward(self, x: torch.Tensor):
         n_groups = len(WIDTHS)
         h = torch.relu(self.fe_bn1(self.fe_conv1(x)))
-        img_features = max_pool_3x3_s2_p1(h)
+        img_features = max_pool_3x3_s2_p1(h, self.bands)
         td_lats = [None] * n_groups
         outs = []
         for _ in range(self.iterations):
@@ -175,7 +186,8 @@ class DoubleUnet(nn.Module):
                     h = getattr(self, f"td{g}_block{b}")(h)
                 td_lats[g] = h
             y = self.td_head1(self.td_head0(h))
-            y = resize_bilinear(y, (x.shape[1], x.shape[2]), align_corners=False)
+            y = resize_bilinear(y, (x.shape[1], x.shape[2]), align_corners=False,
+                                bands=self.bands)
             outs.append(y.to(torch.float32))
         if self.weighted_sum:
             w = torch.softmax(self.iteration_weights, dim=0)

@@ -22,6 +22,10 @@ Documented divergences, kept from the JAX package:
 
 The 15 train-mode BN layers of the UNetRNN trunk run K1-K3 on the card;
 the refinement network's BNs are plain (`ops/layers.py::BatchNorm`).
+
+On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) the trunk and
+the refinement network both run on the band (refinement/pspnet.py says
+how), and the step gathers pred_224 as it gathers any head.
 """
 
 import torch

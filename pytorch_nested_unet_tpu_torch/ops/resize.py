@@ -49,16 +49,17 @@ def _interpolate(x, out_h, out_w, align_corners):
 @functools.lru_cache(maxsize=64)  # a few sizes a model
 def _bilinear_matrix(n_in: int, n_out: int, align_corners: bool, device, dtype):
     """(n_out, n_in): the two weights of each output position of a bilinear
-    resize along one axis, at the float32 positions F.interpolate takes."""
-    o = np.arange(n_out, dtype=np.float32)
+    resize along one axis, at the positions F.interpolate takes: in float32,
+    in float64 for a float64 `dtype`."""
+    f = np.float64 if dtype == torch.float64 else np.float32
+    o = np.arange(n_out, dtype=f)
     if align_corners:
-        src = o * (np.float32((n_in - 1) / (n_out - 1)) if n_out > 1 else np.float32(0))
+        src = o * (f((n_in - 1) / (n_out - 1)) if n_out > 1 else f(0))
     else:
-        src = np.maximum(np.float32(n_in / n_out) * (o + np.float32(0.5)) - np.float32(0.5),
-                         np.float32(0))
+        src = np.maximum(f(n_in / n_out) * (o + f(0.5)) - f(0.5), f(0))
     i0 = np.floor(src).astype(np.int64)
-    lam = (src - i0).astype(np.float32)
-    a = np.zeros((n_out, n_in), np.float32)
+    lam = (src - i0).astype(f)
+    a = np.zeros((n_out, n_in), f)
     np.add.at(a, (np.arange(n_out), i0), 1 - lam)
     np.add.at(a, (np.arange(n_out), np.minimum(i0 + 1, n_in - 1)), lam)
     return torch.from_numpy(a).to(device, dtype)
@@ -157,6 +158,21 @@ def resize_bilinear_band(x: torch.Tensor, h0: int, full_h: int, w0: int, full_w:
         lam = lam.reshape(shape)
         a, b = y.index_select(dim, i0), y.index_select(dim, i1)
         y = a + (b - a) * lam
+    return y.to(x.dtype).contiguous()
+
+
+def resize_bilinear_to_band(x: torch.Tensor, h0: int, h: int, full_h: int, w0: int, w: int,
+                            full_w: int, align_corners: bool = False) -> torch.Tensor:
+    """Rows [h0, h0 + h) and columns [w0, w0 + w) of the bilinear resize of
+    the whole (B, H', W', C) map x to (full_h, full_w): the band's rows of
+    each axis' resize matrix (`_bilinear_matrix`) applied to x, so a band of
+    the output needs no halo where every band holds x whole (PSP's pooled
+    bins, a few rows). Computed in float32 (float64 for float64 x), cast to
+    x's dtype; the result is NHWC-contiguous."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    a_h = _bilinear_matrix(x.shape[1], full_h, align_corners, x.device, acc)[h0:h0 + h]
+    a_w = _bilinear_matrix(x.shape[2], full_w, align_corners, x.device, acc)[w0:w0 + w]
+    y = torch.einsum("pw,bowc->bopc", a_w, torch.einsum("oh,bhwc->bowc", a_h, x.to(acc)))
     return y.to(x.dtype).contiguous()
 
 

@@ -25,6 +25,14 @@ never the world), their adjoints written out (`torch.autograd.Function`s):
   bands, not less.
 - `resize(x, out_hw, align_corners)`: the band's share of the whole map's
   bilinear upscale by an integer factor, from a one-row halo.
+- `resize_whole(x, band_hw, align_corners)`: the band's share of the
+  bilinear resize of a small map that every band holds whole (PSP's pooled
+  bins) to the whole map: local, no halo.
+- `halo(x, rows, cols, edge)`: `halo.halo_exchange` with `edge` past the
+  image's edge (-inf for the 3x3/2 max-pool).
+
+The pools that take `bands` (ops/pool.py: the global, adaptive and 3x3/2
+pools) build on `sum`, `amax` and `halo`.
 
 Under Gloo a CUDA tensor is staged through host memory, as `halo` stages
 its exchanges; the bytes each rank sends and the host seconds are counted
@@ -36,7 +44,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from ..ops.resize import resize_bilinear_band
+from ..ops.resize import resize_bilinear_band, resize_bilinear_to_band
 from .halo import STATS, _gather, _staged, _wait, halo_exchange
 
 
@@ -106,6 +114,11 @@ class Bands:
         self.place = (mesh.band_of("x"), mesh.band_of("y"))
         self.split = mesh.spatial_group is not None
 
+    def split_axes(self):
+        """(rows, cols): 1 on each axis the mesh splits, else 0."""
+        (_, nx), (_, ny) = self.place
+        return int(nx > 1), int(ny > 1)
+
     def full_hw(self, x: torch.Tensor):
         """(H, W) of the whole map of which x (B, h, w, C) is a band."""
         (_, nx), (_, ny) = self.place
@@ -154,3 +167,33 @@ class Bands:
         rows, cols = int(nx > 1 and sh > 1), int(ny > 1 and sw > 1)
         return resize_bilinear_band(halo_exchange(x, self.mesh, rows, cols), i * h, nx * h,
                                     j * w, ny * w, sh, sw, rows, cols, align_corners)
+
+    def resize_whole(self, x: torch.Tensor, band_hw, align_corners: bool) -> torch.Tensor:
+        """This band's share, (B, *band_hw, C), of the bilinear resize of x,
+        a whole map that every band holds alike, to the whole map of which
+        band_hw is a band (`resize_bilinear_to_band`: no halo). x's gradient
+        is this band's share: the sum over the bands comes from the
+        collective that made x the same on every band (`sum`)."""
+        (i, nx), (j, ny) = self.place
+        h, w = (int(v) for v in band_hw)
+        return resize_bilinear_to_band(x, i * h, h, nx * h, j * w, w, ny * w, align_corners)
+
+    def halo(self, x: torch.Tensor, rows: int, cols: int, edge: float = 0.0) -> torch.Tensor:
+        """`halo.halo_exchange(x, mesh, rows, cols)` with `edge` in place of
+        the zeros past the image's edge (the halo rows of the first and
+        last band); their gradient is dropped, as the exchange drops it."""
+        y = halo_exchange(x, self.mesh, rows, cols)
+        if edge == 0.0:
+            return y
+        (i, nx), (j, ny) = self.place
+        inside = torch.ones(y.shape[1:3], dtype=torch.bool, device=y.device)
+        if rows and i == 0:
+            inside[:rows] = False
+        if rows and i == nx - 1:
+            inside[-rows:] = False
+        if cols and j == 0:
+            inside[:, :cols] = False
+        if cols and j == ny - 1:
+            inside[:, -cols:] = False
+        return torch.where(inside[None, :, :, None], y, torch.full((), edge, dtype=y.dtype,
+                                                                  device=y.device))

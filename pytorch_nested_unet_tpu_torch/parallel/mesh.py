@@ -12,11 +12,13 @@ over a global batch B is the one-process step over B.
 
 Spatial partitioning ('x' over H, 'y' over W; the archs of SPATIAL_RULES:
 UNet, NestedUNet under any --remat mode, the attention U-Nets, the CRDN
-UNets with UNetRNNGhost and the dual-attention UNetRNNs, VGG16RNN and
-CA-Net): each rank of a 'data' row holds a band of its images, rows
+UNets with UNetRNNGhost and the dual-attention UNetRNNs, VGG16RNN, CA-Net,
+the ResNet*RNN and ResNet50UNet backbones, DoubleUnet and the PSP hybrids):
+each rank of a 'data' row holds a band of its images, rows
 [i*H/X, (i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y). Every stencil takes its
 neighbours' edge rows first (`halo.halo_exchange`, which XLA inserts itself
-under GSPMD), the BN moments are taken over every band of every data row
+under GSPMD), strided convs and the 3x3/2 pool too (`conv_halo`), the BN
+moments are taken over every band of every data row
 (the whole world), what attends or pools over the whole map takes the band
 collectives of its data row (bands.py: an all-gather of keys and values, an
 all-reduce of sums and maxima), channel dropout draws per data row, and the
@@ -78,34 +80,47 @@ class NothingSharded(ValueError):
     """A 'model' axis that shards none of the model's weights."""
 
 
-# The archs that run on bands, each with (pools, halo): the count of its 2x2
-# floor pools, so that H must be a multiple of 2**pools * x (and W of
-# 2**pools * y) for every band to stay whole and even through them and every
-# level to halve, and the widest halo a conv takes at its coarsest level, so
-# that a band there must hold at least that many rows (and columns):
-# `halo.halo_exchange` takes rows from the next band only. Every op of these
-# archs is local on a band after a halo, or takes a band collective: stride-1
-# convs (grouped ones too: the Ghost blocks' depthwise 3x3s, a halo of 1),
-# 2x2 floor pools, BNs over the world (`sync_batch_norm`), 2x align-corners
+# The archs that run on bands, each with (pools, halo): the count of its
+# halvings (2x2 floor pools, stride-2 convs and 3x3/2 pools), so that H
+# must be a multiple of 2**pools * x (and W of 2**pools * y) for every band
+# to stay whole and even through them and every level to halve, and the
+# widest halo a conv takes at its coarsest level, so that a band there must
+# hold at least that many rows (and columns): `halo.halo_exchange` takes rows
+# from the next band only. Every op of these archs is local on a band
+# after a halo, or takes a band collective: convs that map a band onto its
+# own output rows (`conv_halo`: stride-1 convs that keep the size, grouped
+# ones too, the ResNet stems' 7x7/2, their blocks' 3x3/2 and 1x1/2, kernel =
+# stride), 2x2 floor pools and the 3x3/2 pool (a halo of 1, -inf past the
+# image's edge), BNs over the world (`sync_batch_norm`), 2x align-corners
 # upsamples (a halo of 1), nearest 2x upsamples (none), the CRDN cell's carry
 # resize, which is a 2x align-corners upsample where every level halves,
-# CA-Net's half-pixel resizes by 2, 4 and 8 (a halo of 1: bands.py's
-# `Bands.resize`), its 2x2 stride-2 deconvs and a theta conv of kernel =
-# stride (none, on bands the stride divides), and what attends or pools
-# over the whole map (PAM, CAM, the non-local block, the grid gates' softmax,
-# the SE and channel gates: bands.py's all-gather and all-reduces). The CRDN
-# score blocks and VGG16RNN's are 5x5 convs (a halo of 2); UNetRNNGhost's are
-# Ghost bottlenecks (1x1 and depthwise 3x3 convs, a halo of 1). CA-Net's
+# half-pixel resizes by 2, 4 and 8 (a halo of 1: bands.py's `Bands.resize`),
+# 2x2 stride-2 deconvs, and what attends or pools over the whole map (PAM,
+# CAM, the non-local block, the grid gates' softmax, the SE and channel
+# gates, PSP's adaptive pools and the resize of their bins: bands.py). The
+# CRDN score blocks and VGG16RNN's are 5x5 convs (a halo of 2); UNetRNNGhost's
+# are Ghost bottlenecks (1x1 and depthwise 3x3 convs, a halo of 1). CA-Net's
 # non-local block pools its keys once more at its 3rd level, which the rule
-# keeps even (H / (8x) of a multiple of 16x).
+# keeps even (H / (8x) of a multiple of 16x). The ResNet trunks halve 4 times
+# (the 3x3/2 pool, layer2-4) and DoubleUnet 5 (its 7x7/2 stem too), 3x3
+# convs at the coarsest level; the PSP hybrids take UNetRNN's 4 pools with
+# its 5x5 score convs, whose 2 rows a band at 1/16 leave 4 at 1/8 for the
+# refinement trunk's dilation-4 convs. An RDC's gate convs take
+# kernel_size // 2 at the coarsest level, which `band_rule` reads off the
+# built model.
+_RESNET = {a: (4, 1) for a in ("ResNet18RNN", "ResNet34RNN", "ResNet50RNN", "ResNet101RNN",
+                               "ResNet152RNN", "ResNet50UNet")}
 SPATIAL_RULES = {"UNet": (4, 1), "NestedUNet": (4, 1), "AttU_Net": (4, 1), "R2U_Net": (4, 1),
                  "R2AttU_Net": (4, 1), "UNetRNN": (4, 2), "UNetRM3": (2, 2), "UNetRM7": (6, 2),
                  "UNetRNNGhost": (4, 1), "UNetRNNPAttention": (4, 2),
                  "UNetRNNCAttention": (4, 2), "UNetRNNAttention": (4, 2), "VGG16RNN": (4, 2),
-                 "Comprehensive_Atten_Unet": (4, 1)}
-QUEUED_ARCHS = ("ROADMAP.md queue 1, A11b a: the archs with size-changing convs (the ResNet "
-                "trunks, the PSP hybrids, DoubleUnet and DeepLab) are queued")
-QUEUED_DROPOUT = ("ROADMAP.md queue 1, A11b a: an element-wise dropout's mask on bands (the "
+                 "Comprehensive_Atten_Unet": (4, 1), **_RESNET, "DoubleUnet": (5, 1),
+                 "UNetRNNPSP": (4, 2), "UNetRNNCAttention_PSP": (4, 2)}
+QUEUED_ARCHS = ("ROADMAP.md queue 1, A11b a: ResNet50FCN (its classifier's valid 3x3 conv "
+                "and nearest resizes at non-integer ratios) and DeepLab (ASPP's dilations "
+                "wider than a band at 1/16, element-wise dropouts) wait on uneven and thin "
+                "bands, A11b b")
+QUEUED_DROPOUT = ("ROADMAP.md queue 1, A11b b: an element-wise dropout's mask on bands (the "
                   "whole image's draw cut to the band) is queued")
 QUEUED_BANDS = "ROADMAP.md queue 1, A11b b: uneven and thin bands are queued"
 
@@ -331,30 +346,47 @@ def batch_sharding(mesh: Mesh, global_batch: int, spatial: bool = False, hw=None
     return Band(rows, i * h, h, j * w, w, full_h, full_w)
 
 
-def check_spatial(arch: str, hw=None, mesh_shape: Optional[Dict[str, int]] = None):
+def check_spatial(arch: str, hw=None, mesh_shape: Optional[Dict[str, int]] = None,
+                  rule=None):
     """Raise ValueError unless `arch` can run under the 'x'/'y' axes: one of
     SPATIAL_RULES (any --remat mode of NestedUNet's), and, given the input
-    size `hw` and the mesh's shape, by its rule: H a multiple of
-    2**pools * x and W of 2**pools * y, and at the coarsest level a band of
-    at least `halo` rows on 'x' and columns on 'y' (where split)."""
+    size `hw` and the mesh's shape, by its rule (`rule`: the built model's,
+    `band_rule`; default the table's): H a multiple of 2**pools * x and W of
+    2**pools * y, and at the coarsest level a band of at least `halo` rows
+    on 'x' and columns on 'y' (where split)."""
     if arch not in SPATIAL_RULES:
         raise ValueError(f"spatial partitioning ('x'/'y') is ported for "
                          f"{', '.join(SPATIAL_RULES)}, not {arch} ({QUEUED_ARCHS})")
     if hw is None:
         return
-    pools, halo = SPATIAL_RULES[arch]
+    pools, halo = rule or SPATIAL_RULES[arch]
     h, w = (int(v) for v in hw)
     nx, ny = (mesh_shape.get(a, 1) for a in SPATIAL_AXES)
     mx, my = (2 ** pools) * nx, (2 ** pools) * ny
     if h % mx or w % my:
         raise ValueError(f"input {h}x{w}: every band must stay whole and even through "
-                         f"{arch}'s {pools} pools, so H must be a multiple of {2 ** pools} * x = "
-                         f"{mx} and W of {2 ** pools} * y = {my} ({QUEUED_BANDS})")
+                         f"{arch}'s {pools} halvings, so H must be a multiple of {2 ** pools} * "
+                         f"x = {mx} and W of {2 ** pools} * y = {my} ({QUEUED_BANDS})")
     rows, cols = h // mx, w // my
     if (nx > 1 and rows < halo) or (ny > 1 and cols < halo):
         raise ValueError(f"input {h}x{w}: {arch}'s coarsest level ({h >> pools}x{w >> pools}) "
                          f"leaves bands of {rows}x{cols} under {mesh_shape}, thinner than the "
                          f"halo of {halo} its convs take there ({QUEUED_BANDS})")
+
+
+def band_rule(module: torch.nn.Module) -> Tuple[int, int]:
+    """The band rule of a built model of SPATIAL_RULES, as `check_spatial`
+    takes it: its halvings at the depth it was built with (`_pools`), and the
+    table's coarsest halo, widened to its RDC's gate convs' (an option:
+    kernel_size // 2)."""
+    from ..models.rdc import RDC
+
+    halo = SPATIAL_RULES[type(module).__name__][1]
+    for cell in module.modules():
+        if isinstance(cell, RDC):
+            halo = max([halo] + [max(c.padding) for c in cell.modules()
+                                 if isinstance(c, TorchConv)])
+    return _pools(module), halo
 
 
 @torch.no_grad()
@@ -545,20 +577,24 @@ def load_full_state(module: torch.nn.Module, state):
 
 def conv_halo(conv: TorchConv, mesh) -> Tuple[int, int]:
     """(rows, cols) of halo `conv` takes on `mesh`'s partitioned 'x'/'y'
-    axes: padding * dilation, which a stride-1 conv that keeps the size
-    has, and none for a conv of kernel = stride without padding, whose
-    windows do not overlap (local wherever the band's size divides by the
-    stride, which a pre-hook holds). Raises ValueError for any other conv on
-    a partitioned axis."""
+    axes. A conv of kernel k, stride s, padding p and dilation d maps a band
+    of n rows (n and the band's first row multiples of s) onto exactly its
+    own n / s rows of the whole map's output iff d(k-1) + 1 - s <= 2p <=
+    d(k-1): a stride-1 conv that keeps the size (2p = d(k-1)), the ResNet
+    stems' 7x7/2 p3, their blocks' 3x3/2 p1 and 1x1/2 p0, kernel = stride
+    without padding. Its windows reach p rows above the band and d(k-1) - p
+    - s + 1 <= p below, so it takes a halo of p (none for kernel = stride)
+    and runs without padding on that axis; a strided one also checks that
+    its band divides by the stride (a pre-hook). Raises ValueError for any
+    other conv on a partitioned axis (a valid conv, whose output rows no
+    even cut of the bands holds)."""
     halo = []
     for axis, k, p, s, d in zip(SPATIAL_AXES, conv.weight.shape[2:], conv.padding,
                                 conv.stride, conv.dilation):
         if not mesh.partitioned(axis):
             halo.append(0)
-        elif s == 1 and (k - 1) * d == 2 * p:
+        elif d * (k - 1) + 1 - s <= 2 * p <= d * (k - 1):
             halo.append(p)
-        elif k == s and p == 0 and d == 1:
-            halo.append(0)
         else:
             raise ValueError(f"TorchConv (kernel {tuple(conv.weight.shape[2:])}, stride "
                              f"{conv.stride}, padding {conv.padding}) changes the size, so it "
@@ -581,8 +617,9 @@ def check_transposed_conv(conv: TorchConvTranspose, mesh):
 
 
 def _check_strides(m, args):
-    """Forward pre-hook of a conv of kernel = stride on bands: the band must
-    hold whole windows."""
+    """Forward pre-hook of a strided conv on bands: the band must divide by
+    the stride, so that it holds whole windows (kernel = stride) or its
+    first row is an output row's centre."""
     h, w = args[0].shape[1:3]
     if h % m.stride[0] or w % m.stride[1]:
         raise ValueError(f"a {h}x{w} band does not divide by the stride {m.stride} of its "
@@ -591,8 +628,11 @@ def _check_strides(m, args):
 
 def _give_halo(mesh, m, args):
     """Forward pre-hook: the input (a tensor, or a K4 node's parts) with the
-    module's halo of the neighbours' rows and columns."""
+    module's halo of the neighbours' rows and columns (a strided conv's
+    band checked first)."""
     x, rows, cols = args[0], *m.halo
+    if isinstance(m, TorchConv) and max(m.stride) > 1:
+        _check_strides(m, args)
     if isinstance(x, torch.Tensor):
         return (halo_exchange(x, mesh, rows, cols),)
     return (tuple(halo_exchange(p, mesh, rows, cols) for p in x),)
@@ -613,10 +653,19 @@ _HALO_HOOKS = weakref.WeakKeyDictionary()  # module -> its halo hook's handle
 
 
 def _pools(module: torch.nn.Module) -> int:
-    """The 2x2 pools of a model of SPATIAL_RULES at the depth it was built
-    with, one fewer than its levels: the attention U-Nets' `levels`, the
-    CRDN UNets' and CA-Net's `filters` (a width a level), VGG16RNN's
+    """The halvings of a model of SPATIAL_RULES at the depth it was built
+    with: the ResNet trunks' 3x3/2 pool and each of layer2-4 that holds a
+    block, DoubleUnet's stem, pool and 3 strided groups; else one fewer than
+    its levels: the attention U-Nets' `levels`, the CRDN UNets' (the PSP
+    hybrids' too) and CA-Net's `filters` (a width a level), VGG16RNN's
     `STAGES`; UNet and NestedUNet have 5."""
+    from ..models.crdn_backbones import _ResNetTrunk
+    from ..models.double_unet import DoubleUnet
+
+    if isinstance(module, _ResNetTrunk):
+        return 1 + sum(len(getattr(module, f"layer{s}")) > 0 for s in (2, 3, 4))
+    if isinstance(module, DoubleUnet):
+        return 1 + len(module.layers)
     levels = (getattr(module, "levels", None) or len(getattr(module, "filters", ()))
               or len(getattr(module, "STAGES", ())) or 5)
     return levels - 1
@@ -628,10 +677,12 @@ def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
     (K4), Upsample2x and CRDN cell (`models.rdc.RDC`, for its carry's
     resize) gets a forward pre-hook that gives its input its halo
     (`halo.halo_exchange`), and the (rows, cols) of that halo and, for an
-    upsample or a cell, the band's place as plain ints; a conv of kernel =
-    stride gets a pre-hook that checks its band holds whole windows; every
-    module that declares `bands` (attention, global pools, CA-Net's resizes)
-    gets a `bands.Bands` of the mesh. With None, on whole images again.
+    upsample or a cell, the band's place as plain ints; a strided conv's
+    pre-hook checks that its band divides by the stride; every module that
+    declares `bands` (attention, global and adaptive pools, the 3x3/2 pool,
+    the resizes of CA-Net, the ResNet decoders, DoubleUnet and the
+    refinement net) gets a `bands.Bands` of the mesh. With None, on whole
+    images again.
     Raises ValueError for another arch, a depth other than its rule's, an
     element-wise dropout that draws masks (channel dropout draws per data
     row, `sync_batch_norm`), or a conv or transposed conv that changes the
@@ -641,7 +692,7 @@ def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
         check_spatial(arch)
         if _pools(module) != SPATIAL_RULES[arch][0]:
             raise ValueError(f"{arch} with {_pools(module)} pools: its band rule holds for "
-                             f"{SPATIAL_RULES[arch][0]} ({QUEUED_ARCHS})")
+                             f"{SPATIAL_RULES[arch][0]} ({QUEUED_BANDS})")
     put_on_bands(module, mesh)
 
 

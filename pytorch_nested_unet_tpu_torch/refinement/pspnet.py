@@ -11,6 +11,15 @@ DataParallel prefixes): `feats.conv1`, `feats.bn1`,
 `up_1.conv.{0,2,3,5}`, `up_1.conv2.{0,2,3,5}`, `up_1.shortcut`,
 `final_28.{0,2}`, `final_56.{0,2}`, `final_11`, `final_21`.
 
+On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`, the PSP
+hybrids) the stem's 7x7/2, the strided and the dilated convs take their
+halo like any conv, and `bands` (a `parallel.bands.Bands`) on the trunk,
+the pyramid's pools, PSPModule, PSPUpsample and RefinementModule puts the
+3x3/2 pool, the adaptive pools (each band's share of every bin summed over
+the bands), the resize of the pooled bins (`Bands.resize_whole`) and the
+half-pixel x2 / x4 / x8 resizes (`Bands.resize`) on the band's rows of the
+whole map's.
+
 The BNs are the plain `BatchNorm` and the convs `TorchConv`: the JAX package
 runs this network in plain XLA, with no Pallas kernel, so here it is cuDNN
 and PyTorch's own ops. The passes share `feats`, `psp` and `up_1`; in train
@@ -41,6 +50,8 @@ class DilatedResNet50(nn.Module):
     each stage undilated. Returns (f, f_1, f_2) = (layer4's output at 1/8,
     the stem conv's output before its BN at 1/2, layer1's output at 1/4)."""
 
+    bands = None
+
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), in_channels: int = 6,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -59,7 +70,7 @@ class DilatedResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x_1 = self.conv1(x)
-        h = max_pool_3x3_s2_p1(torch.relu(self.bn1(x_1)))
+        h = max_pool_3x3_s2_p1(torch.relu(self.bn1(x_1)), self.bands)
         f_2 = self.layer1(h)
         f = self.layer4(self.layer3(self.layer2(f_2)))
         return f, x_1, f_2
@@ -67,20 +78,25 @@ class DilatedResNet50(nn.Module):
 
 class AdaptiveAvgPool(nn.Module):
     """`nn.AdaptiveAvgPool2d(size)` on NHWC: the parameter-free index 0 of a
-    PSP stage."""
+    PSP stage; with `bands`, the whole map's pool on every band."""
+
+    bands = None
 
     def __init__(self, size: int):
         super().__init__()
         self.size = size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return adaptive_avg_pool(x, (self.size, self.size))
+        return adaptive_avg_pool(x, (self.size, self.size), self.bands)
 
 
 class PSPModule(nn.Module):
     """Pyramid pooling at `sizes`, each a bias-free 1x1 conv resized back
     (half-pixel bilinear), concatenated with the input, a 1x1 bottleneck and
-    a ReLU (reference pspnet.py:8-26)."""
+    a ReLU (reference pspnet.py:8-26). With `bands` each pooled map is whole
+    on every band and is resized onto the band's rows."""
+
+    bands = None
 
     def __init__(self, features: int = 2048, out_features: int = 1024,
                  sizes: Sequence[int] = (1, 2, 3, 6), dtype: Optional[torch.dtype] = None):
@@ -93,8 +109,12 @@ class PSPModule(nn.Module):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         hw = feats.shape[1:3]
-        priors = [resize_bilinear(stage(feats), hw, align_corners=False)
-                  for stage in self.stages]
+        if self.bands is None:
+            priors = [resize_bilinear(stage(feats), hw, align_corners=False)
+                      for stage in self.stages]
+        else:
+            priors = [self.bands.resize_whole(stage(feats), hw, align_corners=False)
+                      for stage in self.stages]
         return torch.relu(self.bottleneck(torch.cat(priors + [feats], dim=-1)))
 
 
@@ -110,6 +130,8 @@ class PSPUpsample(nn.Module):
     and two residual conv stacks (reference pspnet.py:29-62). The first BN
     runs over the concatenation: x_channels + up_channels channels."""
 
+    bands = None
+
     def __init__(self, x_channels: int, up_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -118,7 +140,8 @@ class PSPUpsample(nn.Module):
         self.shortcut = TorchConv(x_channels, out_channels, 1, 0, dtype)
 
     def forward(self, x: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-        x = resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners=False)
+        x = resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners=False,
+                            bands=self.bands)
         p = self.conv(torch.cat([x, up], dim=-1)) + self.shortcut(x)
         return p + self.conv2(p)
 
@@ -147,6 +170,8 @@ class RefinementModule(nn.Module):
     PRNGKey(0).
     """
 
+    bands = None
+
     def __init__(self, dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None, in_channels: int = 3):
         super().__init__()
@@ -162,9 +187,9 @@ class RefinementModule(nn.Module):
         self.final_21 = TorchConv(32, 1, 1, 0, dtype)
         init_convs_(self, generator)
 
-    @staticmethod
-    def _up(y: torch.Tensor, k: int) -> torch.Tensor:
-        return resize_bilinear(y, (y.shape[1] * k, y.shape[2] * k), align_corners=False)
+    def _up(self, y: torch.Tensor, k: int) -> torch.Tensor:
+        return resize_bilinear(y, (y.shape[1] * k, y.shape[2] * k), align_corners=False,
+                               bands=self.bands)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor,
                 inter_s8: Optional[torch.Tensor] = None,

@@ -47,8 +47,8 @@ from ..losses import get_loss, get_weighted_loss, get_weighted_loss_sums
 from ..metrics import (accuracy_counts, accuracy_from_counts, iou_counts, iou_from_counts,
                        iou_score, iou_score_weighted, pixel_accuracy)
 from ..parallel.halo import gather_bands
-from ..parallel.mesh import (agree_over_model_, batch_sharding, full_weights, shard_train_step,
-                             spatial_partition)
+from ..parallel.mesh import (SPATIAL_AXES, agree_over_model_, band_rule, batch_sharding,
+                             check_spatial, full_weights, shard_train_step, spatial_partition)
 
 
 def _as_heads(outputs):
@@ -79,13 +79,18 @@ def _assert_equal_bands(images, mesh):
 
 
 class _Bands:
-    """The band a spatial step takes of its full-size batch, checked equal on
-    every rank at the first call."""
+    """The band a spatial step takes of its full-size batch. At the first
+    call the image size is held to the built model's band rule (its options
+    may widen a halo: `parallel.mesh.band_rule`) and the bands are checked
+    equal on every rank."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, model):
         self.mesh, self.checked = mesh, False
+        self.arch, self.rule = type(model).__name__, band_rule(model)
 
     def __call__(self, global_batch, images):
+        if not self.checked and any(self.mesh.partitioned(a) for a in SPATIAL_AXES):
+            check_spatial(self.arch, images.shape[1:3], self.mesh.shape, self.rule)
         band = batch_sharding(self.mesh, global_batch, spatial=True, hw=images.shape[1:3])
         images = band.take(images)
         if not self.checked:
@@ -120,7 +125,7 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
     bands = tp = None
     if mesh is not None:
         tp = shard_train_step(model, optimizer, mesh)
-        bands = _Bands(mesh) if mesh.spatial else None
+        bands = _Bands(mesh, model) if mesh.spatial else None
 
     def step(images_u8, masks_u8, generator) -> Dict[str, torch.Tensor]:
         model.train()
@@ -171,7 +176,7 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
     bands = None
     if mesh is not None and mesh.spatial:
         spatial_partition(model, mesh)
-        bands = _Bands(mesh)
+        bands = _Bands(mesh, model)
 
     @torch.no_grad()
     def eval_step(images_u8, masks_u8, weights) -> Dict[str, torch.Tensor]:

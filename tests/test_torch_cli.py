@@ -260,7 +260,7 @@ def test_folder_cli_exits_on_empty_or_small_sets(tmp_path):
     with pytest.raises(SystemExit, match="'pipe' mesh axis is not ported"):
         ptrain.main(base + ["--dataset", "small", "--mesh", "data=1,pipe=2"])
     for flags, match in ((["--mesh", "x=4"], "multiple of 16 \\* x = 64"),
-                         (["--mesh", "x=2", "--arch", "ResNet18RNN"], "not ResNet18RNN"),
+                         (["--mesh", "x=2", "--arch", "ResNet50FCN"], "not ResNet50FCN"),
                          (["--mesh", "x=2", "--arch", "UNetRNN"], "thinner than the halo of 2")):
         with pytest.raises(SystemExit, match=match + ".*ROADMAP.md"):
             ptrain.main(base + ["--dataset", "small"] + flags)

@@ -102,8 +102,8 @@ def test_one_process_mesh_and_its_refusals():
     # the levels of UNetRM7 at 96x96 (3 -> 1 rows), which do not halve
     with pytest.raises(ValueError, match="multiple of 16 \\* x = 64.*ROADMAP.md"):
         tmesh.check_spatial("UNet", (32, 32), {"x": 4})
-    with pytest.raises(ValueError, match="not ResNet18RNN.*ROADMAP.md"):
-        tmesh.check_spatial("ResNet18RNN", (32, 32), {"x": 2})
+    with pytest.raises(ValueError, match="not ResNet50FCN.*ROADMAP.md"):
+        tmesh.check_spatial("ResNet50FCN", (32, 32), {"x": 2})
     with pytest.raises(ValueError, match="multiple of 64 \\* x = 128.*ROADMAP.md"):
         tmesh.check_spatial("UNetRM7", (96, 96), {"x": 2})
     with pytest.raises(ValueError, match="needs 2 processes, have 1"):
