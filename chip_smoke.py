@@ -137,7 +137,7 @@
    two ranks on this card over Gloo, two processes of this script run as
    `--dp-worker`, each on its 8 rows against the one-process step);
 11i. spatial partitioning (`spatial_phase`, the 'x'/'y' mesh axes): on
-   this card over Gloo, NestedUNet wDS under data=1,x=2 (2 ranks, 3 steps)
+   this card over Gloo, NestedUNet wDS under data=1,x=2 (2 ranks, 2 steps)
    and UNet under x=2,y=2 (4 ranks, 1 step), full width, 96x96, global
    batch 16, fp32, each rank (`--spatial-worker`) against the one-process
    step (dp_phase's gates), 30 launches of K1 in its sums-only mode,
@@ -267,6 +267,9 @@ VGG16RNN_BN_PER_STEP = sum(n for *_, n in VGG16RNN_BN)  # 18
 # ResNet50RNN's K1-K3 run at its 5 score blocks only (its trunk's 53 BN
 # layers are plain F.batch_norm, as in the JAX package)
 RESNET_RNN_BN_PER_STEP = 5
+# UNetRM7's train step: two encoder BNs and a score block's BN at each of its
+# 7 levels (96 rows: 96, 48, 24, 12, 6, 3, 1)
+UNETRM7_BN_PER_STEP = 21
 # BN shapes of the other new archs that neither step above has: num_classes
 # 2 at level 0, RM7's level 0 and its 3x3 and 1x1 levels, RM3's level 1
 CRDN_EXTRA_BN = [("nc2", 2, SIZE), ("rm7_l0", 8, SIZE), ("rm3_l1", 72, SIZE >> 1),
@@ -637,7 +640,9 @@ def bn_kernels_per_call(bn, dev):
     level 0 (147,456 x 32), in each dtype, counted by torch.profiler; raises
     unless each is one. A window in which the profiler recorded no device
     event at all (CUPTI can drop a short window; launches and results are
-    checked elsewhere) is profiled again, up to 3 times."""
+    checked elsewhere) is profiled again, up to 8 times, half a second apart
+    (a card run has seen three empty windows in a row there, right after
+    the same profiler had traced the path phase)."""
     from torch.profiler import ProfilerActivity, profile
 
     _, c, rows, _ = BN_LEVELS[0]
@@ -652,7 +657,9 @@ def bn_kernels_per_call(bn, dev):
         for k, call in calls.items():
             call()
             torch.cuda.synchronize()
-            for _ in range(3):
+            for attempt in range(8):
+                if attempt:
+                    time.sleep(0.5)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     call()
                     torch.cuda.synchronize()
@@ -889,28 +896,27 @@ def k4_backward_phase(df, dev):
               f"{dev_plain_total:.4f} ms ({plain_total:.4f} ms per call)", flush=True)
 
 
-def synthetic_set(n, seed, size=SIZE):
-    """Seeded segmentation images (size x size): 1-3 rotated ellipses (the
-    mask) over a textured background, red rectangles as distractors, pixel
-    noise."""
+def synthetic_set(n, seed):
+    """Seeded segmentation images: 1-3 rotated ellipses (the mask) over a
+    textured background, red rectangles as distractors, pixel noise."""
     rng = np.random.default_rng(seed)
-    images = np.zeros((n, size, size, 3), np.uint8)
-    masks = np.zeros((n, size, size, 1), np.uint8)
-    yy, xx = np.mgrid[0:size, 0:size]
+    images = np.zeros((n, SIZE, SIZE, 3), np.uint8)
+    masks = np.zeros((n, SIZE, SIZE, 1), np.uint8)
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
     for i in range(n):
-        img = rng.integers(40, 120, (size, size, 3)).astype(np.float32)
-        m = np.zeros((size, size), bool)
+        img = rng.integers(40, 120, (SIZE, SIZE, 3)).astype(np.float32)
+        m = np.zeros((SIZE, SIZE), bool)
         for _ in range(int(rng.integers(1, 4))):
-            cy, cx = rng.integers(size // 6, size - size // 6, 2)
-            ry, rx = rng.integers(size // 12, size // 5, 2)
+            cy, cx = rng.integers(SIZE // 6, SIZE - SIZE // 6, 2)
+            ry, rx = rng.integers(SIZE // 12, SIZE // 5, 2)
             ang = rng.uniform(0, np.pi)
             u = (yy - cy) * np.cos(ang) + (xx - cx) * np.sin(ang)
             v = -(yy - cy) * np.sin(ang) + (xx - cx) * np.cos(ang)
             m |= (u / ry) ** 2 + (v / rx) ** 2 < 1.0
         img[m] += np.asarray([25, 60, 25], np.float32)
         if rng.random() < 0.7:
-            y0, x0 = rng.integers(0, size - size // 4, 2)
-            img[y0:y0 + size // 6, x0:x0 + size // 6] += np.asarray([70, 20, 20], np.float32)
+            y0, x0 = rng.integers(0, SIZE - SIZE // 4, 2)
+            img[y0:y0 + SIZE // 6, x0:x0 + SIZE // 6] += np.asarray([70, 20, 20], np.float32)
         img += rng.normal(0, 12, img.shape)
         images[i] = np.clip(img, 0, 255).astype(np.uint8)
         masks[i, ..., 0] = m * np.uint8(255)
@@ -2411,16 +2417,80 @@ def finish_bound_ms(c):
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
+# The band runs' BN rows, cut into bands (`halo.cut`): (C, the bands' row
+# boundaries) of UNetRM7 x=2's 1-row level (16 images: 0 and 16 rows, an
+# empty band) and its 3-row level (1 and 2 rows of 16 x 3), and NestedUNet
+# x=4's level 4 (6 rows cut 1/2/1/2 of 16 x 6)
+BAND_ROW_CASES = [(512, (0, 0, 16)), (256, (0, 48, 144)), (512, (0, 96, 288, 384, 576))]
+
+
+def bn_band_rows_check(bn, dev, dtype, gen):
+    """K1 (sums-only), K2 and K3 on each band of BAND_ROW_CASES, a band of
+    zero rows among them, against their plain versions: each band's sums
+    within SUM_TOL of their magnitude (a zero-row band's exactly zero), the
+    bands' sums added equal to the whole map's plain sums, K3 with n the
+    whole map's rows within BN_TOL. Returns {kernel: its largest error}."""
+    err = dict.fromkeys(("bn_stats", "bn_bwd_reduce", "bn_bwd_dx"), 0.0)
+    for c, cuts in BAND_ROW_CASES:
+        rows = cuts[-1]
+        what = f"band rows {DTYPE_NAME[dtype]} C={c} cuts={cuts}"
+        x = (torch.randn(rows, c, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+        dy = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+        gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+        beta = torch.rand(c, generator=gen, device=dev) * 0.6 - 0.3
+        xf, dyf = x.float(), dy.float()
+        _, _, mean, _, inv = bn.reference_bn_stats(xf)
+        total, red = torch.zeros(2, c, device=dev), torch.zeros(2, c, device=dev)
+        for lo, hi in zip(cuts, cuts[1:]):
+            xb, dyb = x[lo:hi].contiguous(), dy[lo:hi].contiguous()
+            sums = bn.bn_sums(xb)
+            part = bn.bn_bwd_reduce_sums(xb, dyb, mean, inv, gamma, beta)
+            torch.cuda.synchronize()
+            xbf = xb.float()
+            err["bn_stats"] = max(err["bn_stats"], _sum_err(
+                sums, bn.reference_bn_sums(xbf), [xbf.abs().sum(0), (xbf * xbf).sum(0)],
+                f"K1 sums-only {what} band {lo}:{hi}"))
+            xhat = (xbf - mean) * inv
+            dz = torch.where(gamma * xhat + beta > 0, dyb.float(), 0.0)
+            err["bn_bwd_reduce"] = max(err["bn_bwd_reduce"], _sum_err(
+                part, bn.reference_bn_bwd_reduce(xbf, dyb.float(), mean, inv, gamma, beta),
+                [dz.abs().sum(0), (dz * xhat).abs().sum(0)], f"K2 {what} band {lo}:{hi}"))
+            if hi == lo and (sums.any() or part.any()):
+                raise AssertionError(f"{what}: a zero-row band's sums are not zero")
+            total, red = total + sums, red + part
+        _sum_err(total, bn.reference_bn_sums(xf), [xf.abs().sum(0), (xf * xf).sum(0)],
+                 f"K1 sums-only {what}: the bands' sums added")
+        for lo, hi in zip(cuts, cuts[1:]):
+            xb, dyb = x[lo:hi].contiguous(), dy[lo:hi].contiguous()
+            dx = bn.bn_bwd_dx(xb, dyb, mean, inv, gamma, beta, red[0], red[1], rows)
+            ref = bn.reference_bn_bwd_dx(xb.float(), dyb.float(), mean, inv, gamma, beta,
+                                         red[0], red[1], rows)
+            torch.cuda.synchronize()
+            if dx.shape != xb.shape:
+                raise AssertionError(f"K3 {what} band {lo}:{hi}: dx {tuple(dx.shape)}")
+            if hi > lo:
+                err["bn_bwd_dx"] = max(err["bn_bwd_dx"], _max_err(
+                    [dx], [ref], BN_TOL[dtype][1], f"K3 {what} band {lo}:{hi}"))
+    print(f"K1 sums-only, K2, K3 on band rows {DTYPE_NAME[dtype]}: {len(BAND_ROW_CASES)} cuts "
+          f"{[cuts for _, cuts in BAND_ROW_CASES]}, zero-row bands included, against their "
+          f"plain versions: max abs err K1 {err['bn_stats']:.3g}, K2 {err['bn_bwd_reduce']:.3g}, "
+          f"K3 {err['bn_bwd_dx']:.3g}", flush=True)
+    return err
+
+
 def bn_finish_phase(bn, dev):
     """The data-parallel split of K1 on the card, at NestedUNet's training-step
     shapes and the ragged ones, both dtypes: K1's sums-only launch against the
     plain sums (SUM_TOL); the sums-only launch plus bn_finish on its sums
     equal to one K1 call bit for bit, running statistics included; bn_finish
     at a global n = 2 * rows against its plain version (BN_TOL) and K3 at
-    that n against its plain version. Then bn_finish over the 30 instances of
-    a NestedUNet step in one CUDA graph against its plain version and its
-    bound. Returns {dtype: summary} (bn_finish reads float32 sums whatever the
-    activations' dtype: the times are one measurement, the errors per dtype)."""
+    that n against its plain version; K1 (sums-only), K2 and K3 on the band
+    runs' unequal and zero-row bands (`bn_band_rows_check`). Then bn_finish
+    over the 30 instances of a NestedUNet step in one CUDA graph against its
+    plain version and its bound. Returns {dtype: summary} (bn_finish reads
+    float32 sums whatever the activations' dtype: the times are one
+    measurement, the errors per dtype; "band_rows": K1-K3's errors on the
+    band rows, which the kernels line gives K1-K3)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     out = {}
@@ -2458,7 +2528,8 @@ def bn_finish_phase(bn, dev):
                                             dg, 2 * rows)
             torch.cuda.synchronize()
             _max_err([dx], [ref_dx], dx_tol, f"K3 at n = 2 * rows {what}")
-        out[dtype] = {"max_abs_err": err}
+        out[dtype] = {"max_abs_err": err,
+                      "band_rows": bn_band_rows_check(bn, dev, dtype, gen)}
     insts = []
     for c, _, n in BN_STEPS["NestedUNet"]:
         for _ in range(n):
@@ -2512,8 +2583,8 @@ DP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "c
 DP_RANKS = 2
 
 
-def _dp_batch(n=BATCH, size=SIZE):
-    x, y = synthetic_set(64, seed=10, size=size)
+def _dp_batch(n=BATCH):
+    x, y = synthetic_set(64, seed=10)
     return np.resize(x, (n, *x.shape[1:])), np.resize(y, (n, *y.shape[1:]))
 
 
@@ -2644,19 +2715,19 @@ MOVEMENT_READINGS = (("weights", 12), ("weights", 13), ("weights", 14), ("order"
 GATE_FACTOR = 4
 
 
-def _dp_reference(device="cuda", arch="NestedUNet", size=SIZE, with_floor=False, spread=True):
+def _dp_reference(device="cuda", arch="NestedUNet", with_floor=False, spread=True):
     """The non-distributed fp32 step over the global batch of 16 (augment
     none) and how far it moves: against itself run again (it is not
     deterministic on the card: bilinear upsampling's backward adds with
     atomics) and under each of MOVEMENT_READINGS ("weights", seed: every
     weight moved by 1e-7 N(0, 1) from that seed; "order", seed: the batch
-    permuted by that seed), on images of `size` x `size`. Returns (result,
+    permuted by that seed). Returns (result,
     {gradient: run-to-run spread}, {gradient: its largest movement},
     {reading: {gradient: movement}}); `with_floor`: and (the loss's, the
     running statistics' largest movement over the readings), for a step
     whose loss and statistics are chaotic too (STEP_FLOOR_RUNS); without
     `spread`, None in place of the spread (one step fewer)."""
-    x, y = _dp_batch(size=size)
+    x, y = _dp_batch()
 
     def run(order=None, **build):
         idx = np.arange(BATCH) if order is None else np.random.default_rng(order).permutation(BATCH)
@@ -3132,10 +3203,17 @@ def dp_cards(world):
 # its channel dropout on at 0.5, drawn per data row: the run asserts that
 # both bands and the one-process step draw the same masks); ResNet50RNN's 5
 # score blocks (its trunk's strided convs and 3x3/2 pool on bands, its BNs
-# plain); DoubleUnet's plain BNs none, at 128x128 (a 7th field: the input's
-# size; its 5 halvings need H a multiple of 64 at x=2); UNetRNNPSP's 15 in
-# its UNetRNN trunk (the refinement net's BNs plain, its adaptive pools
-# summed over the bands). On one card over Gloo
+# plain); DoubleUnet's plain BNs none (its 3 rows at 1/32 cut
+# 1/2); UNetRNNPSP's 15 in its
+# UNetRNN trunk (the refinement net's BNs plain, its adaptive pools summed
+# over the bands); and on the bands that the maps' rows do not divide
+# evenly: NestedUNet wDS under x=4 (4 ranks; its 6 rows at 1/16 cut
+# 1/2/1/2), UNetRM7's 21 (its 1-row level leaves rank 0 an empty band, on
+# which K1-K3 launch on zero rows), ResNet50FCN (plain BNs; its valid 3x3
+# classifier and nearest resizes at non-integer ratios) and DeepLab (plain
+# BNs; bands of 3 rows at 1/16 under dilations up to 18, its element-wise
+# dropouts on, each band's masks the one-process masks cut to the band).
+# On one card over Gloo
 # (NCCL refuses two ranks on one device); `--dp-cards 4` adds data=2,x=2
 # over NCCL, a card a rank. Each gradient is held as dp_ranks holds it
 # (GATE_FACTOR x its largest movement over MOVEMENT_READINGS, and under
@@ -3147,10 +3225,10 @@ def dp_cards(world):
 # peak memory in both. data=2,x=2 over NCCL exceeds its gate by 4% at one
 # level-3 gradient (ROADMAP.md queue 3, F3).
 SPATIAL_RUNS = {
-    "NestedUNet x=2": ("NestedUNet", "data=1,x=2", 2, 3, DP_LAUNCHES, "none"),
+    "NestedUNet x=2": ("NestedUNet", "data=1,x=2", 2, 2, DP_LAUNCHES, "none"),
     "UNet x=2,y=2": ("UNet", "x=2,y=2", 4, 1, {**bn_want(18, 18), "multipart_conv3x3": 4},
                      "none"),
-    "NestedUNet data=2,x=2": ("NestedUNet", "data=2,x=2", 4, 3, DP_LAUNCHES, "none"),
+    "NestedUNet data=2,x=2": ("NestedUNet", "data=2,x=2", 4, 2, DP_LAUNCHES, "none"),
     "AttU_Net x=2": ("AttU_Net", "data=1,x=2", 2, 2, {**bn_want(0), "multipart_conv3x3": 0},
                      "none"),
     "UNetRNN x=2": ("UNetRNN", "data=1,x=2", 2, 2,
@@ -3172,23 +3250,26 @@ SPATIAL_RUNS = {
                         {**bn_want(RESNET_RNN_BN_PER_STEP, RESNET_RNN_BN_PER_STEP),
                          "multipart_conv3x3": 0}, "none"),
     "DoubleUnet x=2": ("DoubleUnet", "data=1,x=2", 2, 2, {**bn_want(0), "multipart_conv3x3": 0},
-                       "none", 128),
+                       "none"),
     "UNetRNNPSP x=2": ("UNetRNNPSP", "data=1,x=2", 2, 2,
                        {**bn_want(UNETRNN_BN_PER_STEP, UNETRNN_BN_PER_STEP),
                         "multipart_conv3x3": 0}, "none"),
+    "NestedUNet x=4": ("NestedUNet", "data=1,x=4", 4, 2, DP_LAUNCHES, "none"),
+    "UNetRM7 x=2": ("UNetRM7", "data=1,x=2", 2, 2,
+                    {**bn_want(UNETRM7_BN_PER_STEP, UNETRM7_BN_PER_STEP),
+                     "multipart_conv3x3": 0}, "none"),
+    "ResNet50FCN x=2": ("ResNet50FCN", "data=1,x=2", 2, 2,
+                        {**bn_want(0), "multipart_conv3x3": 0}, "none"),
+    "DeepLab x=2": ("DeepLab", "data=1,x=2", 2, 2, {**bn_want(0), "multipart_conv3x3": 0},
+                    "none"),
 }
-
-
-def _run_size(run):
-    """The input's height and width of a spatial run: its 7th field, else
-    SIZE."""
-    return SPATIAL_RUNS[run][6] if len(SPATIAL_RUNS[run]) > 6 else SIZE
 
 
 # the runs whose one-process step's peak device memory is printed beside the
 # band step's a rank (a band's PAM energy is (h*w) x (H*W) per image)
 PEAK_RUNS = ("VGG16RNN x=2", "UNetRNNAttention x=2", "Comprehensive_Atten_Unet x=2",
-             "ResNet50RNN x=2", "DoubleUnet x=2", "UNetRNNPSP x=2")
+             "ResNet50RNN x=2", "DoubleUnet x=2", "UNetRNNPSP x=2", "UNetRM7 x=2",
+             "ResNet50FCN x=2", "DeepLab x=2")
 SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
                             "spatial")
 # The band runs whose workers also step under MOVEMENT_READINGS' weight
@@ -3205,25 +3286,43 @@ SPATIAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs
 BAND_READINGS = {"NestedUNet data=2,x=2": (12, 13, 14), "AttU_Net x=2": (12, 13, 14),
                  "UNetRNN x=2": (12, 13, 14), **{run: (12, 13, 14) for run in PEAK_RUNS}}
 BAND_GATED = {"AttU_Net x=2", "UNetRNN x=2", *PEAK_RUNS}
+# The band runs whose maps leave empty bands, and the ranks that hold one:
+# UNetRM7's 1-row level over 2 bands, cut 0/1
+EMPTY_BAND_RUNS = {"UNetRM7 x=2": (0,)}
 # The band runs whose loss and running statistics are chaotic too, and so
 # are held to 1e-5 or GATE_FACTOR x their largest movement (the one-process
 # readings' and the band step's own): UNetRNNPSP's refinement cascade at
 # init, whose gradients move by up to 8.6x their norm under a 1e-7 weight
-# change on the card, as cpu_step_phase's `step_floor` holds its step
-STEP_FLOOR_RUNS = {"UNetRNNPSP x=2"}
+# change on the card, as cpu_step_phase's `step_floor` holds its step; and
+# DeepLab, whose card step cpu_step_phase holds so too (its band step's
+# running statistics sat 1.55e-5 off the one-process step's in a card run)
+STEP_FLOOR_RUNS = {"UNetRNNPSP x=2", "DeepLab x=2"}
 
 
 def _spatial_slug(run):
     return run.replace(" ", "_").replace(",", "_")
 
 
+def _lanes(runs, world):
+    """{run: the first of the consecutive ranks it runs on}: a run of the
+    whole world on all of them, the smaller runs dealt in turn to the
+    world's groups of their size (2-rank runs on ranks 0-1 and 2-3 at once:
+    the band steps wait on the host, so two of them share the card)."""
+    lanes, dealt = {}, {}
+    for run in runs:
+        ranks = SPATIAL_RUNS[run][2]
+        k = dealt.get(ranks, 0)
+        lanes[run], dealt[ranks] = (k % (world // ranks)) * ranks, k + 1
+    return lanes
+
+
 def spatial_worker(rank, world, port, out_dir, backend, device, runs):
     """One rank of one or more spatial runs (SPATIAL_RUNS' entries named in
-    `runs`, ';'-joined, in order; a run of fewer ranks than the world takes
-    the first ranks): the fp32 step of the full-width arch (augment none,
-    TF32 off) on this rank's band of its rows of the global batch of 16 at
-    96x96, its launches and halo statistics, then the rest of the run's
-    steps timed. Written to <run>_rank<rank>.pt."""
+    `runs`, ';'-joined, in order; a run of fewer ranks than the world on its
+    lane's ranks, `_lanes`): the fp32 step of the full-width arch (augment
+    none, TF32 off) on this rank's band of its rows of the global batch of
+    16 at 96x96, its launches and halo statistics, then the rest of the
+    run's steps timed. Written to <run>_rank<rank in the run>.pt."""
     import torch.distributed as dist
 
     from pytorch_nested_unet_tpu_torch.ops import decoder_fusion as df
@@ -3239,15 +3338,22 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
     initialize_distributed(backend=backend, device=dev, world_size=world, rank=rank,
                            init_method=f"tcp://127.0.0.1:{port}")
     try:
-        for run in runs.split(";"):
+        runs = runs.split(";")
+        lanes, groups = _lanes(runs, world), {}
+        # every rank creates every group, in one order (new_group is collective)
+        for size in sorted({SPATIAL_RUNS[run][2] for run in runs}):
+            for start in range(0, world, size):
+                groups[size, start] = (dist.group.WORLD if size == world
+                                       else dist.new_group(list(range(start, start + size))))
+        for run in runs:
             arch, spec, ranks, steps, _, remat = SPATIAL_RUNS[run][:6]
-            # every rank creates every group (new_group is collective)
-            group = dist.group.WORLD if ranks == world else dist.new_group(list(range(ranks)))
-            if rank >= ranks:
+            lane = lanes[run]
+            if not lane <= rank < lane + ranks:
                 continue
+            group = groups[ranks, lane]
             names, sizes = parse_mesh_spec(spec)
             mesh = make_mesh(sizes, names, group=group)
-            x, y = _dp_batch(size=_run_size(run))
+            x, y = _dp_batch()
             rows = batch_sharding(mesh, BATCH)
             batch = (torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
             out = {}
@@ -3262,12 +3368,14 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                 gc.collect()
             m, step = _dp_build(mesh, device=dev, arch=arch, remat=remat)
             drawn = _record_masks(m)
+            empty = _EmptyBandBNs(m)
             reset_counts(bn, df)
             halo.reset_stats()
             with deterministic() if remat != "none" else contextlib.nullcontext():
                 result, out["peak"] = _peak_step(m, step, batch, dev)
             first, stats = launch_counts(bn, df), dict(halo.STATS)
             out["masks"] = {name: d[0] for name, d in drawn.items()}
+            out["empty_bn"] = empty.close()
             halo.reset_stats()
             times = []
             for _ in range(steps - 1):
@@ -3298,7 +3406,7 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                 # the band step's own movement under MOVEMENT_READINGS' weight
                 # changes, against its own unperturbed step, and for the runs
                 # of FLIP_READINGS that step once more on a fresh model
-                # (ROADMAP.md F3); rank 0 keeps the steps to hold them
+                # (ROADMAP.md F3); the run's first rank keeps the steps to hold them
                 # against the one-process step too
                 out["band_readings"], kept = {}, {}
                 again = [("again", {})] if run in FLIP_READINGS else []
@@ -3308,12 +3416,35 @@ def spatial_worker(rank, world, port, out_dir, backend, device, runs):
                     kept[label] = _dp_result(m, step(*batch, torch.Generator(dev).manual_seed(0)))
                     out["band_readings"][label] = _dp_rel(kept[label], result)
                     del m, step
-                if rank == 0:
+                if rank == lane:
                     out["band_steps"] = kept
-            torch.save(out, os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank}.pt"))
+            torch.save(out, os.path.join(out_dir, f"{_spatial_slug(run)}_rank{rank - lane}.pt"))
     finally:
         dist.destroy_process_group()
     return 0
+
+
+class _EmptyBandBNs:
+    """The FusedBatchNormReLU forwards of a model on zero rows (a band of
+    a map with fewer rows than bands): each launches K1 (sums-only) on
+    zero rows, and its backward K2 and K3. `close()` removes the hooks and
+    returns the count."""
+
+    def __init__(self, m):
+        from pytorch_nested_unet_tpu_torch.ops.fused_bn import FusedBatchNormReLU
+
+        self.n = 0
+        self.handles = [mod.register_forward_pre_hook(self._seen) for mod in m.modules()
+                        if isinstance(mod, FusedBatchNormReLU)]
+
+    def _seen(self, mod, args):
+        if mod.training and args[0].numel() == 0:
+            self.n += 1
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+        return self.n
 
 
 def _peak_step(m, step, batch, dev):
@@ -3387,8 +3518,11 @@ def spatial_ranks(runs, backend, references, card, extras=None, floors=None, pre
             if r["launches"] != want:
                 raise AssertionError(f"spatial {run} rank {rank}: launches {r['launches']} per "
                                      f"step, expected {want}")
+            if run in EMPTY_BAND_RUNS and rank in EMPTY_BAND_RUNS[run] and not r["empty_bn"]:
+                raise AssertionError(f"spatial {run} rank {rank}: no BN ran on an empty band")
             if extra is not None:
-                _hold_masks(run, rank, r["masks"], extra["masks"], card)
+                _hold_masks(run, rank, r["masks"], extra["masks"], card,
+                            (rank % SPATIAL_RUNS[run][2], SPATIAL_RUNS[run][2]))
             if "band_steps" in r:
                 _print_band_readings(run, r, plain, gate, movement, readings, card)
             if "none_result" in r:
@@ -3400,21 +3534,26 @@ def spatial_ranks(runs, backend, references, card, extras=None, floors=None, pre
             later = [f" ({st[k] * 1e3:.1f} a later step)" if st else ""
                      for k in ("halo_s", "gather_s", "allgather_s", "allreduce_s")]
             print(f"spatial {run} rank {rank} of {ranks} ({r['backend']}, {arch} full width, "
-                  f"global batch {BATCH} at {_run_size(run)}x{_run_size(run)}, fp32), one step "
+                  f"global batch {BATCH} at {SIZE}x{SIZE}, fp32), one step "
                   f"against the one-process step: loss off by {loss_err:.3g} ({loss_tol:.3g}), "
                   f"running stats by {stats_err:.3g} ({stats_tol:.3g}), gradient nearest its "
                   f"gate {worst} at {rel:.3g} (gate {tol:.3g}: 1e-4 or {GATE_FACTOR}x its largest reading; readings "
                   f"{_readings_of(readings, worst)}) | "
                   f"launches per step {r['launches']} | per step: halo "
                   f"{h['halo_bytes'] / 1e6:.3f} MB sent, {h['halo_s'] * 1e3:.1f} host ms in "
-                  f"halo_exchange the first step{later[0]}, gather_bands "
+                  f"halo.fetch the first step{later[0]}, gather_bands "
                   f"{h['gather_bytes'] / 1e6:.3f} MB, {h['gather_s'] * 1e3:.1f} host ms"
                   f"{later[1]}, keys' all-gathers {h['allgather_bytes'] / 1e6:.3f} MB, "
                   f"{h['allgather_s'] * 1e3:.1f} host ms{later[2]}, band all-reduces "
                   f"{h['allreduce_bytes'] / 1e6:.3f} MB, {h['allreduce_s'] * 1e3:.1f} host ms"
-                  f"{later[3]} | step p50 {p50} of {steps - 1} after the first"
+                  f"{later[3]} | K1, K2 and K3 launches on zero rows a step "
+                  f"{r['empty_bn']} of {want['bn_stats']} | step p50 {p50} of {steps - 1} "
+                  f"after the first"
                   + (" (a correctness run: Gloo stages every halo through host memory)"
                      if r["backend"] == "gloo" else "")
+                  + (" (contended: the 2-rank runs run two at once on the card and the "
+                     "host, `_lanes`; not comparable with a run alone, which "
+                     "band_step_time.py times)" if ranks < world else "")
                   + f" | peak device memory of the first step {r['peak']:.1f} MiB a rank"
                   + (f" (one process over the global batch: {extra['peak']:.1f} MiB)"
                      if extra is not None else "")
@@ -3423,12 +3562,11 @@ def spatial_ranks(runs, backend, references, card, extras=None, floors=None, pre
     return results
 
 
-def _one_process_extras(arch, device="cuda", size=SIZE):
-    """The one-process step's (_dp_build's, over the global batch of `size`
-    x `size` images) peak device memory in MiB and its dropouts' masks
-    (`_record_masks`): what spatial_ranks prints beside a band run's peak
-    and holds its masks to."""
-    x, y = _dp_batch(size=size)
+def _one_process_extras(arch, device="cuda"):
+    """The one-process step's (_dp_build's, over the global batch) peak
+    device memory in MiB and its dropouts' masks (`_record_masks`): what
+    spatial_ranks prints beside a band run's peak and holds its masks to."""
+    x, y = _dp_batch()
     m, step = _dp_build(device=device, arch=arch)
     drawn = _record_masks(m)
     _, peak = _peak_step(m, step, (torch.from_numpy(x).to(device),
@@ -3438,22 +3576,29 @@ def _one_process_extras(arch, device="cuda", size=SIZE):
     return {"peak": peak, "masks": {name: d[0] for name, d in drawn.items()}}
 
 
-def _hold_masks(run, rank, got, want, card):
+def _hold_masks(run, rank, got, want, card, band=(0, 1)):
     """A band rank's dropout masks of its first step against the one-process
-    step's over the global batch (a data=1 run: every rank holds every row):
-    the same dropouts, each mask equal, so both bands drop the same
-    channels as one process does."""
+    step's over the global batch (a data=1 run over 'x': every rank holds
+    every row; `band` = (this rank's 'x' index, the band count)): the same
+    dropouts, each mask equal to the one-process mask cut to the band's
+    rows of its map (a channel dropout's mask has no rows: the same on every
+    band), so the bands drop what one process drops."""
+    from pytorch_nested_unet_tpu_torch.parallel.halo import cut
+
     if sorted(got) != sorted(want):
         raise AssertionError(f"spatial {run} rank {rank}: dropouts {sorted(got)}, the "
                              f"one-process step's {sorted(want)}")
     for name, mask in got.items():
-        if mask.shape != want[name].shape or not torch.equal(mask, want[name]):
+        whole = want[name]
+        c = cut(whole.shape[1], band[1])
+        mine = whole if whole.shape[1] == 1 else whole[:, c[band[0]]:c[band[0] + 1]]
+        if mask.shape != mine.shape or not torch.equal(mask, mine):
             raise AssertionError(f"spatial {run} rank {rank}: {name}'s mask differs from the "
-                                 f"one-process step's")
+                                 f"one-process step's cut to the band")
     if got:
         kept = {n: f"{int(m.sum())}/{m.numel()}" for n, m in got.items()}
-        print(f"spatial {run} rank {rank}: channel dropout masks equal to the one-process "
-              f"step's (kept {kept}) | card: {card}", flush=True)
+        print(f"spatial {run} rank {rank}: dropout masks equal to the one-process step's cut "
+              f"to the band (kept {kept}) | card: {card}", flush=True)
 
 
 def _hold_remat_band(run, rank, r, card):
@@ -3524,7 +3669,9 @@ class ActivationRecord:
         self.z[name] = z.abs().float().reshape(out.shape)
         out.register_hook(lambda g: self.dy.__setitem__(name, g.detach().float()))
 
-    def _pool_hook(self, x):
+    def _pool_hook(self, x, bands=None):
+        if bands is not None:  # the window of the band's output rows (Bands.window)
+            x = bands.window(x, (2, 2), (2, 2), (0, 0), (1, 1))
         b, h, w, c = x.shape
         win = x.detach().reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
         top = win.reshape(b, h // 2, w // 2, c, 4).topk(2, -1).values
@@ -3715,7 +3862,9 @@ class ForcedChoices:
         delta[b, h, w, c] = (-(z + torch.sign(z) * z.abs().clamp_min(1e-6)) / scale).to(x.dtype)
         return (x + delta,)
 
-    def _pool_hook(self, x):
+    def _pool_hook(self, x, bands=None):
+        if bands is not None:  # the window of the band's output rows (Bands.window)
+            x = bands.window(x, (2, 2), (2, 2), (0, 0), (1, 1))
         level, self.calls = self.calls, self.calls + 1
         if level in self.pools and len(self.pools[level][0]):
             (b, h, w, c), choice = self.pools[level][0].unbind(1), self.pools[level][1].long()
@@ -3816,33 +3965,35 @@ def spatial_cli(world, spec, card, gloo):
 def spatial_phase(bn, df, card, reference):
     """Spatial partitioning on the one card over Gloo: UNet under x=2,y=2 (4
     ranks, 1 step, the corners), NestedUNet wDS under data=1,x=2 (2 of the
-    same ranks, 3 steps; `reference`: its one-process step from
-    _dp_reference), then on the same 2 ranks AttU_Net and UNetRNN (GRU)
-    under x=2, NestedUNet wDS under x=2 with --remat full and policy, and
+    same ranks, 2 steps; `reference`: its one-process step from
+    _dp_reference), then on two ranks at a time (ranks 0-1 and 2-3 take
+    the 2-rank runs in turn, `_lanes`) AttU_Net and UNetRNN (GRU) under x=2, NestedUNet wDS under x=2 with --remat full and policy, and
     VGG16RNN, UNetRNNAttention, CA-Net (dropout on), ResNet50RNN, DoubleUnet
-    (128x128) and UNetRNNPSP under x=2 (a checked step and a timed one
+    and UNetRNNPSP under x=2 (a checked step and a timed one
     each), each rank against the one-process step
     (`spatial_ranks`; the remat runs also against the band step without
     remat; the last six with their peak memory beside the one-process
-    step's and CA-Net's masks against its), then `train --mesh x=2` over 2
-    processes (`spatial_cli`). Returns {"fp32": launches} of every rank's
-    steps."""
+    step's and CA-Net's masks against its); NestedUNet wDS under x=4
+    on the 4 ranks, and UNetRM7, ResNet50FCN and DeepLab (dropout on, its
+    masks against the one-process step's) under x=2, on bands that the maps'
+    rows do not divide evenly (DoubleUnet at 96x96 too); then `train --mesh
+    x=2` over 2 processes (`spatial_cli`). Returns {"fp32": launches} of
+    every rank's steps."""
     t0 = time.perf_counter()
     totals = {**bn_want(0), "multipart_conv3x3": 0}
-    # the 4-rank run first: the 2-rank runs' group is then made by all 4
-    runs = ["UNet x=2,y=2", "NestedUNet x=2", "AttU_Net x=2", "UNetRNN x=2",
+    # the 4-rank runs first; then the 2-rank runs, two at a time (`_lanes`)
+    runs = ["UNet x=2,y=2", "NestedUNet x=4", "NestedUNet x=2", "AttU_Net x=2", "UNetRNN x=2",
             "NestedUNet x=2 remat full", "NestedUNet x=2 remat policy", *PEAK_RUNS]
 
     def prepare():
         """The one-process references (their run-to-run spread unused
         here), extras and floors, computed while the band runs run."""
         references = {run: reference if SPATIAL_RUNS[run][0] == "NestedUNet" else
-                      _dp_reference(arch=SPATIAL_RUNS[run][0], size=_run_size(run),
+                      _dp_reference(arch=SPATIAL_RUNS[run][0],
                                     with_floor=run in STEP_FLOOR_RUNS, spread=False)
                       for run in runs}
         floors = {run: references[run][4] for run in STEP_FLOOR_RUNS}
-        extras = {run: _one_process_extras(SPATIAL_RUNS[run][0], size=_run_size(run))
-                  for run in PEAK_RUNS}
+        extras = {run: _one_process_extras(SPATIAL_RUNS[run][0]) for run in PEAK_RUNS}
         return {run: ref[:4] for run, ref in references.items()}, extras, floors
 
     for outs in spatial_ranks(runs, "gloo", None, card, prepare=prepare).values():
@@ -4365,7 +4516,8 @@ def main():
             "unetrnn_step": {"launches": unetrnn_train[DTYPE_NAME[dtype]][fn],
                              **{key: bnk[(k, dtype, "UNetRNN")][key] for key in timed}},
             "vgg16rnn_step": {"launches": vgg_train[DTYPE_NAME[dtype]][fn],
-                              **{key: bnk[(k, dtype, "VGG16RNN")][key] for key in timed}}}
+                              **{key: bnk[(k, dtype, "VGG16RNN")][key] for key in timed}},
+            "band_rows": {"max_abs_err": finish[dtype]["band_rows"][fn]}}
         if dtype == torch.float32:
             entry["remat_step"] = {mode: c[fn] for mode, c in remat.items()}
         if dtype == torch.bfloat16:  # the CLI path: NestedUNet's training-step shapes
@@ -4387,6 +4539,8 @@ def main():
           "forward; bn_* sums over the 30 BN instances of one batch-16 NestedUNet training "
           "step (unetrnn_step: the 15 of a UNetRNN step, its launches those of UNetRNN's fit; "
           "vgg16rnn_step: the 18 of a VGG16RNN step, its launches those of VGG16RNN's fit; "
+          "band_rows: K1 sums-only, K2 and K3 on the band runs' unequal and zero-row bands "
+          "against their plain versions; "
           "cli: the image-folder CLIs' path, bf16, its launches those of cli_phase; "
           "artifact: K4 launches by the exported serving artifacts of export_phase (the "
           "registered operator in a torch.export program), read in the windows that ran an "
@@ -4396,11 +4550,14 @@ def main():
           "remat_step: launches in one fp32 NestedUNet train step under --remat none, full "
           "and policy; dp: launches in dp_phase's data-parallel steps, world 1 over NCCL and "
           "2 ranks over Gloo; spatial: launches in spatial_phase's steps on bands (NestedUNet "
-          "wDS x=2, 2 ranks x 3 steps; UNet x=2,y=2, 4 ranks x 1 step; AttU_Net (none) and "
+          "wDS x=2, 2 ranks x 2 steps; UNet x=2,y=2, 4 ranks x 1 step; "
+          "AttU_Net (none) and "
           "UNetRNN x=2, 2 ranks x 2 steps; NestedUNet wDS x=2 under --remat full and policy, "
           "2 ranks x 2 steps each (their steps without remat and the band readings' steps "
           "are not counted); VGG16RNN, UNetRNNAttention, CA-Net (none), ResNet50RNN, "
-          "DoubleUnet (none) and UNetRNNPSP x=2, 2 ranks x 2 steps; fp32); model: "
+          "DoubleUnet (none) and UNetRNNPSP x=2, 2 ranks x 2 steps; NestedUNet wDS "
+          "x=4, 4 ranks x 2 steps, UNetRM7, ResNet50FCN (none) and DeepLab (none) x=2, "
+          "2 ranks x 2 steps; fp32); model: "
           "launches in model_phase's steps (NestedUNet wDS data=2,model=2 on 4 ranks and "
           "data=2 on 2 ranks, Gloo: one fp32 step each, twice without 'model'; bf16 the "
           "timed steps); "

@@ -49,10 +49,13 @@ class ConvBlock(nn.Module):
 
 
 class Upsample2xNearest(nn.Module):
-    """`nn.Upsample(scale_factor=2)` (nearest) on NHWC."""
+    """`nn.Upsample(scale_factor=2)` (nearest) on NHWC; with `bands` (the
+    'x'/'y' mesh axes) the band's rows of the whole map's upsample."""
+
+    bands = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return resize_nearest(x, (x.shape[1] * 2, x.shape[2] * 2))
+        return resize_nearest(x, (x.shape[1] * 2, x.shape[2] * 2), self.bands)
 
 
 class UpConv(nn.Module):
@@ -126,7 +129,10 @@ class _EncDecUNet(nn.Module):
     (ConvBlock, or RRCNNBlock when RECURRENT), 2x2 max-pools down, UpConv up,
     an attention gate on the skip when ATTENTION, concat [skip, up] and a
     decoder block, a 1x1 head, float32 whatever the compute dtype.
-    `deep_supervision` is accepted for the registry's contract and unused."""
+    `deep_supervision` is accepted for the registry's contract and unused.
+    `bands`: the pools' windows on the 'x'/'y' mesh axes."""
+
+    bands = None
 
     RECURRENT = False
     ATTENTION = False
@@ -164,7 +170,7 @@ class _EncDecUNet(nn.Module):
         enc = []
         for i in range(self.levels):
             if i > 0:
-                x = max_pool2x2(x)
+                x = max_pool2x2(x, self.bands)
             x = getattr(self, f"{self._enc}{i + 1}")(x)
             enc.append(x)
         d = enc[-1]

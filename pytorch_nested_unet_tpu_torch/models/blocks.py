@@ -14,7 +14,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.decoder_fusion import conv3x3_parts, multipart_conv3x3, pack_weight
 from ..ops.fused_bn import FusedBatchNormReLU, bn_relu, recomputing
-from ..ops.layers import TorchConv
+from ..ops.layers import TorchConv, empty_output
 
 
 class MultipartConv3x3(nn.Module):
@@ -34,7 +34,8 @@ class MultipartConv3x3(nn.Module):
     (`parallel.mesh.spatial_partition`): the parts carry that many of their
     neighbours' rows (and columns) beyond the band, the kernel runs on them
     with its padding of 1, and the output's first and last `rows` rows and
-    `cols` columns are dropped.
+    `cols` columns are dropped. On an empty band (a map of fewer rows than
+    bands) the parts are empty and so is the output, without a launch.
     """
 
     halo = (0, 0)
@@ -67,6 +68,11 @@ class MultipartConv3x3(nn.Module):
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         dt = self.dtype or parts[0].dtype
         parts = tuple(p.to(dt) for p in parts)
+        if parts[0].shape[1] == 0 or parts[0].shape[2] == 0:  # an empty band: no launch
+            b, h, w = parts[0].shape[:3]
+            return empty_output((b, h and h - 2 * self.halo[0], w and w - 2 * self.halo[1],
+                                 self.weight.shape[0]), torch.cat(parts, -1), self.weight,
+                                self.bias)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (self.weight, self.bias, *parts)):
             y = conv3x3_parts(parts, self.weight, self.bias)

@@ -22,10 +22,12 @@ On the 'x'/'y' mesh axes `parallel.mesh.spatial_partition` sets the
 queries to the whole map's pooled keys and values, the grid gates resize
 and (concatenation_residual) take their softmax over the whole map, the SE
 and channel gates pool over it, the deep-supervision heads and the
-bilinear UpCat resize the band's share of the whole map. The 2x2 stride-2
-deconv and a theta of kernel = stride are local to even bands; the channel
-dropout draws per data row (`parallel.mesh.sync_batch_norm`). With `bands`
-None each runs on the whole image.
+bilinear UpCat resize the band's share of the whole map, UpCat's
+replicate pad and the pools take the window of their output rows. The 2x2
+stride-2 deconv and a theta of kernel = stride read the window of their
+output rows like any conv; the channel dropout draws per data row
+(`parallel.mesh.sync_batch_norm`). With `bands` None each runs on the whole
+image.
 
 Modules keep the reference's layout, so the state dict's keys are its
 checkpoints' own: `conv1.conv.{0,1,3,4}`, `nonlocal4_2.{g.0,theta,phi.0,W.0,
@@ -142,7 +144,8 @@ class NonLocalBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
-        g_x, theta_x, phi_x = max_pool2x2(self.g(x)), self.theta(x), max_pool2x2(self.phi(x))
+        g_x, theta_x = max_pool2x2(self.g(x), self.bands), self.theta(x)
+        phi_x = max_pool2x2(self.phi(x), self.bands)
         ic = theta_x.shape[-1]
         if self.bands is not None:  # the whole map's keys and values
             whole = self.bands.gather(torch.cat([phi_x, g_x], dim=-1))
@@ -179,6 +182,8 @@ class UpCat(nn.Module):
         else:
             up = resize_bilinear(down, (down.shape[1] * 2, down.shape[2] * 2),
                                  align_corners=False, bands=self.bands)
+        if self.bands is not None:
+            return torch.cat([skip, self.bands.pad_replicate(up, skip.shape[1:3])], dim=-1)
         dh, dw = skip.shape[1] - up.shape[1], skip.shape[2] - up.shape[2]
         if dh > 0 or dw > 0:
             up = F.pad(up.permute(0, 3, 1, 2), (0, max(dw, 0), 0, max(dh, 0)),
@@ -338,7 +343,9 @@ class Comprehensive_Atten_Unet(nn.Module):
     JAX package's contract (the heads resize to the input's size);
     `drop_rate` 0 turns the dropout of conv4, center and up4 off. Returns
     the float32 logit with 1 class, the float32 softmax over the classes
-    with more."""
+    with more. `bands`: the pools' windows on the 'x'/'y' mesh axes."""
+
+    bands = None
 
     def __init__(self, num_classes: int = 2, input_channels: int = 3,
                  deep_supervision: bool = False, feature_scale: int = 4,
@@ -388,10 +395,10 @@ class Comprehensive_Atten_Unet(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         conv1 = self.conv1(x)
-        conv2 = self.conv2(max_pool2x2(conv1))
-        conv3 = self.conv3(max_pool2x2(conv2))
-        conv4 = self.conv4(max_pool2x2(conv3))
-        center = self.center(max_pool2x2(conv4))
+        conv2 = self.conv2(max_pool2x2(conv1, self.bands))
+        conv3 = self.conv3(max_pool2x2(conv2, self.bands))
+        conv4 = self.conv4(max_pool2x2(conv3, self.bands))
+        center = self.center(max_pool2x2(conv4, self.bands))
 
         up4 = self.up_concat4(conv4, center)
         up4, _ = self.up4(self.nonlocal4_2(up4))

@@ -19,12 +19,13 @@ reference CRDN.py:250-908).
   to 4096 channels, two plain BN + ReLU + channel dropout layers and a 1x1
   conv, then FCN score-map sums resized by nearest indexing. No kernel.
 
-On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) the trunk's
-strided convs take their halo like any conv, and `bands` (a
-`parallel.bands.Bands`) is set on the trunk's model and on each `UnetUp`:
-the 3x3/2 pool then takes the band's rows of the whole map's pool and the
-bilinear x2 the band's rows of the whole map's resize. ResNetFCN stays off
-bands (its valid 3x3 conv).
+On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) every conv
+reads the window of its output rows (the strided convs and ResNetFCN's
+valid 3x3 too), and `bands` (a `parallel.bands.Bands`) is set on the
+trunk's model, VGG16RNN's stages and each `UnetUp`: the pools then take the
+band's rows of the whole map's pool, the resizes (bilinear, and
+ResNetFCN's nearest ones at any ratio) the band's rows of the whole map's
+resize.
 
 The presets are subclasses that set `BLOCK` and `LAYERS`, so the registry
 and `arch_options` treat them as classes; `block` and `layers` remain
@@ -202,8 +203,10 @@ class _VGGStage(nn.Sequential):
         super().__init__(units)
         self.pool = pool
 
+    bands = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(max_pool2x2(x) if self.pool else x)
+        return super().forward(max_pool2x2(x, self.bands) if self.pool else x)
 
 
 class VGG16RNN(nn.Module):
@@ -247,9 +250,8 @@ class UnetUp(nn.Module):
     """A 2x2 stride-2 transposed conv to `out_size` channels (or a bilinear
     x2 that keeps the channels), an align-corners resize to the skip's size,
     [skip ++ up], and a BN-free `UnetConv2` (reference CRDN.py:753-772).
-    With `bands` the x2 is the band's rows of the whole map's resize
-    (`Bands.resize`); every level halves on bands, so the resize to the skip
-    is the identity there, and any other size is refused."""
+    With `bands` both resizes are the band's rows of the whole map's
+    (`Bands.resize`)."""
 
     bands = None
 
@@ -268,11 +270,7 @@ class UnetUp(nn.Module):
         else:
             up = resize_bilinear(below, (below.shape[1] * 2, below.shape[2] * 2),
                                  bands=self.bands)
-        if self.bands is not None and up.shape[1:3] != skip.shape[1:3]:
-            raise ValueError(f"UnetUp on bands: a {up.shape[1]}x{up.shape[2]} band against a "
-                             f"{skip.shape[1]}x{skip.shape[2]} skip; the levels must halve "
-                             f"(ROADMAP.md queue 1, A11b b)")
-        up = resize_bilinear(up, skip.shape[1:3])
+        up = resize_bilinear(up, skip.shape[1:3], bands=self.bands)
         return self.conv(torch.cat([skip, up], dim=-1))
 
 
@@ -338,12 +336,13 @@ class ResNetFCN(_ResNetTrunk):
             x = x.to(self.dtype)
         stem_hw = x.shape[1:3]
         full, *down = self.encode(x)  # down2 .. down5
-        feats = [max_pool_3x3_s2_p1(full)] + down[:3]  # down1 .. down4
+        feats = [max_pool_3x3_s2_p1(full, self.bands)] + down[:3]  # down1 .. down4
         score = self.classifier(down[3])
         for i in (4, 3, 2, 1):
             feat = feats[i - 1]
-            score = resize_nearest(score, feat.shape[1:3]) + getattr(self, f"score_pool{i}")(feat)
-        return resize_nearest(score, stem_hw).to(torch.float32)
+            score = (resize_nearest(score, feat.shape[1:3], self.bands)
+                     + getattr(self, f"score_pool{i}")(feat))
+        return resize_nearest(score, stem_hw, self.bands).to(torch.float32)
 
 
 class ResNet18RNN(ResNetRNN):

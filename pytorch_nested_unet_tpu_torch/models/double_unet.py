@@ -23,7 +23,7 @@ are combined by its softmax, and `deep_supervision` then returns the rounds
 plus the combination.
 
 On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) the strided
-convs take their halo like any conv, and `bands` (a `parallel.bands.Bands`)
+convs read the window of their output rows like any conv, and `bands` (a `parallel.bands.Bands`)
 on the net and on each `UnetBlock` puts the 3x3/2 pool and the half-pixel
 resizes (x2 in the TD groups, x4 in the head) on the band's rows of the
 whole map's (`Bands.resize`).

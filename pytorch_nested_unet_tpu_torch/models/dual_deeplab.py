@@ -23,8 +23,18 @@ and `logger` without defining them); this follows the JAX package's rebuild:
 FSP's `fc1` / `fc2` are flax Dense layers in the JAX package: their weights
 start LeCun-normal and their biases at 0. The two dropouts are element-wise
 and train-only (`ops.layers.Dropout`, seeded from the model's generator).
-Every BN is the plain `BatchNorm` (no kernel, as in the JAX package). Module
-names follow the JAX package's scopes (`backbone.layer4_2.hha_conv2`,
+Every BN is the plain `BatchNorm` (no kernel, as in the JAX package).
+
+On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) every conv
+reads the window of its output rows: layer4's and ASPP's dilated convs
+(dilations up to 18 at 1/16, wider than a thin band) take rows from every
+band that holds them. `bands` (a `parallel.bands.Bands`) is set on FSP,
+ASPP, the stems, `Head` and `DeepLab`: the global means are the whole
+map's sums over its pixel count, the 3x3/2 pools and the align-corners
+resizes (1/16 -> 1/4, the heads back to the input) the band's rows of the
+whole map's; ASPP's pooled branch BN (`whole_map`) takes the data rows'
+moments, and both element-wise dropouts draw the whole map's mask and keep
+the band's share. Module names follow the JAX package's scopes (`backbone.layer4_2.hha_conv2`,
 `backbone.sagate0.fsp_rgb.fc1`, `head.aspp.map_conv3`), which are also the
 state dict's keys.
 """
@@ -36,7 +46,7 @@ import torch.nn as nn
 
 from ..ops.init import init_convs_, lecun_normal_
 from ..ops.layers import BatchNorm, Dropout, TorchConv, TorchDense
-from ..ops.pool import max_pool_3x3_s2_p1
+from ..ops.pool import global_avg_pool, max_pool_3x3_s2_p1
 from ..ops.resize import resize_bilinear
 
 
@@ -47,6 +57,8 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 class FSP(nn.Module):
     """Feature Separation Part: out = main + sigmoid(fc2(relu(fc1(gap(concat(
     guide, main)))))) * guide, `fc1` to max(1, 2C // 16) units."""
+
+    bands = None
 
     def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -62,7 +74,8 @@ class FSP(nn.Module):
                 fc.bias.zero_()
 
     def forward(self, guide: torch.Tensor, main: torch.Tensor) -> torch.Tensor:
-        pooled = torch.cat([guide, main], dim=-1).mean(dim=(1, 2))
+        pooled = global_avg_pool(torch.cat([guide, main], dim=-1), keepdims=False,
+                                 bands=self.bands)
         w = torch.sigmoid(self.fc2(torch.relu(self.fc1(pooled))))[:, None, None, :]
         return main + w * guide
 
@@ -134,6 +147,8 @@ class _DualStem(nn.Module):
     stem_width, with BN + ReLU after each) or a 7x7/2 conv, then BN, ReLU and
     the 3x3/2 max-pool."""
 
+    bands = None
+
     def __init__(self, in_channels: int, deep_stem: bool, stem_width: int, bn_eps: float,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -157,7 +172,7 @@ class _DualStem(nn.Module):
             x = self.conv1_2(x)
         else:
             x = self.conv1(x)
-        return max_pool_3x3_s2_p1(torch.relu(self.bn1(x)))
+        return max_pool_3x3_s2_p1(torch.relu(self.bn1(x)), self.bands)
 
 
 class DualResNet(nn.Module):
@@ -217,6 +232,8 @@ class FCNHead(nn.Module):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling (reference archs.py:1760-1824)."""
 
+    bands = None
+
     def __init__(self, in_channels: int, out_channels: int,
                  dilation_rates: Tuple[int, int, int] = (12, 24, 36),
                  hidden_channels: int = 256, bn_eps: float = 1e-5,
@@ -233,6 +250,7 @@ class ASPP(nn.Module):
         self.global_pooling_conv = TorchConv(in_channels, hidden_channels, 1, 0, dtype,
                                              use_bias=False)
         self.global_pooling_bn = BatchNorm(hidden_channels, bn_eps, dtype)
+        self.global_pooling_bn.whole_map = True  # (B, 1, 1, C): whole on every band
         self.pool_red_conv = TorchConv(hidden_channels, out_channels, 1, 0, dtype,
                                        use_bias=False)
         self.red_bn = BatchNorm(out_channels, bn_eps, dtype)
@@ -240,7 +258,7 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.cat([getattr(self, f"map_conv{i}")(x) for i in range(self.n_maps)], dim=-1)
         out = self.red_conv(_leaky(self.map_bn(out)))
-        pool = self.global_pooling_conv(x.mean(dim=(1, 2), keepdim=True))
+        pool = self.global_pooling_conv(global_avg_pool(x, bands=self.bands))
         pool = self.pool_red_conv(_leaky(self.global_pooling_bn(pool)))
         return _leaky(self.red_bn(out + pool))
 
@@ -248,6 +266,8 @@ class ASPP(nn.Module):
 class Head(nn.Module):
     """DeepLabV3+ decoder (reference archs.py:1826-1864): returns (pred, aux)
     at the stride-4 and stride-16 resolutions."""
+
+    bands = None
 
     def __init__(self, num_classes: int, low_channels: int = 256, high_channels: int = 2048,
                  bn_eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
@@ -268,7 +288,7 @@ class Head(nn.Module):
         encoder_out = merges[-1]
         f = self.aspp(encoder_out)
         low = torch.relu(self.reduce_bn(self.reduce_conv(merges[0])))
-        f = resize_bilinear(f, low.shape[1:3], align_corners=True)
+        f = resize_bilinear(f, low.shape[1:3], align_corners=True, bands=self.bands)
         f = torch.cat([f, low], dim=-1)
         f = torch.relu(self.last_bn0(self.last_conv0(f)))
         f = torch.relu(self.last_bn1(self.last_conv1(f)))
@@ -277,6 +297,8 @@ class Head(nn.Module):
 
 
 class DeepLab(nn.Module):
+    bands = None
+
     def __init__(self, num_classes: int = 1, input_channels: int = 3,
                  deep_supervision: bool = False, layers: Sequence[int] = (3, 4, 23, 3),
                  bn_eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
@@ -297,9 +319,11 @@ class DeepLab(nn.Module):
         h, w = x.shape[1:3]
         _, merges = self.backbone(x, x if hha is None else hha)
         pred, aux = self.head(merges)
-        pred = resize_bilinear(pred, (h, w), align_corners=True).to(torch.float32)
+        pred = resize_bilinear(pred, (h, w), align_corners=True,
+                               bands=self.bands).to(torch.float32)
         if self.training or self.deep_supervision:
-            return [resize_bilinear(aux, (h, w), align_corners=True).to(torch.float32), pred]
+            return [resize_bilinear(aux, (h, w), align_corners=True,
+                                    bands=self.bands).to(torch.float32), pred]
         return pred
 
 

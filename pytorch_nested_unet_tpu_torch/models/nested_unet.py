@@ -15,8 +15,10 @@ step K1 launches 30 times under "none" and "policy" and 60 under "full"
 30 times under each, and K4 10 times, 20 under "full".
 
 Under the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`; every
-remat mode) it runs on this rank's band: its convs, K4 and upsamples take
-halos, its pools stay local; the launches per step are the same.
+remat mode) it runs on this rank's band: its convs, K4 and upsamples read
+the rows around their output rows, its pools the window of theirs
+(`bands`); the launches per step are the same (an empty band's K4 node
+makes its empty output without a launch).
 """
 
 from typing import Optional, Sequence
@@ -43,6 +45,8 @@ def remat_mode(remat) -> str:
 
 
 class NestedUNet(nn.Module):
+    bands = None  # a parallel.bands.Bands on the 'x'/'y' mesh axes: the pools' windows
+
     def __init__(self, num_classes: int = 1, input_channels: int = 3,
                  deep_supervision: bool = False,
                  nb_filter: Sequence[int] = (32, 64, 128, 256, 512), remat=False,
@@ -73,19 +77,19 @@ class NestedUNet(nn.Module):
             x = x.to(self.dtype)
         up = self.up
         x0_0 = self.conv0_0(x)
-        x1_0 = self.conv1_0(max_pool2x2(x0_0))
+        x1_0 = self.conv1_0(max_pool2x2(x0_0, self.bands))
         x0_1 = self.conv0_1((x0_0, up(x1_0)))
 
-        x2_0 = self.conv2_0(max_pool2x2(x1_0))
+        x2_0 = self.conv2_0(max_pool2x2(x1_0, self.bands))
         x1_1 = self.conv1_1((x1_0, up(x2_0)))
         x0_2 = self.conv0_2((x0_0, x0_1, up(x1_1)))
 
-        x3_0 = self.conv3_0(max_pool2x2(x2_0))
+        x3_0 = self.conv3_0(max_pool2x2(x2_0, self.bands))
         x2_1 = self.conv2_1((x2_0, up(x3_0)))
         x1_2 = self.conv1_2((x1_0, x1_1, up(x2_1)))
         x0_3 = self.conv0_3((x0_0, x0_1, x0_2, up(x1_2)))
 
-        x4_0 = self.conv4_0(max_pool2x2(x3_0))
+        x4_0 = self.conv4_0(max_pool2x2(x3_0, self.bands))
         x3_1 = self.conv3_1((x3_0, up(x4_0)))
         x2_2 = self.conv2_2((x2_0, x2_1, up(x3_1)))
         x1_3 = self.conv1_3((x1_0, x1_1, x1_2, up(x2_2)))

@@ -28,7 +28,7 @@ import torch.nn as nn
 from ..ops.init import init_convs_
 from ..ops.layers import TorchConv
 from ..ops.pool import max_pool2x2
-from ..ops.resize import resize_bilinear, resize_bilinear_band
+from ..ops.resize import resize_bilinear
 from .blocks import ConvBNReLU, UnetConv2
 
 DECODERS = ("LSTM", "GRU", "vanilla")
@@ -47,18 +47,14 @@ class RDC(nn.Module):
     for the GRU's candidate). Each is a TorchConv whatever conv_impl says
     (validated, so configs carry over).
 
-    On bands the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`) set
-    `band` = ((i, nx), (j, ny)) and `halo` = (rows, cols) as on an
-    `Upsample2x`, and a forward pre-hook that gives the carry (h, and c for
-    the LSTM) its halo and calls with `haloed=True` wherever the carry is
-    resized. Every level then halves (the band rule, parallel/mesh.py), so
-    each resize is the band of the whole map's 2x align-corners resize
-    (`resize_bilinear_band` at factor 2). On whole images the carry is resized by
-    `resize_bilinear` to any size (UNetRM7 at 96x96: 1 -> 3 -> 6).
+    The carry (h, and c for the LSTM) is resized by `resize_bilinear` (align
+    corners) to the level's size, whatever it is (UNetRM7 at 96x96: 1 -> 3
+    -> 6). On the 'x'/'y' mesh axes `bands` (a `parallel.bands.Bands`) makes
+    it the band's rows of the whole carry's resize, onto a band that may be
+    unequal or empty.
     """
 
-    band = ((0, 1), (0, 1))
-    halo = (0, 0)
+    bands = None
 
     def __init__(self, hidden_dim: int, kernel_size: int = 3, use_bias: bool = True,
                  decoder: str = "GRU", conv_impl: str = "auto",
@@ -74,19 +70,14 @@ class RDC(nn.Module):
             setattr(self, name, TorchConv(cin, mult * hidden_dim, kernel_size, pad, dtype,
                                           use_bias=use_bias))
 
-    def _resize(self, t, hw, haloed):
-        if not haloed:
-            return resize_bilinear(t, hw, align_corners=True)
-        (i, nx), (j, ny) = self.band
-        rows, cols = self.halo
-        h, w = t.shape[1] - 2 * rows, t.shape[2] - 2 * cols
-        return resize_bilinear_band(t, i * h, nx * h, j * w, ny * w, 2, 2, rows, cols)
+    def _resize(self, t, hw):
+        return resize_bilinear(t, hw, align_corners=True, bands=self.bands)
 
-    def forward(self, x_cur, h_pre, c_pre=None, haloed=False):
+    def forward(self, x_cur, h_pre, c_pre=None):
         hw = x_cur.shape[1:3]
-        h_up = self._resize(h_pre, hw, haloed)
+        h_up = self._resize(h_pre, hw)
         if self.decoder == "LSTM":
-            c_up = self._resize(c_pre, hw, haloed)
+            c_up = self._resize(c_pre, hw)
             gates = self.lstm_catconv(torch.cat([h_up, x_cur], dim=-1))
             i, f, o, g = torch.chunk(gates, 4, dim=-1)
             c_cur = torch.sigmoid(f) * c_up + torch.sigmoid(i) * torch.tanh(g)
@@ -124,6 +115,7 @@ class _UNetRNNBase(nn.Module):
     BASE_FILTERS = (64, 128, 256, 512, 1024)
     CENTER = True
     DECODER = "GRU"
+    bands = None  # a parallel.bands.Bands on the 'x'/'y' mesh axes: the pools' windows
 
     def __init__(self, num_classes: int = 1, input_channels: int = 3,
                  deep_supervision: bool = False, kernel_size: int = 3,
@@ -168,7 +160,7 @@ class _UNetRNNBase(nn.Module):
         feats = []
         for i in range(len(self.filters)):
             if i > 0:
-                x = max_pool2x2(x)
+                x = max_pool2x2(x, self.bands)
             x = getattr(self, self._block_name(i))(x)
             feats.append(x)
         return feats

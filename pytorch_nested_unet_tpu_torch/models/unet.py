@@ -6,8 +6,8 @@ kernel runs at all 4 nodes and the concat is never written. One 1x1 head,
 float32 whatever the compute dtype. `deep_supervision` is accepted for the
 registry's constructor contract and unused. Under the 'x'/'y' mesh axes
 (`parallel.mesh.spatial_partition`) it runs on this rank's band: its convs
-and upsamples take halos, its pools stay local (every band has an even
-number of rows at each level).
+and upsamples read the rows around their output rows, its pools the window
+of theirs (`bands`), at any size whose bands may be unequal or empty.
 """
 
 from typing import Optional, Sequence
@@ -23,6 +23,8 @@ from .blocks import VGGBlock
 
 
 class UNet(nn.Module):
+    bands = None  # a parallel.bands.Bands on the 'x'/'y' mesh axes: the pools' windows
+
     def __init__(self, num_classes: int = 1, input_channels: int = 3,
                  deep_supervision: bool = False,
                  nb_filter: Sequence[int] = (32, 64, 128, 256, 512),
@@ -46,7 +48,7 @@ class UNet(nn.Module):
             x = x.to(self.dtype)
         feats = [self.conv0_0(x)]
         for i in range(1, 5):
-            feats.append(getattr(self, f"conv{i}_0")(max_pool2x2(feats[-1])))
+            feats.append(getattr(self, f"conv{i}_0")(max_pool2x2(feats[-1], self.bands)))
         y = feats[4]
         for i in range(3, -1, -1):
             y = getattr(self, f"conv{i}_{4 - i}")((feats[i], self.up(y)))

@@ -160,7 +160,8 @@ void cut_rows(Layout& L, long long rows, long long target, long long min_iters) 
   rpb = (rpb + L.lanes - 1) / L.lanes * L.lanes;
   if (rpb < (long long)L.lanes * min_iters) rpb = (long long)L.lanes * min_iters;
   L.rows_per_block = rpb;
-  L.nparts = (int)((rows + rpb - 1) / rpb);
+  // at least one block: 0 rows (an empty band) still launch and write zeros
+  L.nparts = rows > 0 ? (int)((rows + rpb - 1) / rpb) : 1;
 }
 
 // K1 and K2: about kReduceBlocksPerSm blocks per SM, and few enough row
@@ -564,12 +565,13 @@ void update_factors(long long n, double momentum, float& keep, float& take, floa
 // K1 (one launch). out: float32 [5, C] = sum, sumsq, mean, biased var, inv.
 // With run_mean and run_var non-null: run = momentum*run + (1 - momentum)*stat,
 // the variance taken unbiased (times rows/(rows-1)). With sums_only != 0, out
-// is float32 [2, C] = sum, sumsq and the running stats must be null.
+// is float32 [2, C] = sum, sumsq and the running stats must be null; rows may
+// then be 0 (a band of zero rows: zero sums, still one launch of one block).
 extern "C" int bn_stats(int dtype, const void* x, long long rows, int C, double eps,
                         double momentum, int sums_only, float* work, long long work_floats,
                         int* tickets, int num_tickets, int sms, float* out, float* run_mean,
                         float* run_var, void* stream) {
-  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1) ||
+  if (rows < (sums_only ? 0 : 1) || C < 1 || sms < 1 || (dtype != 0 && dtype != 1) ||
       (sums_only && (run_mean != nullptr || run_var != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -615,12 +617,12 @@ extern "C" int bn_finish(const float* sums, long long n, int C, double eps, doub
   return (int)cudaGetLastError();
 }
 
-// K2 (one launch). out: float32 [2, C] = dbeta, dgamma.
+// K2 (one launch). out: float32 [2, C] = dbeta, dgamma; zeros for 0 rows.
 extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long rows, int C,
                              const float* mean, const float* inv, const float* gamma,
                              const float* beta, float* work, long long work_floats,
                              int* tickets, int num_tickets, int sms, float* out, void* stream) {
-  if (rows < 1 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+  if (rows < 0 || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x, dy}) : vec_for<__nv_bfloat16>(C, {x, dy});
@@ -645,12 +647,12 @@ extern "C" int bn_bwd_reduce(int dtype, const void* x, const void* dy, long long
 
 // K3 (one launch). dx: contiguous (rows, C) in x's dtype; n: the row count
 // behind mean, inv, dbeta and dgamma (rows in one process, all ranks' rows
-// in data-parallel training).
+// in data-parallel training). 0 rows launch one block that writes nothing.
 extern "C" int bn_bwd_dx(int dtype, const void* x, const void* dy, long long rows, long long n,
                          int C, const float* mean, const float* inv, const float* gamma,
                          const float* beta, const float* dbeta, const float* dgamma, void* dx,
                          int sms, void* stream) {
-  if (rows < 1 || n < rows || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
+  if (rows < 0 || n < 1 || n < rows || C < 1 || sms < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 0 ? vec_for<float>(C, {x, dy, dx})

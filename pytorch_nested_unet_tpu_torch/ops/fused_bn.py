@@ -142,16 +142,18 @@ def _is_cpu(*tensors) -> bool:
     return all(t is None or t.device.type == "cpu" for t in tensors)
 
 
-def _check(name, x2d, rows_like=(), vectors=()):
+def _check(name, x2d, rows_like=(), vectors=(), empty=False):
     """Validate the CUDA call: 2-D contiguous (rows, C) activations of one
-    dtype, contiguous float32 [C] vectors, all on x2d's device."""
+    dtype (`empty`: rows may be 0, a band of zero rows on the 'x'/'y' mesh
+    axes), contiguous float32 [C] vectors, all on x2d's device."""
     if x2d.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x2d.device}")
     if x2d.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x2d.dtype} not supported (float32, bfloat16)")
-    if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.shape[0] < 1 or x2d.shape[1] < 1:
-        raise ValueError(f"{name}: x must be a contiguous non-empty (rows, C) view, "
-                         f"got {tuple(x2d.shape)}")
+    if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.shape[0] < (0 if empty else 1) \
+            or x2d.shape[1] < 1:
+        raise ValueError(f"{name}: x must be a contiguous (rows, C) view with C >= 1 and "
+                         f"{'rows >= 0' if empty else 'rows >= 1'}, got {tuple(x2d.shape)}")
     for t in rows_like:
         if t.device != x2d.device or t.dtype != x2d.dtype or t.shape != x2d.shape \
                 or not t.is_contiguous():
@@ -203,7 +205,7 @@ def _reduce_scratch(name, dev, c):
 
 
 def _launch_stats(x2d, eps, running_mean, running_var, momentum, sums_only):
-    rows, c = _check("bn_stats", x2d, vectors=(running_mean, running_var))
+    rows, c = _check("bn_stats", x2d, vectors=(running_mean, running_var), empty=sums_only)
     if (running_mean is None) != (running_var is None):
         raise ValueError("bn_stats: give both running stats or neither")
     dev = x2d.device
@@ -236,9 +238,9 @@ def bn_stats(x2d: torch.Tensor, eps: float = 1e-5,
 
 def bn_sums(x2d: torch.Tensor) -> torch.Tensor:
     """K1 in its sums-only mode: float32 [2, C] = (sum, sumsq) of the (rows, C)
-    view, one buffer for the all-reduce of data-parallel training. CUDA
-    tensors: the kernel (one launch, counted as a `bn_stats` launch); CPU
-    tensors: `reference_bn_sums`."""
+    view, one buffer for the all-reduce of data-parallel training; zeros for
+    0 rows (an empty band). CUDA tensors: the kernel (one launch, counted as
+    a `bn_stats` launch); CPU tensors: `reference_bn_sums`."""
     if _is_cpu(x2d):
         return torch.stack(reference_bn_sums(x2d))
     return _launch_stats(x2d, 1e-5, None, None, MOMENTUM, True)
@@ -273,11 +275,11 @@ def bn_finish(sums: torch.Tensor, n: int, eps: float = 1e-5,
 
 def bn_bwd_reduce_sums(x2d, dy2d, mean, inv, gamma, beta) -> torch.Tensor:
     """K2 as one float32 [2, C] buffer = (dbeta, dgamma), for the all-reduce
-    of data-parallel training. CUDA tensors: the kernel, one launch per call;
-    CPU tensors: `reference_bn_bwd_reduce`."""
+    of data-parallel training (zeros for 0 rows). CUDA tensors: the kernel,
+    one launch per call; CPU tensors: `reference_bn_bwd_reduce`."""
     if _is_cpu(x2d, dy2d, mean, inv, gamma, beta):
         return torch.stack(reference_bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta))
-    rows, c = _check("bn_bwd_reduce", x2d, (dy2d,), (mean, inv, gamma, beta))
+    rows, c = _check("bn_bwd_reduce", x2d, (dy2d,), (mean, inv, gamma, beta), empty=True)
     dev = x2d.device
     work, work_floats, tickets, sms = _reduce_scratch("bn_bwd_reduce", dev, c)
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
@@ -304,11 +306,13 @@ def bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta):
 
 def bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma, n=None):
     """K3: dx in x's dtype, dbeta and dgamma divided by n (default: x's rows;
-    all ranks' rows in data-parallel training). CUDA tensors: the kernel; CPU
-    tensors: `reference_bn_bwd_dx`."""
+    all ranks' rows in data-parallel training; 0 rows of x give an empty dx,
+    still one launch). CUDA tensors: the kernel; CPU tensors:
+    `reference_bn_bwd_dx`."""
     if _is_cpu(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma):
         return reference_bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma, n)
-    rows, c = _check("bn_bwd_dx", x2d, (dy2d,), (mean, inv, gamma, beta, dbeta, dgamma))
+    rows, c = _check("bn_bwd_dx", x2d, (dy2d,), (mean, inv, gamma, beta, dbeta, dgamma),
+                     empty=True)
     n = rows if n is None else int(n)
     if n < rows:
         raise ValueError(f"bn_bwd_dx: n = {n} is below the {rows} rows of x")
@@ -366,14 +370,17 @@ class BNReLUTrain(torch.autograd.Function):
     With a process `group`, the statistics are those of every rank's rows
     (equal row counts): K1's sums all-reduced, then `bn_finish` over the
     global row count; in backward K2's output all-reduced for K3, while
-    dgamma and dbeta stay this rank's own. Under the 'x'/'y' mesh axes the
-    group is the whole world and a rank's rows are its band's pixels; the
-    train and eval steps assert that every rank holds an equal band
-    (`training.loop`), so the global count is rows * world size.
+    dgamma and dbeta stay this rank's own. The global count is `n`, or rows
+    * world size (equal row counts) when n is None. Under the 'x'/'y' mesh
+    axes the group is the whole world, a rank's rows are its band's pixels,
+    and n is the whole map's pixels over every data row (the module's
+    `bands`): bands may be unequal or empty, and an empty band's K1, K2 and
+    K3 still launch once each (zero sums, an empty dx).
     """
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, running_mean, running_var, momentum, group=None):
+    def forward(ctx, x, gamma, beta, eps, running_mean, running_var, momentum, group=None,
+                n=None):
         c = x.shape[-1]
         x = x.contiguous()
         x2d = x.view(-1, c)
@@ -383,7 +390,7 @@ class BNReLUTrain(torch.autograd.Function):
         else:
             sums = bn_sums(x2d)
             dist.all_reduce(sums, group=group)
-            n = x2d.shape[0] * dist.get_world_size(group)
+            n = x2d.shape[0] * dist.get_world_size(group) if n is None else int(n)
             mean, var, inv = bn_finish(sums, n, eps, running_mean, running_var, momentum)
         y = bn_relu(x, mean, inv, gamma, beta)
         ctx.save_for_backward(x, mean, inv, gamma, beta)
@@ -400,12 +407,12 @@ class BNReLUTrain(torch.autograd.Function):
         if ctx.group is None:
             dbeta, dgamma = bn_bwd_reduce(x2d, dy2d, mean, inv, gamma, beta)
             dx = bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, dbeta, dgamma)
-            return dx.view(x.shape), dgamma, dbeta, None, None, None, None, None
+            return dx.view(x.shape), dgamma, dbeta, None, None, None, None, None, None
         local = bn_bwd_reduce_sums(x2d, dy2d, mean, inv, gamma, beta)
         total = local.clone()
         dist.all_reduce(total, group=ctx.group)
         dx = bn_bwd_dx(x2d, dy2d, mean, inv, gamma, beta, total[0], total[1], ctx.n)
-        return dx.view(x.shape), local[1], local[0], None, None, None, None, None
+        return dx.view(x.shape), local[1], local[0], None, None, None, None, None, None
 
 
 def fused_bn_relu_train(x, gamma, beta, eps: float = 1e-5, running_mean=None,
@@ -420,13 +427,15 @@ class FusedBatchNormReLU(nn.Module):
 
     Train mode: batch statistics through `BNReLUTrain` (K1-K3), and the running
     stats updated in place (not inside `recomputing()`); with `process_group`
-    set (`parallel.mesh.sync_batch_norm`), the batch is every rank's rows.
+    set (`parallel.mesh.sync_batch_norm`), the batch is every rank's rows,
+    counted by `bands` on the 'x'/'y' mesh axes (the whole map's pixels).
     Eval mode: relu((x - running_mean) * rsqrt(running_var + eps) * weight +
     bias). The math runs in float32 and the result is cast to `dtype` (or to
     the input's dtype when `dtype` is None).
     """
 
     process_group = None
+    bands = None
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -441,8 +450,10 @@ class FusedBatchNormReLU(nn.Module):
     def train_forward(self, x: torch.Tensor):
         """Train mode: (y, mean, inv), y in the output dtype."""
         stats = (None, None) if _RECOMPUTING.active else (self.running_mean, self.running_var)
+        n = (self.bands.count(x) if self.bands is not None and self.process_group is not None
+             else None)
         y, mean, _, inv = BNReLUTrain.apply(x, self.weight, self.bias, self.eps, *stats,
-                                            MOMENTUM, self.process_group)
+                                            MOMENTUM, self.process_group, n)
         return y.to(self.dtype or x.dtype), mean, inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

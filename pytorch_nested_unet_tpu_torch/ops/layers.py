@@ -13,7 +13,13 @@ Data-parallel training sets `process_group` on the BNs and dropouts
 (`parallel.mesh.sync_batch_norm`): a train-mode BN then takes its moments
 over every rank's rows (`_SyncBatchNorm`, the explicit form of the JAX
 package's `_TorchBN` under an axis name), and a dropout draws its mask for
-every data row's rows and keeps this rank's.
+every data row's rows and keeps this rank's. On the 'x'/'y' mesh axes
+`bands` (a `parallel.bands.Bands`) is set on them too: a BN's count is then
+the whole map's pixels over every data row, and an element-wise dropout
+draws each data row's whole mask and keeps its band's share. A band may be
+empty (a map of fewer rows than bands): a conv or transposed conv then
+makes an empty output, still tied to its input and weights so that every
+rank's backward runs the same collectives.
 """
 
 from typing import Optional, Tuple, Union
@@ -37,15 +43,23 @@ def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
+def empty_output(shape, x: torch.Tensor, *params) -> torch.Tensor:
+    """A zero-size tensor of `shape` in x's dtype whose gradient reaches x
+    and `params` (as zeros): the output of an op on an empty band, so that
+    its input's backward, the fetch's collectives among them, runs."""
+    tie = x.sum() + sum(p.sum().to(x.dtype) for p in params if p is not None)
+    return x.new_zeros(shape) + tie * 0
+
+
 class TorchConv(nn.Module):
     """conv2d with symmetric padding, stride, dilation and groups; the weight
     is [out, in / groups, kh, kw], the bias [out] (absent when `use_bias` is
     False).
 
-    `halo` = (rows, cols): how many rows above and below and columns left
-    and right the input carries beyond the output's band. On an axis with a
-    halo the conv runs with no padding; the halo's rows are the image's or
-    zeros past its edge. (0, 0), the default, is a whole image; the 'x'/'y'
+    `halo` = (rows, cols): on an axis where it is not 0 (the conv's padding
+    there) the input is the window of the output's band (`parallel.bands.
+    Bands.window`: the image's rows, zeros past its edge) and the conv runs
+    with no padding. (0, 0), the default, is a whole image; the 'x'/'y'
     mesh axes set it (`parallel.mesh.spatial_partition`)."""
 
     halo = (0, 0)
@@ -71,6 +85,12 @@ class TorchConv(nn.Module):
         dt = self.dtype or x.dtype
         rows, cols = self.halo
         padding = (0 if rows else self.padding[0], 0 if cols else self.padding[1])
+        if x.shape[1] == 0 or x.shape[2] == 0:  # an empty band's (empty) window
+            out = [max((n + 2 * p - d * (k - 1) - 1) // s + 1, 0) if n else 0
+                   for n, p, d, k, s in zip(x.shape[1:3], padding, self.dilation,
+                                            self.weight.shape[2:], self.stride)]
+            return empty_output((x.shape[0], *out, self.weight.shape[0]), x.to(dt),
+                                self.weight, self.bias)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), stride=self.stride,
                      padding=padding, dilation=self.dilation, groups=self.groups)
         y = y.permute(0, 2, 3, 1)
@@ -83,7 +103,12 @@ class TorchConvTranspose(nn.Module):
     """conv_transpose2d: the weight is [in, out, kh, kw], the bias [out];
     the output is (in - 1) * stride - 2 * padding + kernel + output_padding
     per axis. `init_convs_` draws both from U(+-1/sqrt(out * kh * kw)), as
-    torch and the JAX package's `torch_transpose_kernel_init` do."""
+    torch and the JAX package's `torch_transpose_kernel_init` do. `crop` =
+    (top, bottom, left, right): output rows and columns to drop, set on the
+    'x'/'y' mesh axes where the input is the window of the band's output
+    rows (`parallel.mesh.put_on_bands`)."""
+
+    crop = (0, 0, 0, 0)
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 2,
                  stride: IntPair = 2, padding: IntPair = 0, output_padding: IntPair = 0,
@@ -98,11 +123,20 @@ class TorchConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        if x.shape[1] == 0 or x.shape[2] == 0:  # an empty band
+            out = [(n - 1) * s - 2 * p + k + op if n else 0 for n, s, p, k, op in zip(
+                x.shape[1:3], self.stride, self.padding, self.weight.shape[2:],
+                self.output_padding)]
+            return empty_output((x.shape[0], *out, self.weight.shape[1]), x.to(dt),
+                                self.weight, self.bias)
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
                                stride=self.stride, padding=self.padding,
                                output_padding=self.output_padding).permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dt)
+        top, bottom, left, right = self.crop
+        if any(self.crop):
+            y = y[:, top:y.shape[1] - bottom, left:y.shape[2] - right]
         return y.contiguous()
 
 
@@ -133,9 +167,14 @@ class Dropout(nn.Module):
     rows, `parallel.mesh.sync_batch_norm`), the mask is drawn for every
     member's rows (equal row counts) and this rank's rows are kept, so N
     ranks drop what one process would over the whole batch; the bands of one
-    data row draw alike."""
+    data row draw alike. With `bands` set as well (the 'x'/'y' mesh axes),
+    an element-wise mask is drawn for the whole map of those rows and the
+    band's share kept, so the bands' masks are the one-process step's, cut
+    to the band."""
 
     process_group = None
+    bands = None
+    elementwise = True
 
     def __init__(self, p: float = 0.5, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -153,12 +192,21 @@ class Dropout(nn.Module):
             seed = int(torch.randint(0, 2**62, (1,), generator=self._seeds))
             gen = self._generators[x.device] = torch.Generator(x.device).manual_seed(seed)
         shape = self.mask_shape(x)
+        band = None
+        if self.bands is not None and self.elementwise:
+            band = self.bands.place_of(x)
+            shape = (shape[0], band[0][1], band[1][1], *shape[3:])
         if self.process_group is None:
-            return torch.rand(shape, generator=gen, device=x.device) >= self.p
-        group, b = self.process_group, shape[0]
-        rank = dist.get_rank(group)
-        return (torch.rand((b * dist.get_world_size(group), *shape[1:]), generator=gen,
-                           device=x.device) >= self.p)[rank * b:(rank + 1) * b]
+            keep = torch.rand(shape, generator=gen, device=x.device) >= self.p
+        else:
+            group, b = self.process_group, shape[0]
+            rank = dist.get_rank(group)
+            keep = (torch.rand((b * dist.get_world_size(group), *shape[1:]), generator=gen,
+                               device=x.device) >= self.p)[rank * b:(rank + 1) * b]
+        if band is not None:
+            (h0, _), (w0, _) = band
+            keep = keep[:, h0:h0 + x.shape[1], w0:w0 + x.shape[2]]
+        return keep
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
@@ -171,6 +219,8 @@ class ChannelDropout(Dropout):
     with probability `p` over all of H and W and the rest scaled by 1 / (1 -
     p) (flax `nn.Dropout(p, broadcast_dims=(1, 2))`); identity in eval.
     Seeded as `Dropout`."""
+
+    elementwise = False
 
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return (x.shape[0], 1, 1, x.shape[3])
@@ -185,11 +235,12 @@ class _SyncBatchNorm(torch.autograd.Function):
     at 0 (flax's `nn.BatchNorm`), one more all-reduce. Backward: [sum dy,
     sum dy*xhat] all-reduced for dx = weight*inv * (dy - sum dy/n - xhat *
     sum dy*xhat/n) over the global n; dweight and dbias stay this rank's own
-    (the optimizer averages them). Returns (y, mean, var)."""
+    (the optimizer averages them). `n`: the rows of every rank together
+    (default: equal row counts). Returns (y, mean, var)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, group, two_pass):
-        n = x.shape[0] * dist.get_world_size(group)
+    def forward(ctx, x, weight, bias, eps, group, two_pass, n=None):
+        n = x.shape[0] * dist.get_world_size(group) if n is None else n
         if two_pass:
             s = x.sum(0)
             dist.all_reduce(s, group=group)
@@ -216,16 +267,20 @@ class _SyncBatchNorm(torch.autograd.Function):
         total = local.clone()
         dist.all_reduce(total, group=ctx.group)
         dx = (weight * inv) * (dy - total[0] / ctx.n - xhat * (total[1] / ctx.n))
-        return dx, local[1], local[0], None, None, None
+        return dx, local[1], local[0], None, None, None, None
 
 
-def sync_batch_norm_train(x, weight, bias, eps, group, two_pass=True):
+def sync_batch_norm_train(x, weight, bias, eps, group, two_pass=True, bands=None):
     """`_SyncBatchNorm` on an NHWC tensor's float32 (N*H*W, C) rows: (y in
-    x's shape, mean, biased var, the global row count)."""
+    x's shape, mean, biased var, the global row count). With `bands` (the
+    'x'/'y' mesh axes) the count is the whole map's over every data row
+    (`Bands.count`), else every rank's equal rows."""
     c = x.shape[-1]
+    n = (x.numel() // c * dist.get_world_size(group) if bands is None
+         else bands.count(x))
     y, mean, var = _SyncBatchNorm.apply(x.to(torch.float32).reshape(-1, c), weight, bias,
-                                        eps, group, two_pass)
-    return y.reshape(x.shape), mean, var, x.numel() // c * dist.get_world_size(group)
+                                        eps, group, two_pass, n)
+    return y.reshape(x.shape), mean, var, n
 
 
 class BatchNorm(nn.Module):
@@ -243,9 +298,14 @@ class BatchNorm(nn.Module):
     towards 0 (var * n / max(n - 1, 1) with n = 1). With `process_group` set
     the batch is every rank's rows (`_SyncBatchNorm`, two passes, as
     `_TorchBN` under an axis name), and n counts them all: a rank holding
-    one value per channel is normalized with the others' values too."""
+    one value per channel is normalized with the others' values too. On the
+    'x'/'y' axes `bands` gives that count (the whole map's); `whole_map`
+    marks a BN over a map that every band holds whole (its data rows'
+    moments: `parallel.mesh.sync_batch_norm`)."""
 
     process_group = None
+    bands = None
+    whole_map = False
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -260,8 +320,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
         if self.training and self.process_group is not None:
-            y, mean, var, n = sync_batch_norm_train(x, self.weight, self.bias, self.eps,
-                                                    self.process_group)
+            y, mean, var, n = sync_batch_norm_train(
+                x, self.weight, self.bias, self.eps, self.process_group,
+                bands=None if self.whole_map else self.bands)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * (var * (n / max(n - 1, 1))))
@@ -290,9 +351,10 @@ class FlaxBatchNorm(nn.Module):
     `zero_scale` starts the scale at 0 (a residual branch that starts as
     identity). The output is float32; callers cast it. With `process_group`
     set the train-mode moments are over every rank's rows (`_SyncBatchNorm`,
-    one pass)."""
+    one pass), counted by `bands` on the 'x'/'y' axes as `BatchNorm`'s."""
 
     process_group = None
+    bands = None
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
                  zero_scale: bool = False):
@@ -308,7 +370,8 @@ class FlaxBatchNorm(nn.Module):
         x = x.to(torch.float32)
         if self.training and self.process_group is not None:
             y, mean, var, _ = sync_batch_norm_train(x, self.weight, self.bias, self.eps,
-                                                    self.process_group, two_pass=False)
+                                                    self.process_group, two_pass=False,
+                                                    bands=self.bands)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(m * mean)

@@ -2,19 +2,26 @@
 
 The pools that take `bands` (a `parallel.bands.Bands`, set on the 'x'/'y'
 mesh axes) get a band of a whole map and return that band's share of the
-whole map's pool (the 3x3/2 pool) or the whole map's pool on every band
-(the global and adaptive pools)."""
+whole map's pool (the 2x2 and 3x3/2 pools: the window of its output rows,
+`Bands.window`) or the whole map's pool on every band (the global and
+adaptive pools). Bands may be unequal or empty (`parallel.halo.cut`)."""
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
-def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
+def max_pool2x2(x: torch.Tensor, bands=None) -> torch.Tensor:
     """`nn.MaxPool2d(2)` on (B,H,W,C): kernel 2, stride 2, floor mode.
 
     Floor mode drops an odd edge row or column. The result is NHWC-contiguous.
+    `bands`: x is a band of a whole map, and the result is the band's rows of
+    the whole map's pool, from the window of its output rows (`Bands.window`:
+    2 input rows an output row, which the band's own rows need not align
+    with where the map's rows do not divide evenly).
     """
+    if bands is not None:
+        x = bands.window(x, (2, 2), (2, 2), (0, 0), (1, 1))
     b, h, w, c = x.shape
     x = x[:, : h - h % 2, : w - w % 2, :]
     y = x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
@@ -24,18 +31,18 @@ def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
 def max_pool_3x3_s2_p1(x: torch.Tensor, bands=None) -> torch.Tensor:
     """`nn.MaxPool2d(3, stride=2, padding=1)` on (B,H,W,C), the ResNet stem
     pool: the padding never wins (-inf). The result is NHWC-contiguous.
-    `bands`: x is an even band of a whole map, and the result is the band's
-    rows of the whole map's pool: on a split axis a halo of one row of each
-    neighbour's (`Bands.halo`; an output row's window reaches one row above
-    the band, none below), -inf past the image's edge as the pool pads, and
-    no padding there; the gradient goes back through the halo's adjoint."""
+    `bands`: x is a band of a whole map, and the result is the band's rows
+    of the whole map's pool: on a split axis the window of its output rows
+    (`Bands.window`: output rows [a, b) read input rows [2a - 1, 2b)), -inf
+    past the image's edge as the pool pads, and no padding there; the
+    gradient goes back through the fetch's adjoint."""
     rows, cols = (0, 0) if bands is None else bands.split_axes()
-    if (rows and x.shape[1] % 2) or (cols and x.shape[2] % 2):
-        raise ValueError(f"a {x.shape[1]}x{x.shape[2]} band is odd on a split axis, so the "
-                         f"3x3/2 pool would not keep the bands whole (ROADMAP.md queue 1, "
-                         f"A11b b)")
     if rows or cols:
-        x = bands.halo(x, rows, cols, edge=float("-inf"))
+        x = bands.window(x, (3, 3), (2, 2), (1, 1), (1, 1), edge=float("-inf"))
+    if x.shape[1] == 0 or x.shape[2] == 0:  # an empty band's (empty) window
+        out = [0 if n == 0 else (n + 2 * p - 3) // 2 + 1
+               for n, p in zip(x.shape[1:3], (1 - rows, 1 - cols))]
+        return x[:, :out[0], :out[1]] * 1
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=(1 - rows, 1 - cols))
     return y.permute(0, 2, 3, 1).contiguous()
 
@@ -79,11 +86,11 @@ def _bin_rows(n: int, n0: int, full: int, out: int, dtype, device):
 
 
 def _band_adaptive_avg_pool(x: torch.Tensor, out_hw, bands) -> torch.Tensor:
-    (i, nx), (j, ny) = bands.place
+    (h0, full_h), (w0, full_w) = bands.place_of(x)
     h, w = x.shape[1:3]
     acc = torch.promote_types(x.dtype, torch.float32)
-    a_h, n_h = _bin_rows(h, i * h, nx * h, out_hw[0], acc, x.device)
-    a_w, n_w = _bin_rows(w, j * w, ny * w, out_hw[1], acc, x.device)
+    a_h, n_h = _bin_rows(h, h0, full_h, out_hw[0], acc, x.device)
+    a_w, n_w = _bin_rows(w, w0, full_w, out_hw[1], acc, x.device)
     sums = torch.einsum("jw,biwc->bijc", a_w, torch.einsum("ih,bhwc->biwc", a_h, x.to(acc)))
     total = bands.sum(sums)
     return (total / (n_h[:, None] * n_w[None, :])[None, :, :, None]).to(x.dtype).contiguous()
@@ -103,10 +110,11 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = True, bands=None) -> torch
     """Mean over H and W of (B,H,W,C): (B,1,1,C), or (B,C) without keepdims.
     `bands` (a `parallel.bands.Bands`, set on the 'x'/'y' mesh axes): x is a
     band of a whole map, and the mean is the whole map's: the bands' sums (in
-    float32 at least) all-reduced over them, divided by the whole map's H * W."""
+    float32 at least) all-reduced over them, divided by the whole map's H * W
+    (an empty band adds zeros)."""
     if bands is None:
         return x.mean(dim=(1, 2), keepdim=keepdims)
-    h, w = bands.full_hw(x)
+    h, w = bands.of(x)
     acc = torch.promote_types(x.dtype, torch.float32)
     total = bands.sum(x.to(acc).sum(dim=(1, 2), keepdim=keepdims))
     return (total / (h * w)).to(x.dtype)

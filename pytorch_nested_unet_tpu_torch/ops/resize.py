@@ -27,13 +27,14 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True,
     operator's own backward adds with atomics on a card, so it differs run
     to run, and torch refuses it in that mode. `bands` (a
     `parallel.bands.Bands`, set on the 'x'/'y' mesh axes): x is a band of a
-    whole map, and the result is that band's share of the whole map's
-    resize (`Bands.resize`, through `resize_bilinear_band`)."""
+    whole map, out_hw this band's share of the target's size (a band's
+    size, or a multiple of x's), and the result is the band's share of the
+    whole map's resize (`Bands.resize`, through `resize_band`)."""
+    if bands is not None:
+        return bands.resize(x, out_hw, align_corners)
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     if tuple(x.shape[1:3]) == (out_h, out_w):
         return x
-    if bands is not None:
-        return bands.resize(x, (out_h, out_w), align_corners)
     if x.requires_grad and torch.is_grad_enabled() and \
             torch.are_deterministic_algorithms_enabled():
         return _DeterministicBilinear.apply(x, out_h, out_w, align_corners)
@@ -83,13 +84,15 @@ class _DeterministicBilinear(torch.autograd.Function):
         return gx.contiguous(), None, None, None
 
 
-def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_nearest(x: torch.Tensor, out_hw, bands=None) -> torch.Tensor:
     """Nearest resize of (B,H,W,C) to (B,out_h,out_w,C) as the JAX package
     indexes it: output row i reads input row floor(i * H / out_h), in exact
     integer arithmetic (the JAX package takes the floor in float64, which
     gives the same index at every size; `F.interpolate(mode="nearest")`
     scales in float32). ResNetFCN's score pyramid (reference CRDN.py:855-863).
-    The result is NHWC-contiguous."""
+    The result is NHWC-contiguous. `bands`: as `resize_bilinear`'s."""
+    if bands is not None:
+        return bands.resize(x, out_hw, False, mode="nearest")
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     h, w = x.shape[1:3]
     if (h, w) == (out_h, out_w):
@@ -105,59 +108,72 @@ def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners)
 
 
-@functools.lru_cache(maxsize=64)  # a few band geometries a model; no copy per call
-def _band_taps(n: int, n0: int, full: int, halo: int, device, scale: int = 2,
-               align_corners: bool = True):
-    """For the scale*n output positions [scale*n0, scale*(n0 + n)) of a
-    `scale`x bilinear resize of a `full`-long axis: the two source indices
-    of each, local to a band of n positions from n0 with `halo` more on each
-    side, and the weight of the second. Positions and weights as
-    F.interpolate takes them, in float32: align corners, src = i * (full -
-    1) / (scale * full - 1); half-pixel centres, src = (i + 0.5) / scale -
-    0.5 clamped at 0 (and the second index at full - 1), so at the map's
-    edge a band reads its own edge row."""
-    o = np.arange(scale * n0, scale * (n0 + n), dtype=np.float32)
+@functools.lru_cache(maxsize=256)  # a few band geometries a model
+def resize_taps(n_in: int, n_out: int, a: int, b: int, mode: str = "bilinear",
+                align_corners: bool = True, double: bool = False):
+    """For output positions [a, b) of a resize of an axis from n_in to
+    n_out: the two source indices of each (whole-map indices) and the
+    weight of the second, as F.interpolate takes them in float32 (float64
+    with `double`, as it takes them for float64 maps): align corners, src =
+    o * (n_in - 1) / (n_out - 1); half-pixel, src = (o + 0.5) * n_in / n_out
+    - 0.5 clamped at 0 (and the second index at n_in - 1). "nearest": the
+    index floor(o * n_in / n_out) (`resize_nearest`'s) twice, weight 0."""
+    o = np.arange(a, b)
+    f = np.float64 if double else np.float32
+    if mode == "nearest":
+        i0 = o * n_in // n_out
+        return i0, i0, np.zeros(len(o), f)
+    of = o.astype(f)
     if align_corners:
-        src = o * (np.float32((full - 1) / (scale * full - 1)) if full > 1 else np.float32(0))
+        src = of * (f((n_in - 1) / (n_out - 1)) if n_out > 1 else f(0))
     else:
-        src = np.maximum(np.float32(1 / scale) * (o + np.float32(0.5)) - np.float32(0.5),
-                         np.float32(0))
+        src = np.maximum(f(n_in / n_out) * (of + f(0.5)) - f(0.5), f(0))
     i0 = np.floor(src).astype(np.int64)
-    lam = (src - i0).astype(np.float32)
-    i1 = np.minimum(i0 + 1, full - 1)
-    local0, local1 = i0 - n0 + halo, i1 - n0 + halo
-    if local0.min() < 0 or local1.max() >= n + 2 * halo:
-        raise ValueError(f"resize_bilinear_band: a band of {n} at {n0} of {full} needs a wider "
-                         f"halo than {halo}")
-    return (torch.from_numpy(local0).to(device), torch.from_numpy(local1).to(device),
-            torch.from_numpy(lam).to(device))
+    lam = (src - i0).astype(f)
+    return i0, np.minimum(i0 + 1, n_in - 1), lam
 
 
-def resize_bilinear_band(x: torch.Tensor, h0: int, full_h: int, w0: int, full_w: int,
-                         scale_h: int, scale_w: int, halo_rows: int = 0, halo_cols: int = 0,
-                         align_corners: bool = True) -> torch.Tensor:
-    """The band [scale_h*h0, scale_h*(h0 + h)) x [scale_w*w0, scale_w*(w0 +
-    w)) of the bilinear resize by integer factors of a whole (B, full_h,
-    full_w, C) map, from its band (B, h, w, C) given with `halo_rows` rows
-    of its neighbours above and below and `halo_cols` columns left and right
-    (zeros past the map's edge, which no output reads). Source positions are
-    the whole map's (`_band_taps`): an output row reads within one row of
-    its band's own, so a halo of 1 suffices on a resized split axis, and
-    none on an axis of factor 1. Computed in float32 (float64 for float64
-    x), cast to x's dtype; the result is NHWC-contiguous."""
-    y = x.to(torch.promote_types(x.dtype, torch.float32))
-    for dim, n0, full, scale, halo in ((1, h0, full_h, scale_h, halo_rows),
-                                       (2, w0, full_w, scale_w, halo_cols)):
-        n = y.shape[dim] - 2 * halo
-        if scale == 1:
-            y = y.narrow(dim, halo, n)
+def resize_window(n_in: int, n_out: int, a: int, b: int, mode: str = "bilinear",
+                  align_corners: bool = True, double: bool = False):
+    """The input rows [lo, hi) that output rows [a, b) of the resize read
+    (an empty range for no output rows)."""
+    if b <= a:
+        return (0, 0)
+    i0, i1, _ = resize_taps(n_in, n_out, a, b, mode, align_corners, double)
+    return int(i0.min()), int(i1.max()) + 1
+
+
+@functools.lru_cache(maxsize=256)  # a few band geometries a model; no copy per call
+def _band_taps(n_in: int, n_out: int, a: int, b: int, lo: int, mode: str, align_corners: bool,
+               device, dtype):
+    """`resize_taps` on `device`: the source indices local to a window of
+    the input from row `lo`, and the weights in `dtype`."""
+    i0, i1, lam = resize_taps(n_in, n_out, a, b, mode, align_corners, dtype == torch.float64)
+    return (torch.from_numpy(i0 - lo).to(device), torch.from_numpy(i1 - lo).to(device),
+            torch.from_numpy(lam).to(device, dtype))
+
+
+def resize_band(x: torch.Tensor, origin, full_in, full_out, out_span, mode: str = "bilinear",
+                align_corners: bool = True) -> torch.Tensor:
+    """Output rows out_span[0] and columns out_span[1] (each [a, b)) of the
+    resize of a whole (B, *full_in, C) map to full_out, from x, the input's
+    rows and columns from `origin` = (row, column) on (at least the
+    `resize_window` of those rows and columns). Bilinear in float32
+    (float64 for float64 x), cast to x's dtype; nearest by indexing. The
+    result is NHWC-contiguous."""
+    y = x if mode == "nearest" else x.to(torch.promote_types(x.dtype, torch.float32))
+    for dim, lo, n_in, n_out, (a, b) in zip((1, 2), origin, full_in, full_out, out_span):
+        if n_in == n_out:
+            y = y.narrow(dim, a - lo, b - a)
             continue
-        i0, i1, lam = _band_taps(n, n0, full, halo, x.device, scale, align_corners)
+        i0, i1, lam = _band_taps(n_in, n_out, a, b, lo, mode, align_corners, y.device, y.dtype)
+        first = y.index_select(dim, i0)
+        if mode == "nearest":
+            y = first
+            continue
         shape = [1, 1, 1, 1]
         shape[dim] = -1
-        lam = lam.reshape(shape)
-        a, b = y.index_select(dim, i0), y.index_select(dim, i1)
-        y = a + (b - a) * lam
+        y = first + (y.index_select(dim, i1) - first) * lam.reshape(shape)
     return y.to(x.dtype).contiguous()
 
 
@@ -177,25 +193,18 @@ def resize_bilinear_to_band(x: torch.Tensor, h0: int, h: int, full_h: int, w0: i
 
 
 class Upsample2x(nn.Module):
-    """`upsample2x` (align corners) as a model's module, so that it can run
-    on bands. `band` = ((i, nx), (j, ny)): this band's index and the band
-    count on H and on W; `halo` = (rows, cols): how many neighbour rows and
-    columns the input carries beyond the band. Both are set on the 'x'/'y'
-    mesh axes (`parallel.mesh.spatial_partition`); the output is then the
-    band's rows and columns of the whole map's upsample
-    (`resize_bilinear_band` at factor 2: output row i reads source position
-    i * (H - 1) / (2H - 1) of the whole map, within half a row of i / 2)."""
+    """`upsample2x` (align corners) as a model's module. `bands` (a
+    `parallel.bands.Bands`, set on the 'x'/'y' mesh axes): the output is
+    the band's rows and columns of the whole map's upsample
+    (`Bands.resize`: output row i reads source position i * (H - 1) / (2H -
+    1) of the whole map)."""
 
-    band = ((0, 1), (0, 1))
-    halo = (0, 0)
+    bands = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.band == ((0, 1), (0, 1)):
-            return upsample2x(x)
-        (i, nx), (j, ny) = self.band
-        rows, cols = self.halo
-        h, w = x.shape[1] - 2 * rows, x.shape[2] - 2 * cols
-        return resize_bilinear_band(x, i * h, nx * h, j * w, ny * w, 2, 2, rows, cols)
+        if self.bands is not None:
+            return self.bands.resize(x, (x.shape[1] * 2, x.shape[2] * 2), True)
+        return upsample2x(x)
 
 
 def resize_area(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -10,21 +10,29 @@ variance (K1 in its sums-only mode and `bn_finish` for `FusedBatchNormReLU`,
 plain all-reduces for `BatchNorm` and `FlaxBatchNorm`), so an N-rank step
 over a global batch B is the one-process step over B.
 
-Spatial partitioning ('x' over H, 'y' over W; the archs of SPATIAL_RULES:
-UNet, NestedUNet under any --remat mode, the attention U-Nets, the CRDN
-UNets with UNetRNNGhost and the dual-attention UNetRNNs, VGG16RNN, CA-Net,
-the ResNet*RNN and ResNet50UNet backbones, DoubleUnet and the PSP hybrids):
-each rank of a 'data' row holds a band of its images, rows
-[i*H/X, (i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y). Every stencil takes its
-neighbours' edge rows first (`halo.halo_exchange`, which XLA inserts itself
-under GSPMD), strided convs and the 3x3/2 pool too (`conv_halo`), the BN
-moments are taken over every band of every data row
-(the whole world), what attends or pools over the whole map takes the band
-collectives of its data row (bands.py: an all-gather of keys and values, an
-all-reduce of sums and maxima), channel dropout draws per data row, and the
-heads are gathered (`halo.gather_bands`) so the loss and the metrics are the
-whole image's. The gradients are then summed over the bands and averaged
-over 'data': one all-reduce over the world divided by the 'data' size.
+Spatial partitioning ('x' over H, 'y' over W; every arch of the registry,
+NestedUNet under any --remat mode): each rank of a 'data' row holds a band
+of its images, and of every map its layers make: a map of n rows is cut
+into rows [floor(i*n/X), floor((i+1)*n/X)) (`halo.cut`; likewise columns
+over 'y'), so bands may be unequal or, where n < X, empty, as GSPMD pads
+them in the JAX package, whose only rule is that X divides H and Y divides
+W (`check_spatial`). Every op that maps a band computes exactly its own
+output rows under its output map's cut and reads its input rows through
+one primitive, `halo.fetch` (which XLA inserts itself under GSPMD): convs
+of any kernel, stride, padding and dilation and the pools take the window
+of their output rows (`bands.Bands.window`; a stride-1 conv that keeps the
+size takes its band with p rows of each side, as a halo), transposed convs
+of kernel = stride theirs (`Bands.deconv_window`), and resizes to any size
+the rows they read (`Bands.resize`). The BN moments are taken over every
+band of every data row (the whole world), each BN's count the whole map's
+pixels over the batch group; what attends or pools over the whole map
+takes the band collectives of its data row (bands.py: an all-gather of keys
+and values, an all-reduce of sums and maxima, means as sums over the whole
+map's count); a dropout draws its data rows' whole masks and keeps its
+band's share; and the heads are gathered (`halo.gather_bands`) so the loss
+and the metrics are the whole image's. The gradients are then summed over
+the bands and averaged over 'data': one all-reduce over the world divided
+by the 'data' size.
 
 The 'model' axis (tensor-parallel state, the JAX package's
 `tensor_parallel_spec` and `state_shardings`): between steps each rank holds
@@ -61,10 +69,9 @@ import torch
 import torch.distributed as dist
 
 from ..ops import fused_bn
-from ..ops.layers import (JAX_KERNEL_TO_PORT, BatchNorm, ChannelDropout, Dropout, FlaxBatchNorm,
-                          TorchConv, TorchConvTranspose)
-from ..ops.resize import Upsample2x
-from .halo import halo_exchange
+from ..ops.layers import (JAX_KERNEL_TO_PORT, BatchNorm, Dropout, FlaxBatchNorm, TorchConv,
+                          TorchConvTranspose)
+from .halo import cut
 
 PORTED_AXES = ("data", "x", "y", "model")
 SPATIAL_AXES = ("x", "y")  # H over 'x', W over 'y'
@@ -78,51 +85,6 @@ NOTHING_SHARDED = ("the 'model' axis (size {}) shards nothing in this arch — n
 
 class NothingSharded(ValueError):
     """A 'model' axis that shards none of the model's weights."""
-
-
-# The archs that run on bands, each with (pools, halo): the count of its
-# halvings (2x2 floor pools, stride-2 convs and 3x3/2 pools), so that H
-# must be a multiple of 2**pools * x (and W of 2**pools * y) for every band
-# to stay whole and even through them and every level to halve, and the
-# widest halo a conv takes at its coarsest level, so that a band there must
-# hold at least that many rows (and columns): `halo.halo_exchange` takes rows
-# from the next band only. Every op of these archs is local on a band
-# after a halo, or takes a band collective: convs that map a band onto its
-# own output rows (`conv_halo`: stride-1 convs that keep the size, grouped
-# ones too, the ResNet stems' 7x7/2, their blocks' 3x3/2 and 1x1/2, kernel =
-# stride), 2x2 floor pools and the 3x3/2 pool (a halo of 1, -inf past the
-# image's edge), BNs over the world (`sync_batch_norm`), 2x align-corners
-# upsamples (a halo of 1), nearest 2x upsamples (none), the CRDN cell's carry
-# resize, which is a 2x align-corners upsample where every level halves,
-# half-pixel resizes by 2, 4 and 8 (a halo of 1: bands.py's `Bands.resize`),
-# 2x2 stride-2 deconvs, and what attends or pools over the whole map (PAM,
-# CAM, the non-local block, the grid gates' softmax, the SE and channel
-# gates, PSP's adaptive pools and the resize of their bins: bands.py). The
-# CRDN score blocks and VGG16RNN's are 5x5 convs (a halo of 2); UNetRNNGhost's
-# are Ghost bottlenecks (1x1 and depthwise 3x3 convs, a halo of 1). CA-Net's
-# non-local block pools its keys once more at its 3rd level, which the rule
-# keeps even (H / (8x) of a multiple of 16x). The ResNet trunks halve 4 times
-# (the 3x3/2 pool, layer2-4) and DoubleUnet 5 (its 7x7/2 stem too), 3x3
-# convs at the coarsest level; the PSP hybrids take UNetRNN's 4 pools with
-# its 5x5 score convs, whose 2 rows a band at 1/16 leave 4 at 1/8 for the
-# refinement trunk's dilation-4 convs. An RDC's gate convs take
-# kernel_size // 2 at the coarsest level, which `band_rule` reads off the
-# built model.
-_RESNET = {a: (4, 1) for a in ("ResNet18RNN", "ResNet34RNN", "ResNet50RNN", "ResNet101RNN",
-                               "ResNet152RNN", "ResNet50UNet")}
-SPATIAL_RULES = {"UNet": (4, 1), "NestedUNet": (4, 1), "AttU_Net": (4, 1), "R2U_Net": (4, 1),
-                 "R2AttU_Net": (4, 1), "UNetRNN": (4, 2), "UNetRM3": (2, 2), "UNetRM7": (6, 2),
-                 "UNetRNNGhost": (4, 1), "UNetRNNPAttention": (4, 2),
-                 "UNetRNNCAttention": (4, 2), "UNetRNNAttention": (4, 2), "VGG16RNN": (4, 2),
-                 "Comprehensive_Atten_Unet": (4, 1), **_RESNET, "DoubleUnet": (5, 1),
-                 "UNetRNNPSP": (4, 2), "UNetRNNCAttention_PSP": (4, 2)}
-QUEUED_ARCHS = ("ROADMAP.md queue 1, A11b a: ResNet50FCN (its classifier's valid 3x3 conv "
-                "and nearest resizes at non-integer ratios) and DeepLab (ASPP's dilations "
-                "wider than a band at 1/16, element-wise dropouts) wait on uneven and thin "
-                "bands, A11b b")
-QUEUED_DROPOUT = ("ROADMAP.md queue 1, A11b b: an element-wise dropout's mask on bands (the "
-                  "whole image's draw cut to the band) is queued")
-QUEUED_BANDS = "ROADMAP.md queue 1, A11b b: uneven and thin bands are queued"
 
 
 class Mesh:
@@ -311,7 +273,8 @@ def parse_mesh_spec(spec: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
 class Band:
     """This rank's share of a global (B, H, W, C) batch under 'x'/'y': its
     data rows, and its band's first row and column in the whole image, its
-    height and width, and the whole image's."""
+    height and width (`halo.cut`: they may differ between bands), and the
+    whole image's."""
     rows: slice
     h0: int
     h: int
@@ -327,9 +290,10 @@ class Band:
 
 def batch_sharding(mesh: Mesh, global_batch: int, spatial: bool = False, hw=None):
     """This rank's rows of a global batch (B over 'data'); with `spatial`,
-    the `Band` of images of size `hw` = (H, W) it holds (H over 'x', W over
-    'y'), as the JAX package's `batch_sharding(mesh, spatial)` lays it out.
-    Raises ValueError when the batch or the image does not divide evenly."""
+    the `Band` of images of size `hw` = (H, W) it holds (H cut over 'x', W
+    over 'y'), as the JAX package's `batch_sharding(mesh, spatial)` lays it
+    out. Raises ValueError when the batch does not divide over 'data' or the
+    image over the spatial axes (the JAX rule)."""
     if global_batch % mesh.size:
         raise ValueError(f"global batch {global_batch} not divisible by the mesh 'data' "
                          f"axis size {mesh.size}")
@@ -342,51 +306,27 @@ def batch_sharding(mesh: Mesh, global_batch: int, spatial: bool = False, hw=None
     if full_h % nx or full_w % ny:
         raise ValueError(f"input {full_h}x{full_w} not divisible by the spatial mesh axes "
                          f"{mesh.shape}")
-    h, w = full_h // nx, full_w // ny
-    return Band(rows, i * h, h, j * w, w, full_h, full_w)
+    ch, cw = cut(full_h, nx), cut(full_w, ny)
+    return Band(rows, ch[i], ch[i + 1] - ch[i], cw[j], cw[j + 1] - cw[j], full_h, full_w)
 
 
-def check_spatial(arch: str, hw=None, mesh_shape: Optional[Dict[str, int]] = None,
-                  rule=None):
-    """Raise ValueError unless `arch` can run under the 'x'/'y' axes: one of
-    SPATIAL_RULES (any --remat mode of NestedUNet's), and, given the input
-    size `hw` and the mesh's shape, by its rule (`rule`: the built model's,
-    `band_rule`; default the table's): H a multiple of 2**pools * x and W of
-    2**pools * y, and at the coarsest level a band of at least `halo` rows
-    on 'x' and columns on 'y' (where split)."""
-    if arch not in SPATIAL_RULES:
-        raise ValueError(f"spatial partitioning ('x'/'y') is ported for "
-                         f"{', '.join(SPATIAL_RULES)}, not {arch} ({QUEUED_ARCHS})")
+def check_spatial(arch: str, hw=None, mesh_shape: Optional[Dict[str, int]] = None):
+    """Raise ValueError unless `arch` can run under the 'x'/'y' axes at the
+    input size `hw` (when given) on a mesh of `mesh_shape`: the JAX CLI's
+    rule (train.py:299-302), an arch of the registry, H a multiple of x and
+    W of y. Every arch, any --remat mode and any such size runs on bands
+    wherever its one-process step runs at that size."""
+    from ..models import arch_names
+
+    if arch not in arch_names():
+        raise ValueError(f"unknown arch {arch!r}")
     if hw is None:
         return
-    pools, halo = rule or SPATIAL_RULES[arch]
     h, w = (int(v) for v in hw)
     nx, ny = (mesh_shape.get(a, 1) for a in SPATIAL_AXES)
-    mx, my = (2 ** pools) * nx, (2 ** pools) * ny
-    if h % mx or w % my:
-        raise ValueError(f"input {h}x{w}: every band must stay whole and even through "
-                         f"{arch}'s {pools} halvings, so H must be a multiple of {2 ** pools} * "
-                         f"x = {mx} and W of {2 ** pools} * y = {my} ({QUEUED_BANDS})")
-    rows, cols = h // mx, w // my
-    if (nx > 1 and rows < halo) or (ny > 1 and cols < halo):
-        raise ValueError(f"input {h}x{w}: {arch}'s coarsest level ({h >> pools}x{w >> pools}) "
-                         f"leaves bands of {rows}x{cols} under {mesh_shape}, thinner than the "
-                         f"halo of {halo} its convs take there ({QUEUED_BANDS})")
-
-
-def band_rule(module: torch.nn.Module) -> Tuple[int, int]:
-    """The band rule of a built model of SPATIAL_RULES, as `check_spatial`
-    takes it: its halvings at the depth it was built with (`_pools`), and the
-    table's coarsest halo, widened to its RDC's gate convs' (an option:
-    kernel_size // 2)."""
-    from ..models.rdc import RDC
-
-    halo = SPATIAL_RULES[type(module).__name__][1]
-    for cell in module.modules():
-        if isinstance(cell, RDC):
-            halo = max([halo] + [max(c.padding) for c in cell.modules()
-                                 if isinstance(c, TorchConv)])
-    return _pools(module), halo
+    if h % nx or w % ny:
+        raise ValueError(f"input {h}x{w} not divisible by the spatial mesh axes {mesh_shape}: "
+                         f"H must be a multiple of x = {nx} and W of y = {ny}")
 
 
 @torch.no_grad()
@@ -407,10 +347,15 @@ def sync_batch_norm(module: torch.nn.Module, mesh: Mesh):
     rows, this rank's kept, so the bands of one data row drop alike (off
     'x'/'y' the data group is the batch group). The 'model' peers hold the
     same rows, so they stay out (each row would count twice, and the
-    running variance's n / (n - 1) would change)."""
+    running variance's n / (n - 1) would change). A BN marked `whole_map`
+    (ASPP's pooled branch: a map every band holds whole) goes on the data
+    group."""
     for m in module.modules():
         if isinstance(m, (fused_bn.FusedBatchNormReLU, BatchNorm, FlaxBatchNorm)):
-            m.process_group = mesh.batch_group
+            # a BN over a map that every band holds whole (a pooled branch)
+            # takes the data rows' moments: each band has them all
+            m.process_group = mesh.data_group if getattr(m, "whole_map", False) \
+                else mesh.batch_group
         elif isinstance(m, Dropout):
             m.process_group = mesh.data_group
 
@@ -576,172 +521,114 @@ def load_full_state(module: torch.nn.Module, state):
 
 
 def conv_halo(conv: TorchConv, mesh) -> Tuple[int, int]:
-    """(rows, cols) of halo `conv` takes on `mesh`'s partitioned 'x'/'y'
-    axes. A conv of kernel k, stride s, padding p and dilation d maps a band
-    of n rows (n and the band's first row multiples of s) onto exactly its
-    own n / s rows of the whole map's output iff d(k-1) + 1 - s <= 2p <=
-    d(k-1): a stride-1 conv that keeps the size (2p = d(k-1)), the ResNet
-    stems' 7x7/2 p3, their blocks' 3x3/2 p1 and 1x1/2 p0, kernel = stride
-    without padding. Its windows reach p rows above the band and d(k-1) - p
-    - s + 1 <= p below, so it takes a halo of p (none for kernel = stride)
-    and runs without padding on that axis; a strided one also checks that
-    its band divides by the stride (a pre-hook). Raises ValueError for any
-    other conv on a partitioned axis (a valid conv, whose output rows no
-    even cut of the bands holds)."""
-    halo = []
-    for axis, k, p, s, d in zip(SPATIAL_AXES, conv.weight.shape[2:], conv.padding,
-                                conv.stride, conv.dilation):
-        if not mesh.partitioned(axis):
-            halo.append(0)
-        elif d * (k - 1) + 1 - s <= 2 * p <= d * (k - 1):
-            halo.append(p)
-        else:
-            raise ValueError(f"TorchConv (kernel {tuple(conv.weight.shape[2:])}, stride "
-                             f"{conv.stride}, padding {conv.padding}) changes the size, so it "
-                             f"cannot run on bands of the '{axis}' axis ({QUEUED_ARCHS})")
-    return halo[0], halo[1]
+    """(rows, cols): `conv`'s padding on each of `mesh`'s partitioned 'x'/'y'
+    axes, 0 elsewhere. On such an axis the conv reads the window of its
+    output rows (`bands.Bands.window`: a stride-1 conv that keeps the size
+    its band with p rows of each side) and runs without its padding; the
+    window's rows past the map's edge are zeros."""
+    return tuple(p if mesh.partitioned(a) else 0 for a, p in zip(SPATIAL_AXES, conv.padding))
 
 
 def check_transposed_conv(conv: TorchConvTranspose, mesh):
-    """Raise ValueError unless `conv` is local on bands of `mesh`'s
-    partitioned axes: kernel = stride, no padding, no output padding (each
-    input row makes its own `stride` output rows; CA-Net's 2x2 stride-2
-    deconvs)."""
+    """Raise ValueError unless `conv` maps bands of `mesh`'s partitioned
+    axes: kernel = stride, no padding, no output padding (each input row
+    makes its own `stride` output rows; CA-Net's and ResNet50UNet's 2x2
+    stride-2 deconvs), whose band reads the window of its output rows."""
     for axis, k, p, op, s in zip(SPATIAL_AXES, conv.weight.shape[2:], conv.padding,
                                  conv.output_padding, conv.stride):
         if mesh.partitioned(axis) and (k != s or p or op):
             raise ValueError(f"TorchConvTranspose (kernel {tuple(conv.weight.shape[2:])}, "
                              f"stride {conv.stride}, padding {conv.padding}) overlaps its "
-                             f"windows, so it cannot run on bands of the '{axis}' axis "
-                             f"({QUEUED_ARCHS})")
+                             f"windows, so it cannot run on bands of the '{axis}' axis")
 
 
-def _check_strides(m, args):
-    """Forward pre-hook of a strided conv on bands: the band must divide by
-    the stride, so that it holds whole windows (kernel = stride) or its
-    first row is an output row's centre."""
-    h, w = args[0].shape[1:3]
-    if h % m.stride[0] or w % m.stride[1]:
-        raise ValueError(f"a {h}x{w} band does not divide by the stride {m.stride} of its "
-                         f"conv, so the bands would not hold whole windows ({QUEUED_BANDS})")
+def _local(m: TorchConv, mesh) -> bool:
+    """Whether a conv maps each band onto its own rows without reading any
+    other: kernel 1, stride 1, no padding on every partitioned axis."""
+    return all(k == 1 and s == 1 and p == 0 or not mesh.partitioned(a)
+               for a, k, s, p in zip(SPATIAL_AXES, m.weight.shape[2:], m.stride, m.padding))
 
 
-def _give_halo(mesh, m, args):
-    """Forward pre-hook: the input (a tensor, or a K4 node's parts) with the
-    module's halo of the neighbours' rows and columns (a strided conv's
-    band checked first)."""
-    x, rows, cols = args[0], *m.halo
-    if isinstance(m, TorchConv) and max(m.stride) > 1:
-        _check_strides(m, args)
-    if isinstance(x, torch.Tensor):
-        return (halo_exchange(x, mesh, rows, cols),)
-    return (tuple(halo_exchange(p, mesh, rows, cols) for p in x),)
+def _give_window(bands, m, args):
+    """Forward pre-hook: the input (a tensor, or a K4 node's parts) as the
+    window of the module's output rows on each split axis; for a transposed
+    conv also the output rows to drop (`crop`)."""
+    x = args[0]
+    if isinstance(m, TorchConvTranspose):
+        x, m.crop = bands.deconv_window(x, m.stride)
+        return (x,)
+    if isinstance(m, TorchConv):
+        return (bands.window(x, m.weight.shape[2:], m.stride, m.padding, m.dilation),)
+    return (tuple(bands.window(p, (3, 3), (1, 1), (1, 1), (1, 1)) for p in x),)
 
 
-def _give_carry_halo(mesh, m, args, kwargs):
-    """Forward pre-hook (with kwargs) of the CRDN cell: where the carry (h,
-    and c for the LSTM) is resized, i.e. is not the size of the level's
-    score map, the carry with the cell's halo and `haloed=True`."""
-    x, *carry = args
-    if tuple(carry[0].shape[1:3]) == tuple(x.shape[1:3]):
-        return None
-    rows, cols = m.halo
-    return (x, *(halo_exchange(c, mesh, rows, cols) for c in carry)), {**kwargs, "haloed": True}
+_HALO_HOOKS = weakref.WeakKeyDictionary()  # module -> its window hook's handle
+_BANDS = weakref.WeakKeyDictionary()  # module put on bands -> its bands.Bands
 
 
-_HALO_HOOKS = weakref.WeakKeyDictionary()  # module -> its halo hook's handle
-
-
-def _pools(module: torch.nn.Module) -> int:
-    """The halvings of a model of SPATIAL_RULES at the depth it was built
-    with: the ResNet trunks' 3x3/2 pool and each of layer2-4 that holds a
-    block, DoubleUnet's stem, pool and 3 strided groups; else one fewer than
-    its levels: the attention U-Nets' `levels`, the CRDN UNets' (the PSP
-    hybrids' too) and CA-Net's `filters` (a width a level), VGG16RNN's
-    `STAGES`; UNet and NestedUNet have 5."""
-    from ..models.crdn_backbones import _ResNetTrunk
-    from ..models.double_unet import DoubleUnet
-
-    if isinstance(module, _ResNetTrunk):
-        return 1 + sum(len(getattr(module, f"layer{s}")) > 0 for s in (2, 3, 4))
-    if isinstance(module, DoubleUnet):
-        return 1 + len(module.layers)
-    levels = (getattr(module, "levels", None) or len(getattr(module, "filters", ()))
-              or len(getattr(module, "STAGES", ())) or 5)
-    return levels - 1
+def bands_of(module: torch.nn.Module):
+    """The `bands.Bands` that `put_on_bands` gave `module` last (None off
+    bands): a step runs inside its `step`."""
+    return _BANDS.get(module)
 
 
 def spatial_partition(module: torch.nn.Module, mesh: Optional[Mesh]):
-    """Run `module` (an arch of SPATIAL_RULES; NestedUNet under any --remat
-    mode) on this rank's band of `mesh`: every TorchConv, MultipartConv3x3
-    (K4), Upsample2x and CRDN cell (`models.rdc.RDC`, for its carry's
-    resize) gets a forward pre-hook that gives its input its halo
-    (`halo.halo_exchange`), and the (rows, cols) of that halo and, for an
-    upsample or a cell, the band's place as plain ints; a strided conv's
-    pre-hook checks that its band divides by the stride; every module that
-    declares `bands` (attention, global and adaptive pools, the 3x3/2 pool,
-    the resizes of CA-Net, the ResNet decoders, DoubleUnet and the
-    refinement net) gets a `bands.Bands` of the mesh. With None, on whole
-    images again.
-    Raises ValueError for another arch, a depth other than its rule's, an
-    element-wise dropout that draws masks (channel dropout draws per data
-    row, `sync_batch_norm`), or a conv or transposed conv that changes the
-    size otherwise than locally."""
+    """Run `module` (any arch of the registry; NestedUNet under any --remat
+    mode) on this rank's band of `mesh`; see `put_on_bands`. With None, on
+    whole images again. Raises ValueError for an arch the registry does not
+    hold."""
     if mesh is not None:
-        arch = type(module).__name__
-        check_spatial(arch)
-        if _pools(module) != SPATIAL_RULES[arch][0]:
-            raise ValueError(f"{arch} with {_pools(module)} pools: its band rule holds for "
-                             f"{SPATIAL_RULES[arch][0]} ({QUEUED_BANDS})")
+        check_spatial(type(module).__name__)
     put_on_bands(module, mesh)
 
 
 def put_on_bands(module: torch.nn.Module, mesh: Optional[Mesh]):
-    """`spatial_partition`'s hooks, halos, band places and `bands` on every
-    module of `module` (any module: the band ops' tests put single blocks
-    on bands), without an arch's band rule; with None, off again. Raises
-    ValueError for an element-wise dropout that draws masks or a transposed
-    conv whose windows overlap."""
+    """Put `module` (any module: the band ops' tests put single blocks on
+    bands) on this rank's band of `mesh`: a `bands.Bands` of the mesh on
+    every module that declares `bands` (the BNs, dropouts, resizes, pools,
+    attention and the models that pool), a forward pre-hook on every conv
+    that reads other rows than its own (all but 1x1 stride-1 convs),
+    transposed conv and MultipartConv3x3 (K4) that gives its input the
+    window of its output rows (`halo.fetch`), with `halo` = (rows, cols) the
+    padding it then leaves out; `bands_of(module)` is that Bands. With
+    None, off again. Raises ValueError for a transposed conv whose windows
+    overlap."""
     from ..models.blocks import MultipartConv3x3
-    from ..models.rdc import RDC
     from .bands import Bands
 
     bands = None
     if mesh is not None:
         for m in module.modules():
-            if isinstance(m, Dropout) and not isinstance(m, ChannelDropout) and m.p > 0:
-                raise ValueError(f"{type(module).__name__} with an element-wise dropout on "
-                                 f"({QUEUED_DROPOUT})")
             if isinstance(m, TorchConvTranspose):
                 check_transposed_conv(m, mesh)
-        bands = Bands(mesh)
+        bands = _BANDS[module] = Bands(mesh)
+    else:
+        _BANDS.pop(module, None)
     one = tuple(int(mesh.partitioned(a)) for a in SPATIAL_AXES) if mesh is not None else None
     for m in module.modules():
         if hasattr(type(m), "bands"):
             m.bands = bands
-        if not isinstance(m, (TorchConv, MultipartConv3x3, Upsample2x, RDC)):
-            continue
         handle = _HALO_HOOKS.pop(m, None)
         if handle is not None:
             handle.remove()
-        m.halo = (0, 0)
-        if isinstance(m, (Upsample2x, RDC)):
-            m.band = ((0, 1), (0, 1))
+        if isinstance(m, TorchConvTranspose):
+            m.crop = (0, 0, 0, 0)
+        elif isinstance(m, (TorchConv, MultipartConv3x3)):
+            m.halo = (0, 0)
         if mesh is None:
             continue
-        m.halo = conv_halo(m, mesh) if isinstance(m, TorchConv) else one
-        if isinstance(m, (Upsample2x, RDC)):
-            m.band = (mesh.band_of("x"), mesh.band_of("y"))
-        if m.halo == (0, 0):
-            if isinstance(m, TorchConv) and any(
+        hook = None
+        if any(mesh.partitioned(a) for a in SPATIAL_AXES):
+            if isinstance(m, TorchConv):
+                m.halo = conv_halo(m, mesh)
+                hook = None if _local(m, mesh) else _give_window
+            elif isinstance(m, MultipartConv3x3):
+                m.halo, hook = one, _give_window
+            elif isinstance(m, TorchConvTranspose) and any(
                     s > 1 and mesh.partitioned(a) for a, s in zip(SPATIAL_AXES, m.stride)):
-                _HALO_HOOKS[m] = m.register_forward_pre_hook(_check_strides)
-            continue
-        if isinstance(m, RDC):
-            _HALO_HOOKS[m] = m.register_forward_pre_hook(
-                functools.partial(_give_carry_halo, mesh), with_kwargs=True)
-        else:
-            _HALO_HOOKS[m] = m.register_forward_pre_hook(functools.partial(_give_halo, mesh))
+                hook = _give_window
+        if hook is not None:
+            _HALO_HOOKS[m] = m.register_forward_pre_hook(functools.partial(hook, bands))
 
 
 @torch.no_grad()

@@ -12,8 +12,8 @@ DataParallel prefixes): `feats.conv1`, `feats.bn1`,
 `final_28.{0,2}`, `final_56.{0,2}`, `final_11`, `final_21`.
 
 On the 'x'/'y' mesh axes (`parallel.mesh.spatial_partition`, the PSP
-hybrids) the stem's 7x7/2, the strided and the dilated convs take their
-halo like any conv, and `bands` (a `parallel.bands.Bands`) on the trunk,
+hybrids) the stem's 7x7/2, the strided and the dilated convs read the
+window of their output rows like any conv, and `bands` (a `parallel.bands.Bands`) on the trunk,
 the pyramid's pools, PSPModule, PSPUpsample and RefinementModule puts the
 3x3/2 pool, the adaptive pools (each band's share of every bin summed over
 the bands), the resize of the pooled bins (`Bands.resize_whole`) and the

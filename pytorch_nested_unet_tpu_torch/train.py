@@ -59,23 +59,20 @@ CPU). Without --mesh a multi-process run gets a 'data' mesh over all ranks;
 `--mesh data=1` in one process runs the same collective path over a world of
 one.
 
-Spatial partitioning (UNet, NestedUNet under every --remat mode, AttU_Net,
-R2U_Net, R2AttU_Net, UNetRNN, UNetRM3, UNetRM7, UNetRNNGhost,
-UNetRNNPAttention, UNetRNNCAttention, UNetRNNAttention, VGG16RNN and
-Comprehensive_Atten_Unet, the last also through train_canet):
-`--mesh data=D,x=X[,y=Y]` (D*X*Y processes) or `--spatial_partition true`
+Spatial partitioning (every arch, NestedUNet under every --remat mode,
+Comprehensive_Atten_Unet also through train_canet): `--mesh
+data=D,x=X[,y=Y]` (D*X*Y processes) or `--spatial_partition true`
 (('data', 'x') = (world / 2, 2)) gives each rank a band of its data rows'
-images, rows [i*H/X, (i+1)*H/X) and columns [j*W/Y, (j+1)*W/Y); convs and
-upsamples take halos, attention gathers its keys and values from the bands
-and global pools reduce over them, channel dropout draws per data row, BN
-moments, loss and metrics are the whole global batch's, as the JAX CLI's
-(train.py:255-304). The bands must stay whole and even through the arch's
-p pools (p = 4; UNetRM3 2, UNetRM7 6): H a multiple of 2^p * X and W of
-2^p * Y; the CRDN UNets' and VGG16RNN's coarsest band must also hold 2 rows
-(their 5x5 score convs' halo). The archs with size-changing convs (the
-ResNet trunks, the PSP hybrids, DoubleUnet, DeepLab) and other sizes exit
-with a message naming ROADMAP.md (queue 1, A11b a or b;
-parallel/mesh.py::SPATIAL_RULES).
+images and of every map its layers make, a map of n rows cut into rows
+[floor(i*n/X), floor((i+1)*n/X)) (bands may be unequal, or empty where a
+map has fewer rows than bands) and columns likewise over Y; convs, pools
+and resizes read the rows of their output rows from the bands that hold
+them, attention gathers its keys and values from the bands and global
+pools reduce over them, dropout draws per data row, BN moments, loss and
+metrics are the whole global batch's, as the JAX CLI's (train.py:255-304).
+The rule is the JAX CLI's: X must divide H and Y divide W (any size the
+one-process step runs at); another size exits with a message
+(parallel/mesh.py::check_spatial).
 
 Tensor parallelism: `--mesh data=D,model=M` (with 'x'/'y' too: D*X*Y*M
 processes) shards each conv and dense kernel of at least 16,384 elements
@@ -757,11 +754,8 @@ def _mesh_axes(config):
         axes = names, sizes
     if spatial:
         shape = dict(zip(*axes)) if axes else {"x": 2}
-        h, w = config["input_h"], config["input_w"]
-        if h % shape.get("x", 1) or w % shape.get("y", 1):
-            sys.exit(f"input {h}x{w} not divisible by the spatial mesh axes {shape}")
         try:
-            pmesh.check_spatial(config["arch"], (h, w), shape)
+            pmesh.check_spatial(config["arch"], (config["input_h"], config["input_w"]), shape)
         except ValueError as e:
             sys.exit(f"--mesh / --spatial_partition: {e}")
     return axes

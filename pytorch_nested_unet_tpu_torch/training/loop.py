@@ -18,13 +18,14 @@ loss the mean of the ranks' losses, IoU and accuracy from the ranks' pixel
 counts added, the eval loss from the ranks' weighted sums added), the same on
 every rank.
 
-Under the 'x'/'y' axes as well (`mesh.spatial`; UNet and NestedUNet) a rank
-augments its data rows at full size (rot90, flip and contrast's per-image
-mean see the whole image), then takes its band (`batch_sharding(...,
-spatial=True)`); the model runs on the band (parallel/mesh.py), its heads
-are gathered (`parallel.halo.gather_bands`) so the loss and the metrics are
-the whole images', and the metrics are reduced over the data group only:
-every rank of a data row holds the same counts.
+Under the 'x'/'y' axes as well (`mesh.spatial`; any arch) a rank augments
+its data rows at full size (rot90, flip and contrast's per-image mean see
+the whole image), then takes its band (`batch_sharding(..., spatial=True)`:
+the cut of the image, whose bands may be unequal); the model runs on the
+band (parallel/mesh.py), its heads are gathered (`parallel.halo.
+gather_bands`) so the loss and the metrics are the whole images', and the
+metrics are reduced over the data group only: every rank of a data row
+holds the same counts.
 
 Under the 'model' axis (`mesh.tensor_parallel`) the state is sharded
 (parallel/mesh.py): a train step gathers the weights over the 'model' peers
@@ -37,6 +38,7 @@ coordinate 0 (`parallel.mesh.agree_over_model_`), as the averaged gradients
 are, so the peers' replicated state and their decisions stay bitwise alike.
 """
 
+import contextlib
 from typing import Callable, Dict
 
 import torch
@@ -47,7 +49,7 @@ from ..losses import get_loss, get_weighted_loss, get_weighted_loss_sums
 from ..metrics import (accuracy_counts, accuracy_from_counts, iou_counts, iou_from_counts,
                        iou_score, iou_score_weighted, pixel_accuracy)
 from ..parallel.halo import gather_bands
-from ..parallel.mesh import (SPATIAL_AXES, agree_over_model_, band_rule, batch_sharding,
+from ..parallel.mesh import (SPATIAL_AXES, agree_over_model_, bands_of, batch_sharding,
                              check_spatial, full_weights, shard_train_step, spatial_partition)
 
 
@@ -65,45 +67,61 @@ def _all_reduce_sum(values, mesh):
     return v
 
 
-def _assert_equal_bands(images, mesh):
-    """Raise unless every rank holds a batch of this shape: the BNs count
-    rows * world size pixels (ops/fused_bn.py). One small all-reduce."""
-    if mesh.group is None:
+def _assert_bands_tile(band, mesh):
+    """Raise unless the bands of the ranks' data row tile their whole image:
+    every rank's (h0, h, w0, w) against the rows and columns before it. One
+    small all-gather over the spatial group."""
+    if mesh.spatial_group is None:
         return
-    n = torch.tensor([images.numel(), -images.numel()], dtype=torch.int64,
-                     device=images.device)
-    dist.all_reduce(n, op=dist.ReduceOp.MAX, group=mesh.group)
-    if int(n[0]) != -int(n[1]):
-        raise ValueError(f"spatial step: ranks hold bands of {-int(n[1])} to {int(n[0])} "
-                         "values; every band must be equal")
+    mine = torch.tensor([band.h0, band.h, band.w0, band.w, band.full_h, band.full_w])
+    if dist.get_backend(mesh.spatial_group) == "nccl":
+        mine = mine.to(torch.device("cuda", torch.cuda.current_device()))
+    every = [torch.empty_like(mine) for _ in mesh.spatial_coords]
+    dist.all_gather(every, mine, group=mesh.spatial_group)
+    got = {c: [int(v) for v in t.tolist()] for c, t in zip(mesh.spatial_coords, every)}
+    for (i, j), (h0, h, w0, w, full_h, full_w) in got.items():
+        above = sum(got[(a, j)][1] for a in range(i))
+        left = sum(got[(i, b)][3] for b in range(j))
+        if (h0, w0) != (above, left) or (full_h, full_w) != (band.full_h, band.full_w):
+            raise ValueError(f"spatial step: band ({i}, {j}) holds rows {h0}+{h} and columns "
+                             f"{w0}+{w} of {full_h}x{full_w}; the bands do not tile the image")
+    if (sum(got[(a, 0)][1] for a in range(mesh.shape.get("x", 1))) != band.full_h
+            or sum(got[(0, b)][3] for b in range(mesh.shape.get("y", 1))) != band.full_w):
+        raise ValueError("spatial step: the bands do not cover the whole image")
 
 
 class _Bands:
-    """The band a spatial step takes of its full-size batch. At the first
-    call the image size is held to the built model's band rule (its options
-    may widen a halo: `parallel.mesh.band_rule`) and the bands are checked
-    equal on every rank."""
+    """The band a spatial step takes of its full-size batch, and the
+    context its forward and backward run in (`sizes`). At the first call
+    the image size is held to the JAX rule (`check_spatial`) and the ranks'
+    bands are checked to tile the image."""
 
     def __init__(self, mesh, model):
-        self.mesh, self.checked = mesh, False
-        self.arch, self.rule = type(model).__name__, band_rule(model)
+        self.mesh, self.model, self.checked = mesh, model, False
 
     def __call__(self, global_batch, images):
+        hw = images.shape[1:3]
         if not self.checked and any(self.mesh.partitioned(a) for a in SPATIAL_AXES):
-            check_spatial(self.arch, images.shape[1:3], self.mesh.shape, self.rule)
-        band = batch_sharding(self.mesh, global_batch, spatial=True, hw=images.shape[1:3])
-        images = band.take(images)
+            check_spatial(type(self.model).__name__, hw, self.mesh.shape)
+        band = batch_sharding(self.mesh, global_batch, spatial=True, hw=hw)
         if not self.checked:
-            _assert_equal_bands(images, self.mesh)
+            _assert_bands_tile(band, self.mesh)
             self.checked = True
-        return images
+        return band.take(images)
+
+    def sizes(self, hw):
+        """The model's `Bands.step` at the batch's whole size hw: its size
+        calls answered from the first step of the kind. The model's Bands
+        is looked up here, since an eval step puts the model on bands anew."""
+        return bands_of(self.model).step(hw, self.model.training)
 
 
-def _heads(model, images, mesh):
-    """The model's heads; under 'x'/'y' each gathered to the whole image."""
+def _heads(model, images, mesh, hw):
+    """The model's heads; under 'x'/'y' each gathered to the whole image of
+    size `hw`."""
     heads = _as_heads(model(images))
     if mesh is not None and mesh.spatial:
-        heads = [gather_bands(o, mesh) for o in heads]
+        heads = [gather_bands(o, mesh, hw) for o in heads]
     return heads
 
 
@@ -134,14 +152,16 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_name: str,
             global_batch = images_u8.shape[0] * mesh.size
             shard = (global_batch, batch_sharding(mesh, global_batch))
         images, masks = augment_batch(images_u8, masks_u8, ops, generator, shard)
+        hw = images.shape[1:3]
         if bands is not None:
             images = bands(global_batch, images)
         if tp is not None:
             tp.gather()
         optimizer.zero_grad()
-        heads = _heads(model, images, mesh)
-        loss = sum(loss_fn(o, masks) for o in heads) / len(heads)
-        loss.backward()
+        with bands.sizes(hw) if bands is not None else contextlib.nullcontext():
+            heads = _heads(model, images, mesh, hw)
+            loss = sum(loss_fn(o, masks) for o in heads) / len(heads)
+            loss.backward()
         optimizer.step()
         if tp is not None:
             agree_over_model_(list(model.buffers()), mesh)
@@ -184,10 +204,12 @@ def make_eval_step(model: torch.nn.Module, loss_name: str, deep_supervision: boo
         model.eval()
         try:
             images, masks = eval_transform(images_u8, masks_u8)
+            hw = images.shape[1:3]
             if bands is not None:
                 images = bands(images.shape[0] * mesh.size, images)
-            with full_weights(model):
-                heads = _heads(model, images, mesh)
+            with full_weights(model), (bands.sizes(hw) if bands is not None
+                                       else contextlib.nullcontext()):
+                heads = _heads(model, images, mesh, hw)
             if mesh is None:
                 loss = sum(wloss_fn(o, masks, weights) for o in heads) / len(heads)
                 return {"loss": loss, "iou": iou_score_weighted(heads[-1], masks, weights),

@@ -375,6 +375,58 @@ def test_bn_stats_graph_replay(cuda, dtype):
     assert not torch.equal(graph_run[0], torch.zeros(64, device=cuda))
 
 
+# The band runs' BN shapes: a whole map's rows cut into unequal bands, and a
+# band of zero rows (UNetRM7's 1-row level over 2 bands).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cuts", [(512, (0, 0, 16)), (32, (0, 1, 3, 4, 6)),
+                                    (70, (0, 36864, 73729)), (1, (0, 0, 0, 5))])
+def test_bn_kernels_on_zero_and_unequal_band_rows(cuda, dtype, c, cuts):
+    """K1 (sums-only), K2 and K3 on each band of a (rows, C) map cut at
+    `cuts` (unequal bands, and bands of zero rows) against their plain
+    versions: each band's sums within 1e-6 of their magnitude (zeros on a
+    zero-row band), the bands' sums adding to the whole map's, K3's dx with
+    n the whole map's rows; one launch of each kernel per band, a zero-row
+    band's included. K1 with its finish refuses zero rows."""
+    g = torch.Generator().manual_seed(c + len(cuts))
+    rows = cuts[-1]
+    x = (torch.randn(rows, c, generator=g) * 1.5 + 0.3).to(cuda, dtype)
+    dy = torch.randn(rows, c, generator=g).to(cuda, dtype)
+    gamma = (torch.rand(c, generator=g) + 0.5).to(cuda)
+    beta = (torch.rand(c, generator=g) * 0.6 - 0.3).to(cuda)
+    _, _, mean, _, inv = bn.reference_bn_stats(x.float())
+    total = torch.zeros(2, c, device=cuda)
+    grads = torch.zeros(2, c, device=cuda)
+    before = dict(bn.LAUNCHES)
+    for lo, hi in zip(cuts, cuts[1:]):
+        xb, dyb = x[lo:hi].contiguous(), dy[lo:hi].contiguous()
+        sums = bn.bn_sums(xb)
+        want = torch.stack(bn.reference_bn_sums(xb.float()))
+        _assert_sums_close(sums[0], want[0], xb.float().abs().sum(0))
+        _assert_sums_close(sums[1], want[1], (xb.float() ** 2).sum(0))
+        red = bn.bn_bwd_reduce_sums(xb, dyb, mean, inv, gamma, beta)
+        _assert_k2_close(red, (xb, dyb, mean, inv, gamma, beta))
+        if hi == lo:
+            assert not sums.any() and not red.any()
+        total += sums
+        grads += red
+    for lo, hi in zip(cuts, cuts[1:]):
+        xb, dyb = x[lo:hi].contiguous(), dy[lo:hi].contiguous()
+        dx = bn.bn_bwd_dx(xb, dyb, mean, inv, gamma, beta, grads[0], grads[1], rows)
+        ref = bn.reference_bn_bwd_dx(xb.float(), dyb.float(), mean, inv, gamma, beta, grads[0],
+                                     grads[1], rows)
+        assert dx.shape == xb.shape
+        torch.testing.assert_close(dx.float(), ref, atol=BN_TOL[dtype][1], rtol=BN_TOL[dtype][1])
+    torch.cuda.synchronize()
+    want = torch.stack(bn.reference_bn_sums(x.float()))
+    _assert_sums_close(total[0], want[0], x.float().abs().sum(0))
+    _assert_sums_close(total[1], want[1], (x.float() ** 2).sum(0))
+    n = len(cuts) - 1
+    assert {k: bn.LAUNCHES[k] - before[k] for k in before} == {
+        "bn_stats": n, "bn_bwd_reduce": n, "bn_bwd_dx": n, "bn_finish": 0}
+    with pytest.raises(ValueError, match="rows >= 1"):
+        bn.bn_stats(x[:0].contiguous())
+
+
 def test_bn_kernels_reject_bad_inputs(cuda):
     x = torch.randn(8, 4, device=cuda)
     with pytest.raises(ValueError):

@@ -5,12 +5,14 @@ UNetRNNCAttention_PSP).
 One process, no ranks: a strided conv on a band given with its halo of p
 rows (cut from the zero-padded full tensor) against the band of the full
 conv at every band of x = 2, 3, 4 and of 'y' splits, forward and gradient
-in float64 (1e-10): 7x7/2 p3, 3x3/2 p1, 1x1/2 p0, and a valid 3x3 refused;
-the 3x3/2 max-pool on bands (-inf past the image's edge, an all-negative
-input whose maxima tie across band edges; float64, 1e-12); the resize of a whole
-map of PSP's 1, 2, 3 and 6 bins onto a band's rows (float64, 1e-10); each
-arch's band rule (`parallel.mesh.SPATIAL_RULES`) and its refusals, and the
-halos and `bands` that `spatial_partition` puts on each built model.
+in float64 (1e-10): 7x7/2 p3, 3x3/2 p1, 1x1/2 p0, and a valid 3x3 accepted;
+the 3x3/2 max-pool on the window of its output rows (-inf past the image's
+edge, an all-negative input whose maxima tie across band edges; float64,
+1e-12), on even bands and on the unequal bands of a 6-row map; the resize
+of a whole map of PSP's 1, 2, 3 and 6 bins onto a band's rows (float64,
+1e-10); the JAX rule `check_spatial` holds these archs to at the sizes
+their band rule refused, and the halos and `bands` that
+`spatial_partition` puts on each built model.
 
 Several OS processes over Gloo on 127.0.0.1 (2 intra-op threads each; this
 file run as a script is the worker; tests/test_torch_spatial.py's launch,
@@ -111,8 +113,8 @@ def test_strided_conv_band_matches_the_full_conv(nx, ny, kernel, stride, padding
     """A strided conv with d(k-1) + 1 - s <= 2p <= d(k-1) on a band with a
     halo of p and no padding on the split axes: its output is the band's
     rows of the full conv's (float64 within 1e-10, the input's and the
-    weight's gradients too); a valid 3x3, strided or not, is refused naming
-    ROADMAP.md."""
+    weight's gradients too); a valid 3x3, strided or not, is accepted (it
+    reads the window of its output rows, with no halo to leave out)."""
     torch.manual_seed(nx * 100 + ny * 10 + kernel)
     conv = TorchConv(3, 5, kernel, padding=padding, stride=stride).double()
     with torch.no_grad():
@@ -124,47 +126,60 @@ def test_strided_conv_band_matches_the_full_conv(nx, ny, kernel, stride, padding
     ts._check_band_op(conv, lambda xh, band: ts._with_halo(conv, (rows, cols), xh), x, nx, ny,
                       rows, cols, 1e-10, (conv.weight, conv.bias))
     for kw in ({"stride": 2}, {}):
-        with pytest.raises(ValueError, match="cannot run on bands.*ROADMAP.md"):
-            tmesh.conv_halo(TorchConv(3, 4, 3, padding=0, **kw), ts._FakeMesh(nx, ny))
+        assert tmesh.conv_halo(TorchConv(3, 4, 3, padding=0, **kw),
+                               ts._FakeMesh(nx, ny)) == (0, 0)
 
 
-class _GivenHalo:
-    """The `bands` of one band of one process: its place, and as its halo
-    the haloed band cut from the padded full tensor (`ts._haloed`)."""
+class _GivenWindow:
+    """The `bands` of one band of one process: its split axes, and as the
+    window of its output rows the window cut from the padded full tensor
+    (`ts._windowed`)."""
 
-    def __init__(self, haloed, band, nx, ny):
-        h0, hb, w0, wb = band
-        self.haloed, self.place = haloed, ((h0 // hb, nx), (w0 // wb, ny))
+    def __init__(self, window, nx, ny):
+        self.given, self.axes = window, (int(nx > 1), int(ny > 1))
 
     def split_axes(self):
-        return tuple(int(n > 1) for _, n in self.place)
+        return self.axes
 
-    def halo(self, x, rows, cols, edge=0.0):
-        return self.haloed
+    def window(self, x, kernel, stride, padding, dilation, edge=0.0):
+        return self.given
+
+
+def _pool_window(h, w, nx, ny):
+    """window(band) of the 3x3/2 pool: its output rows' input window
+    (`conv_windows`) on a split axis, the whole axis elsewhere."""
+    from pytorch_nested_unet_tpu_torch.parallel.bands import conv_windows
+
+    def window(band):
+        i, j = band.index
+        return tuple(conv_windows(n, parts, 3, 2, 1, 1)[1][k] if parts > 1 else (0, n)
+                     for n, parts, k in ((h, nx, i), (w, ny, j)))
+
+    return window
 
 
 @pytest.mark.parametrize("nx,ny", SPLITS)
 def test_max_pool_3x3_s2_band_matches_the_full_pool(nx, ny):
-    """The 3x3/2 pool on a band with a halo of 1 and -inf past the image's
-    edge (what `Bands.halo` gives; zeros there would win over an
-    all-negative map) is the band's rows of the full pool, and its gradient
-    the full gradient's band, within 1e-12 in float64 (a row whose maxima
-    feed windows of two bands adds their gradients in another order): the
+    """The 3x3/2 pool on the window of a band's output rows (rows [2a - 1,
+    2b) for output rows [a, b)), -inf past the image's edge (what
+    `Bands.window` gives; zeros there would win over an all-negative map),
+    is the band's rows of the full pool, and its gradient the full
+    gradient's band, within 1e-12 in float64 (a row whose maxima feed
+    windows of two bands adds their gradients in another order): the
     inputs are all negative on a grid of 0.5, so maxima tie within windows
     and across band edges, and the band takes the same element of a tie as
-    the full pool."""
+    the full pool. On even bands of 24 rows, and on a 6x6 map whose bands
+    are unequal and odd (1, 2, 1, 2 rows at x = 4)."""
     rng = np.random.default_rng(nx * 10 + ny)
-    x = torch.from_numpy(-(np.round(2 * np.abs(rng.standard_normal((2, 24, 24, 3)))) / 2 + 0.5))
-    rows, cols = int(nx > 1), int(ny > 1)
+    for hw in (24, 6):
+        x = torch.from_numpy(-(np.round(2 * np.abs(rng.standard_normal((2, hw, hw, 3)))) / 2
+                               + 0.5))
 
-    def band_op(xh, band):
-        core = xh[:, rows:xh.shape[1] - rows, cols:xh.shape[2] - cols]
-        return max_pool_3x3_s2_p1(core, _GivenHalo(xh, band, nx, ny))
+        def band_op(xw, band):
+            return max_pool_3x3_s2_p1(None, _GivenWindow(xw, nx, ny))
 
-    ts._check_band_op(max_pool_3x3_s2_p1, band_op, x, nx, ny, rows, cols, 1e-12,
-                      edge=float("-inf"))
-    with pytest.raises(ValueError, match="odd on a split axis.*A11b b"):
-        max_pool_3x3_s2_p1(x[:, :3], _GivenHalo(None, (0, 3, 0, 24), 2, 1))
+        ts._check_band_op(max_pool_3x3_s2_p1, band_op, x, nx, ny, 0, 0, 1e-12,
+                          edge=float("-inf"), window=_pool_window(hw, hw, nx, ny))
 
 
 @pytest.mark.parametrize("nx,ny", SPLITS)
@@ -193,32 +208,26 @@ def test_resize_of_a_whole_map_onto_a_band(nx, ny, bins, align_corners):
     np.testing.assert_allclose(x.grad.numpy(), want_grad.numpy(), atol=1e-10)
 
 
-@pytest.mark.parametrize("arch,hw,shape,refusal", [
-    ("ResNet50RNN", (96, 96), {"x": 2}, None),
-    ("ResNet50RNN", (96, 96), {"x": 4}, "multiple of 16 \\* x = 64.*A11b b"),
-    ("ResNet18RNN", (32, 32), {"x": 2, "y": 2}, None),
-    ("ResNet152RNN", (64, 48), {"data": 2, "x": 2}, None),
-    ("ResNet50UNet", (64, 64), {"x": 4}, None),
-    ("DoubleUnet", (96, 96), {"x": 2}, "multiple of 32 \\* x = 64.*A11b b"),
-    ("DoubleUnet", (128, 128), {"x": 2}, None),
-    ("UNetRNNPSP", (64, 32), {"x": 2}, None),
-    ("UNetRNNPSP", (32, 32), {"x": 2}, "bands of 1x2.*thinner than the halo of 2.*A11b b"),
-    ("UNetRNNCAttention_PSP", (32, 32), {"x": 2}, "thinner than the halo of 2.*A11b b"),
-    ("UNetRNNCAttention_PSP", (96, 64), {"x": 3}, None),
-    ("ResNet50FCN", (96, 96), {"x": 2}, "not ResNet50FCN.*A11b a.*A11b b"),
-    ("DeepLab", (96, 96), {"x": 2}, "not DeepLab.*A11b a")])
-def test_check_spatial_follows_the_strided_archs_band_rules(arch, hw, shape, refusal):
-    """The band rule of the strided archs: the ResNet trunks halve 4 times
-    (the 3x3/2 pool, layer2-4), DoubleUnet 5 (its 7x7/2 stem too), the PSP
-    hybrids 4 with a halo of 2 at 1/16 (UNetRNN's 5x5 score convs), which
-    leaves the 4 rows at 1/8 that the refinement trunk's dilation-4 convs
-    take: H >= 32 x; ResNet50FCN and DeepLab are refused naming A11b a and
-    that they wait on b. Each refusal names its ROADMAP item."""
-    if refusal is None:
-        tmesh.check_spatial(arch, hw, shape)
-        return
-    with pytest.raises(ValueError, match=refusal):
-        tmesh.check_spatial(arch, hw, shape)
+@pytest.mark.parametrize("arch,hw,shape", [
+    ("ResNet50RNN", (96, 96), {"x": 2}),
+    ("ResNet50RNN", (96, 96), {"x": 4}),
+    ("ResNet18RNN", (32, 32), {"x": 2, "y": 2}),
+    ("ResNet152RNN", (64, 48), {"data": 2, "x": 2}),
+    ("ResNet50UNet", (64, 64), {"x": 4}),
+    ("DoubleUnet", (96, 96), {"x": 2}),
+    ("DoubleUnet", (128, 128), {"x": 2}),
+    ("UNetRNNPSP", (64, 32), {"x": 2}),
+    ("UNetRNNPSP", (32, 32), {"x": 2}),
+    ("UNetRNNCAttention_PSP", (32, 32), {"x": 2}),
+    ("UNetRNNCAttention_PSP", (96, 64), {"x": 3}),
+    ("ResNet50FCN", (96, 96), {"x": 2}),
+    ("DeepLab", (96, 96), {"x": 2})])
+def test_check_spatial_follows_the_strided_archs_band_rules(arch, hw, shape):
+    """Every (arch, size, mesh) the strided archs' band rule was tried on,
+    the ones it refused among them (ResNet50RNN under x=4, DoubleUnet at
+    96x96, the PSP hybrids' thin bands, ResNet50FCN, DeepLab), passes the JAX rule `check_spatial` holds every
+    arch to: thin bands at 1/16 and 1/32, ResNet50FCN and DeepLab too."""
+    tmesh.check_spatial(arch, hw, shape)
 
 
 def test_spatial_partition_puts_the_strided_archs_on_bands():
@@ -229,10 +238,10 @@ def test_spatial_partition_puts_the_strided_archs_on_bands():
     band divides by the stride), the refinement trunk's dilated convs 2 and
     4, and every module that declares `bands` this rank's place (the
     trunks' 3x3/2 pool, UnetUp's x2, DoubleUnet's resizes, the PSP pools and
-    upsamples); None takes it all off. The band rule is read off the built
-    model: ResNet50RNN's `kernel_size` 5 widens its coarsest halo to 2,
-    which the step's first call holds its input to; a trunk with an empty
-    stage halves 3 times and is refused; ResNet50FCN is refused."""
+    upsamples); None takes it all off. What the band rule refused goes on
+    bands now: ResNet50RNN with `kernel_size` 5 at 32x32 (a coarsest band
+    thinner than its RDC's halo of 2; the step's first call accepts it), a
+    trunk with an empty stage, ResNet50FCN."""
     from pytorch_nested_unet_tpu_torch.training.loop import _Bands
 
     mesh = ts._mesh_of(("data", "x"), (1, 2), rank=1)
@@ -261,14 +270,14 @@ def test_spatial_partition_puts_the_strided_archs_on_bands():
         assert not any(s._forward_pre_hooks for s in m.modules())
         assert all(getattr(s, "bands", None) is None for s in m.modules())
     wide = create_model("ResNet50RNN", layers=ONE_BLOCK, kernel_size=5)
-    assert tmesh.band_rule(wide) == (4, 2) and tmesh.band_rule(r18) == (4, 1)
     tmesh.spatial_partition(wide, mesh)
-    with pytest.raises(ValueError, match="bands of 1x2.*halo of 2.*A11b b"):
-        _Bands(mesh, wide)(4, torch.zeros(4, 32, 32, 3))
-    with pytest.raises(ValueError, match="ResNet18RNN with 3 pools.*ROADMAP.md"):
-        tmesh.spatial_partition(create_model("ResNet18RNN", layers=(1, 0, 1, 1)), mesh)
-    with pytest.raises(ValueError, match="not ResNet50FCN.*A11b a"):
-        tmesh.spatial_partition(create_model("ResNet50FCN", layers=ONE_BLOCK), mesh)
+    assert wide.RDC.lstm_catconv.halo == (2, 0)
+    images = torch.arange(4 * 32 * 32 * 3, dtype=torch.float32).reshape(4, 32, 32, 3)
+    np.testing.assert_array_equal(_Bands(mesh, wide)(4, images).numpy(), images[:, 16:].numpy())
+    tmesh.spatial_partition(create_model("ResNet18RNN", layers=(1, 0, 1, 1)), mesh)
+    fcn = create_model("ResNet50FCN", layers=ONE_BLOCK)
+    tmesh.spatial_partition(fcn, mesh)
+    assert fcn.classifier[0].halo == (0, 0) and len(fcn.classifier[0]._forward_pre_hooks) == 1
 
 
 # ------------------------------------------------------------------ the ranks
