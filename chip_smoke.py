@@ -39,6 +39,16 @@
    3 epochs of 4 steps, bf16 then fp32, with the launch counts of every kernel
    read around each run, log.csv and model.pth checked and served, then steady
    ms/step and a torch.profiler window over a few more steps;
+7b. whole-run trajectory (`trajectory_phase`): `train.fit` over the whole
+   of PARITY_RUN.json's protocol (full-width NestedUNet wDS, BCEDice,
+   48x48, 64 / 16 images of parity.py's data, batch 8, 15 epochs, augment
+   none), fp32 then bf16, from the port's seed-41 init: 30 launches of
+   each of K1-K3 per train step and 10 of K4 per forward, train and val;
+   the fp32 curves held to the JAX package's on the CPU
+   (tests/data/trajectory_NestedUNet_wDS.json, written by
+   trajectory_golden.py): the epoch-0 train loss within 2e-3, every
+   epoch's within 1e-3, the final val IoU within 0.05; the bf16 run's
+   gaps to that golden and its final val IoU printed beside fp32's;
 8. card against CPU: one full-width fp32 train step (batch 2, augment none)
    on the card and on the CPU from the same weights: loss, every gradient and
    the running statistics;
@@ -136,7 +146,10 @@
    p50 / p95 and busy share beside the plain step's in fp32 and bf16; then
    two ranks on this card over Gloo, two processes of this script run as
    `--dp-worker`, each on its 8 rows against the one-process step);
-11i. spatial partitioning (`spatial_phase`, the 'x'/'y' mesh axes): on
+11i. spatial partitioning (`spatial_phase`, the 'x'/'y' mesh axes): first
+   `k4_empty_band` (MultipartConv3x3 on a band of zero rows, fp32 and
+   bf16: an empty output, no K4 launch, its backward's weight and bias
+   gradients the plain version's); then on
    this card over Gloo, NestedUNet wDS under data=1,x=2 (2 ranks, 2 steps)
    and UNet under x=2,y=2 (4 ranks, 1 step), full width, 96x96, global
    batch 16, fp32, each rank (`--spatial-worker`) against the one-process
@@ -896,27 +909,35 @@ def k4_backward_phase(df, dev):
               f"{dev_plain_total:.4f} ms ({plain_total:.4f} ms per call)", flush=True)
 
 
-def synthetic_set(n, seed):
+def synthetic_set(n, seed, hw=SIZE):
     """Seeded segmentation images: 1-3 rotated ellipses (the mask) over a
-    textured background, red rectangles as distractors, pixel noise."""
+    textured background, red rectangles as distractors, pixel noise;
+    parity.py's make_synthetic_dataset at one class, line for line (the
+    port's scripts import nothing of the JAX package's harness;
+    tests/test_torch_trajectory.py holds the two equal)."""
     rng = np.random.default_rng(seed)
-    images = np.zeros((n, SIZE, SIZE, 3), np.uint8)
-    masks = np.zeros((n, SIZE, SIZE, 1), np.uint8)
-    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    images = np.zeros((n, hw, hw, 3), np.uint8)
+    masks = np.zeros((n, hw, hw, 1), np.uint8)
+    yy, xx = np.mgrid[0:hw, 0:hw]
     for i in range(n):
-        img = rng.integers(40, 120, (SIZE, SIZE, 3)).astype(np.float32)
-        m = np.zeros((SIZE, SIZE), bool)
+        img = rng.integers(40, 120, (hw, hw, 3)).astype(np.float32)
+        m = np.zeros((hw, hw), bool)
         for _ in range(int(rng.integers(1, 4))):
-            cy, cx = rng.integers(SIZE // 6, SIZE - SIZE // 6, 2)
-            ry, rx = rng.integers(SIZE // 12, SIZE // 5, 2)
+            cy = rng.integers(hw // 6, hw - hw // 6)
+            cx = rng.integers(hw // 6, hw - hw // 6)
+            ry, rx = rng.integers(max(2, hw // 12), max(3, hw // 5), 2)
             ang = rng.uniform(0, np.pi)
-            u = (yy - cy) * np.cos(ang) + (xx - cx) * np.sin(ang)
-            v = -(yy - cy) * np.sin(ang) + (xx - cx) * np.cos(ang)
+            ca, sa = np.cos(ang), np.sin(ang)
+            u = (yy - cy) * ca + (xx - cx) * sa
+            v = -(yy - cy) * sa + (xx - cx) * ca
             m |= (u / ry) ** 2 + (v / rx) ** 2 < 1.0
         img[m] += np.asarray([25, 60, 25], np.float32)
+        rect = np.zeros((hw, hw), bool)
         if rng.random() < 0.7:
-            y0, x0 = rng.integers(0, SIZE - SIZE // 4, 2)
-            img[y0:y0 + SIZE // 6, x0:x0 + SIZE // 6] += np.asarray([70, 20, 20], np.float32)
+            y0 = rng.integers(0, max(1, hw - hw // 4))
+            x0 = rng.integers(0, max(1, hw - hw // 4))
+            rect[y0:y0 + hw // 6, x0:x0 + hw // 6] = True
+            img[rect] += np.asarray([70, 20, 20], np.float32)
         img += rng.normal(0, 12, img.shape)
         images[i] = np.clip(img, 0, 255).astype(np.uint8)
         masks[i, ..., 0] = m * np.uint8(255)
@@ -1053,6 +1074,119 @@ def train_phase(bn, df, card, arch="NestedUNet", deep_supervision=True,
               f"{BATCH * 1e3 / (sum(times) / len(times)):.1f} img/s | card: {card}", flush=True)
         profile_steps(step, batch, gen, f"{label} {precision}", card)
     return launches
+
+
+TRAJECTORY_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                 "trajectory_NestedUNet_wDS.json")
+# the card's whole run against the golden (the gates of the CPU's slow case
+# in tests/test_torch_trajectory.py, from PARITY_RUN.json's checks)
+TRAJECTORY_GATES = {"epoch0_loss": 2e-3, "epoch_loss": 1e-3, "final_val_iou": 0.05}
+
+
+def trajectory_phase(bn, df, card):
+    """`train.fit` over the whole of PARITY_RUN.json's protocol on the card
+    (full-width NestedUNet wDS, BCEDice, 48x48, 64 / 16 images, batch 8, 15
+    epochs, lr 1e-3 cosine to 1e-5, seed 41, augment none; TF32 off), from
+    the port's seed-41 init, in fp32 and then bf16: 30 launches of each of
+    K1-K3 per train step and 10 of K4 per forward, train and val. The fp32
+    curves are held to the JAX package's on the CPU (the golden written by
+    trajectory_golden.py): the epoch-0 train loss within 2e-3, every
+    epoch's within 1e-3, the final val IoU within 0.05. The bf16 run has no
+    golden: its gaps to the fp32 golden and its final val IoU are printed,
+    not gated. Returns the launch counts of each run."""
+    from pytorch_nested_unet_tpu_torch.train import fit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with open(TRAJECTORY_GOLDEN) as f:
+        golden = json.load(f)
+    p = golden["protocol"]
+    want_curves = {k: np.asarray([e[k] for e in golden["epochs"]]) for k in golden["epochs"][0]}
+    images, masks = synthetic_set(p["n_train"] + p["n_val"], p["seed"], p["size"])
+    n, bs, epochs = p["n_train"], p["batch_size"], p["epochs"]
+    steps, val_batches = n // bs, -(-p["n_val"] // bs)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke",
+                           "trajectory")
+    launches, final_iou = {}, {}
+    for precision in ("fp32", "bf16"):
+        reset_counts(bn, df)
+        t1 = time.perf_counter()
+        r = fit(images[:n], masks[:n], images[n:], masks[n:], name=precision,
+                output_dir=out_dir, epochs=epochs, batch_size=bs, arch=p["arch"],
+                deep_supervision=p["deep_supervision"], num_classes=p["num_classes"],
+                loss=p["loss"], lr=p["lr"], min_lr=p["min_lr"], precision=precision,
+                seed=p["seed"], augment="none", device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        counts = launch_counts(bn, df)
+        launches[precision] = counts
+        want = {**bn_want(BN_PER_STEP * epochs * steps),
+                "multipart_conv3x3": 10 * epochs * (steps + val_batches)}
+        if counts != want:
+            raise AssertionError(f"trajectory {precision}: launches {counts}, expected {want} "
+                                 f"({BN_PER_STEP} BN per step, 10 decoder nodes per step and "
+                                 f"per val batch, {epochs}x{steps} steps, {epochs}x{val_batches} "
+                                 f"val batches)")
+        gaps = {k: np.abs(np.asarray(r["log"][k]) - want_curves[k]) for k in want_curves}
+        final_iou[precision] = r["log"]["val_iou"][-1]
+        print(f"trajectory {precision}: fit {epochs} epochs x {steps} steps in {fit_s:.2f} s; "
+              f"gaps to the JAX golden: epoch-0 loss {gaps['loss'][0]:.3e}, largest epoch "
+              f"loss {gaps['loss'].max():.3e} (epoch {int(gaps['loss'].argmax())}), final "
+              f"val IoU {gaps['val_iou'][-1]:.3e}, largest val IoU {gaps['val_iou'].max():.3e}, "
+              f"largest val loss {gaps['val_loss'].max():.3e}, largest train IoU "
+              f"{gaps['iou'].max():.3e} | launches {counts} | card: {card}", flush=True)
+        print(f"  per-epoch loss gap {[float(f'{g:.3e}') for g in gaps['loss']]}; val IoU "
+              f"{[round(v, 4) for v in r['log']['val_iou']]} (golden "
+              f"{want_curves['val_iou'].round(4).tolist()})", flush=True)
+        if precision == "fp32":
+            failed = [name for name, got in (("epoch0_loss", gaps["loss"][0]),
+                                             ("epoch_loss", gaps["loss"].max()),
+                                             ("final_val_iou", gaps["val_iou"][-1]))
+                      if not got <= TRAJECTORY_GATES[name]]
+            if failed:
+                raise AssertionError(f"trajectory fp32: {failed} over their gates "
+                                     f"{TRAJECTORY_GATES}: loss {r['log']['loss']} against "
+                                     f"{want_curves['loss'].tolist()}, val IoU "
+                                     f"{r['log']['val_iou']} against "
+                                     f"{want_curves['val_iou'].tolist()}")
+    print(f"trajectory: fp32 gates {TRAJECTORY_GATES} met; final val IoU fp32 "
+          f"{final_iou['fp32']:.4f}, bf16 {final_iou['bf16']:.4f} (golden "
+          f"{want_curves['val_iou'][-1]:.4f}); phase {time.perf_counter() - t0:.1f} s | "
+          f"card: {card}", flush=True)
+    return launches
+
+
+def k4_empty_band(df, dev, dtype):
+    """MultipartConv3x3 on a band of zero rows (a map of fewer rows than
+    bands, its halo of 1 set) in `dtype`: an empty output without a K4
+    launch, and a backward that runs: empty part gradients, and the weight
+    and bias gradients of the plain version's zero-row band of a whole map
+    (zeros). Raises otherwise."""
+    from pytorch_nested_unet_tpu_torch.models.blocks import MultipartConv3x3
+
+    cps, co, w = (32, 64), 32, 12
+    m = MultipartConv3x3(sum(cps), co, dtype=dtype).to(dev)
+    with torch.no_grad():
+        m.weight.normal_()
+        m.bias.normal_()
+    m.halo = (1, 0)
+    parts = [torch.randn(2, 0, w, c, device=dev, dtype=dtype, requires_grad=True) for c in cps]
+    before = df.LAUNCHES
+    y = m(parts)
+    y.float().sum().backward()
+    ref_w = m.weight.detach().clone().requires_grad_(True)
+    ref_b = m.bias.detach().clone().requires_grad_(True)
+    whole = [torch.randn(2, 1, w, c, device=dev) for c in cps]
+    df.reference_multipart_conv3x3(whole, ref_w.permute(2, 3, 1, 0), ref_b)[:, :0].sum().backward()
+    launched = df.LAUNCHES - before
+    if (y.shape != (2, 0, w, co) or y.dtype != dtype or launched
+            or any(p.grad is None or p.grad.shape != p.shape for p in parts)
+            or not torch.equal(m.weight.grad, ref_w.grad)
+            or not torch.equal(m.bias.grad, ref_b.grad)):
+        raise AssertionError(f"K4 on an empty band {DTYPE_NAME[dtype]}: output "
+                             f"{tuple(y.shape)} {y.dtype}, {launched} launches, gradients "
+                             f"{[p.grad is not None for p in parts]}, weight {m.weight.grad}")
 
 
 def cpu_step_phase(arch="NestedUNet", deep_supervision=True, zero_bn_fed_biases=False,
@@ -3980,6 +4114,10 @@ def spatial_phase(bn, df, card, reference):
     x=2` over 2 processes (`spatial_cli`). Returns {"fp32": launches} of
     every rank's steps."""
     t0 = time.perf_counter()
+    for dtype in DTYPE_NAME:
+        k4_empty_band(df, torch.device("cuda"), dtype)
+    print("K4 on an empty band (fp32, bf16): an empty output, 0 launches, the backward's "
+          "weight and bias gradients the plain version's (zeros)", flush=True)
     totals = {**bn_want(0), "multipart_conv3x3": 0}
     # the 4-rank runs first; then the 2-rank runs, two at a time (`_lanes`)
     runs = ["UNet x=2,y=2", "NestedUNet x=4", "NestedUNet x=2", "AttU_Net x=2", "UNetRNN x=2",
@@ -4428,6 +4566,7 @@ def main():
     finish = timed(bn_finish_phase, bn, dev)
     timed(k4_backward_phase, df, dev)
     runs.append(timed(train_phase, bn, df, card))
+    runs.append(timed(trajectory_phase, bn, df, card))
     timed(cpu_step_phase)
     runs.append(timed(path_phase, bn, df, card, "UNetRNN", False, k4_per_batch=0))
     runs.append(timed(train_phase, bn, df, card, "UNetRNN", False, UNETRNN_BN_PER_STEP, 0))
@@ -4565,8 +4704,8 @@ def main():
           "on float32 sums in either dtype, launched only by data-parallel steps); "
           "max_abs_err: over the path's own shapes; launches: over every path "
           "driven (NestedUNet, UNetRNN, VGG16RNN, ResNet50RNN, AttU_Net and UNetRNNPSP "
-          "serving and training, the arch sweep, the CLIs, the serving artifacts and "
-          "train --profile, --pretrained_backbone, "
+          "serving and training, NestedUNet's 15-epoch trajectory runs, the arch sweep, "
+          "the CLIs, the serving artifacts and train --profile, --pretrained_backbone, "
           "train_canet, the Refiner (none), train_isic_ca with val/infer --refine, the "
           "--remat steps, the data-parallel, spatial and 'model' axis steps, DoubleUnet "
           "and DeepLab "

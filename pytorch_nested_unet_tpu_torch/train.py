@@ -731,7 +731,7 @@ def parse_args(argv=None) -> dict:
 def _mesh_axes(config):
     """(names, sizes) of --mesh, or None; exits on a refused flag: a bad spec,
     an unknown axis, --spatial_partition without an 'x'/'y' axis in --mesh,
-    under x/y an arch or an input size that is not ported,
+    under x/y an input size that the axes do not divide (check_spatial),
     and --checkpoint_backend orbax across machines (checked here, before any
     process group is formed)."""
     if config["checkpoint_backend"] == "orbax" and multihost.spans_machines():

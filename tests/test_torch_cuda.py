@@ -456,6 +456,17 @@ def test_multipart_conv3x3_gradients(cuda, cps, co, hw):
         assert (got - want).norm() <= 1e-4 * want.norm()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multipart_conv3x3_on_an_empty_band_launches_nothing(cuda, dtype):
+    """MultipartConv3x3 on a band of zero rows gives an empty output without
+    a K4 launch, and its backward runs and gives the plain version's weight
+    and bias gradients (`chip_smoke.k4_empty_band`, which chip_smoke.py's
+    spatial phase runs too)."""
+    import chip_smoke
+
+    chip_smoke.k4_empty_band(df, cuda, dtype)
+
+
 def test_train_step_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(1)
     imgs = torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))

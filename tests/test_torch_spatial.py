@@ -19,7 +19,9 @@ every case of it:
   halo^T(g)> over the ranks, float64, 1e-6);
   `gather_bands` forward and backward; the train step of every x=2 case of
   `CASES` (UNet, NestedUNet wDS also under --remat full and policy,
-  AttU_Net, R2AttU_Net, UNetRNN with each decoder, UNetRM3, UNetRM7)
+  VGG16RNN, UNetRNNAttention; the other archs' x=2 cases of `ALL_CASES`
+  run the same way in their families' files, `FAMILIES`:
+  tests/test_torch_spatial_crdn.py and tests/test_torch_spatial_attention.py)
   against the JAX package's spatial step on 2 of its virtual CPU devices
   (`make_train_step(..., mesh=make_mesh((1, 2), ("data", "x")),
   spatial=True)`) from the same weights: loss 1e-5, running statistics
@@ -100,7 +102,7 @@ X2 = ((1, 2), ("data", "x"))
 # UNetRNNGhost's Ghost score blocks' neither). A case runs in the world of its
 # port mesh's size; one without a JAX mesh (CA-Net with dropout on) is held
 # to the port's one-process step only.
-CASES = {"UNet_data1_x2": ("UNet", False, "none", X2, X2, 18),
+ALL_CASES = {"UNet_data1_x2": ("UNet", False, "none", X2, X2, 18),
          "NestedUNet_data1_x2": ("NestedUNet", True, "none", X2, X2, 30),
          "NestedUNet_full_x2": ("NestedUNet", True, "full", X2, X2, 60),
          "NestedUNet_policy_x2": ("NestedUNet", True, "policy", X2, X2, 30),
@@ -122,6 +124,18 @@ CASES = {"UNet_data1_x2": ("UNet", False, "none", X2, X2, 18),
                                  ((2, 2), ("data", "x")), 30),
          "UNetRNNAttention_x2_y2": ("UNetRNNAttention", False, "none", ((2, 2), ("x", "y")),
                                     ((1, 2, 2), ("data", "x", "y")), 15)}
+# The x=2 steps held to the JAX package, split by family so that each
+# family's file (tests/test_torch_spatial_{crdn,attention}.py, each its own
+# launch of 2 ranks through `_family_ranks`) is one xdist worker's under
+# --dist loadfile. This file, which xdist starts first (it has the most
+# tests), keeps UNet's, NestedUNet's, VGG16RNN's and UNetRNNAttention's
+# (whose one-process and JAX steps its x=2,y=2 case reuses).
+FAMILIES = {"crdn": [f"UNetRNN_{d}_x2" for d in ("GRU", "LSTM", "vanilla")]
+                    + ["UNetRM3_x2", "UNetRM7_x2", "UNetRNNGhost_x2"],
+            "attention": ["AttU_Net_x2", "R2AttU_Net_x2", "UNetRNNPAttention_x2",
+                          "UNetRNNCAttention_x2", "CANet_x2"]}
+CASES = {c: v for c, v in ALL_CASES.items()
+         if not any(c in cases for cases in FAMILIES.values())}
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 SPLITS = [(2, 1), (3, 1), (4, 1), (1, 2), (2, 2), (1, 3)]
@@ -905,6 +919,32 @@ def _case_inputs(inp, world, t=None):
                                                      {"remat": remat}))
         jax_side[case] = (jm, jax_side[name])
     return jax_side
+
+
+def _family_worker(t, world, rank, port, d):
+    """Every case of `t.CASES` (a family's file) on this rank; writes
+    out<world>_<rank>.pt."""
+    import torch.distributed as dist
+
+    from pytorch_nested_unet_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.set_num_threads(2)
+    initialize_distributed(backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=world, rank=rank)
+    inp = torch.load(os.path.join(d, "in.pt"), weights_only=False)
+    out = {case: _step_case(inp, case, make_mesh(*t.CASES[case][3]), t) for case in t.CASES}
+    torch.save(out, os.path.join(d, f"out{world}_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _family_ranks(tmp_path_factory, t, script):
+    """A family file's launch of 2 ranks (`_family_worker` in `script`):
+    (inputs, each rank's outputs, the JAX side), as `two_ranks`."""
+    d = tmp_path_factory.mktemp("family2")
+    inp = {}
+    jax_side = _case_inputs(inp, 2, t)
+    torch.save(inp, d / "in.pt")
+    return inp, _launch(2, d, script), jax_side
 
 
 @pytest.fixture(scope="module")
